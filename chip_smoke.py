@@ -14,11 +14,20 @@ Phases, each printing one line with its times (CUDA events for kernels,
               ``webgraph_like(916_428, 5_105_039, seed=0)`` (web-Google size)
               at k=128 and k=32.  Max relative error and kernel/plain ms.
 4. main     — the port's main path with every launch counter at 0: the CLI
-              (.mtx ingest → preprocess → ELL SpMM k=128 → exact A×A SpGEMM,
-              --check against scipy) on the web-Google-sized graph, then the
-              SpMM dispatcher on the BSR and CSR forms.  Requires exact C
-              structure, SpMM within tolerance, and every kernel launched.
-5. report   — one JSON line of per-kernel results, the card's name and power
+              (.mtx ingest → preprocess → ELL SpMM k=128 → exact A×A through
+              the slab SpGEMM, --check against scipy) on the web-Google-sized
+              graph, then the SpMM dispatcher on the BSR and CSR forms.
+              Requires exact C structure, SpMM within tolerance, and every
+              kernel launched.
+5. slab     — the slab SpGEMM's entry points on the same graph, each product
+              held against one scipy A×A: the plan (with its aligned cache),
+              its numeric phase and the chain of 8 (CUDA events), the device
+              CSR, ``ops.spgemm`` three times (cold, plan build, plan reuse),
+              a value-mode product, the global-sort ``spgemm_sorted``, the
+              4-piece big path with a checkpoint and its resume (0 pieces
+              recomputed), peak device memory, and a profiler breakdown of the
+              warm numeric phase by op.
+6. report   — one JSON line of per-kernel results, the card's name and power
               limit, and the final ``{"ok": true, ...}`` line.
 
 Any failure stops the run with a nonzero exit and no result line.  There is
@@ -80,6 +89,188 @@ def max_errs(y, ref):
     err = float((y - ref).abs().max()) if y.numel() else 0.0
     scale = float(ref.abs().max()) if ref.numel() else 0.0
     return err, err / max(scale, 1e-30)
+
+
+def scipy_square(S):
+    ref = (S @ S).tocsr()
+    ref.sum_duplicates()
+    ref.sort_indices()
+    return ref
+
+
+def held_against(C, ref, what: str, rtol=None) -> float:
+    """Fails unless C's structure equals scipy's and its values are exact
+    (pattern counts) or, with ``rtol``, within rtol * max |scipy|.  Returns
+    the max abs error."""
+    h = C.host()
+    dat = np.asarray(h.data[: C.nnz])
+    require(C.nnz == ref.nnz and np.array_equal(np.asarray(h.indptr, np.int64), ref.indptr)
+            and np.array_equal(np.asarray(h.indices[: C.nnz]), ref.indices),
+            f"{what}: structure differs from scipy's ({C.nnz} vs {ref.nnz} nnz)")
+    err = float(np.abs(dat - ref.data).max()) if ref.nnz else 0.0
+    if rtol is None:
+        require(err == 0.0, f"{what}: counts differ from scipy's (max err {err})")
+    else:
+        require(err <= rtol * float(np.abs(ref.data).max()), f"{what}: max err {err:.3e}")
+    return err
+
+
+def device_breakdown(prof, n: int):
+    """A profile's device time per run of ``n``: (ops by the device time of
+    the kernels each launched, kernels and copies by their time, busy ms)."""
+    from torch.autograd import DeviceType
+
+    events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
+    by_op = [e for e in events if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+    by_kernel = [e for e in events if e.device_type != DeviceType.CPU]
+    return by_op, by_kernel, sum(e.self_device_time_total for e in by_kernel) / n / 1e3
+
+
+def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float) -> None:
+    """Phase 5: the slab SpGEMM's entry points at full size, each product held
+    against one scipy A×A."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spmm_tpu_torch import ops
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def peak_since(base):
+        return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def reset():
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    t_phase = t0 = time.perf_counter()
+    ref = scipy_square(A.to_scipy())
+    t_ref = (time.perf_counter() - t0) * 1e3
+    W = ss.DEFAULT_SEG_W
+    classes = ss._norm_classes(ss.DEFAULT_CLASSES, W)
+    sizing, t_size = timed(lambda: ss._sizing(A, A, W, classes))
+    sched, _ = ss._chunk_schedule(classes, sizing.counts, ss.DEFAULT_SLOT_BUDGET)
+    exp_pad = sizing.npa * W
+    slots = sum(L * R for L, R, _, _ in sched)
+    say(f"phase 5 setup: scipy A×A {ref.nnz} nnz ({t_ref:.1f} ms host) | sizing {t_size:.1f} ms: "
+        f"npa {sizing.npa}, padded expansion {exp_pad}, {len(sched)} chunks, {slots} slab slots, "
+        f"tail rows {sizing.counts[-1]}")
+
+    # plan (aligned cache) and its numeric phase
+    base = reset()
+    plan, t_plan_first = timed(lambda: ss.spgemm_plan(A, A, device=dev, sizing=sizing))
+    del plan
+    plan, t_plan = timed(lambda: ss.spgemm_plan(A, A, device=dev, sizing=sizing))
+    plan_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    (outs, _, _), t_num_first = timed(lambda: ss.spgemm_slab_device(A, A, plan))
+    num_ms = cuda_ms(torch, lambda: ss.spgemm_slab_device(A, A, plan), iters=5)
+    chain_ms = cuda_ms(torch, lambda: ss.spgemm_chain_device(plan, 8), iters=1, warmup=1) / 8
+    nnz_pad = ss._round_up(exp_pad, 1024)
+    Cd, t_compact = timed(lambda: ss._csr_of(outs, (A.nrow, A.ncol), nnz_pad, torch.float32, dev))
+    Ch, t_d2h = timed(lambda: ss._csr_to_host(Cd))
+    held_against(Ch, ref, "plan numeric")
+    peak_plan = peak_since(base)
+    held_against(ss._csr_of(ss.spgemm_chain_device(plan, 2), (A.nrow, A.ncol), nnz_pad,
+                            torch.float32, dev), ref, "spgemm_chain_device")
+    say(f"phase 5 plan: build {t_plan:.1f} ms (first {t_plan_first:.1f}), tables + aligned cache "
+        f"{plan_gb:.3f} GB | numeric {num_ms:.3f} ms (CUDA events, first {t_num_first:.1f} ms host) | "
+        f"chain {chain_ms:.3f} ms/product (8, one sync) | compaction {t_compact:.1f} ms | "
+        f"D2H {t_d2h:.1f} ms | peak {peak_plan:.3f} GB | numeric and chain exact")
+
+    # the device stages apart (ROADMAP queue 2): S2 expansion (the chunks'
+    # gathers, which the aligned cache runs once), S1 sort+merge (the aligned
+    # numeric phase), S3 compaction
+    def fetch_all():
+        for L, R_pad, start, cnt in sched:
+            base_, bm = ss._chunk_meta(plan.rowmeta, start, cnt, R_pad, L // W)
+            ss._chunk_fetch(plan, base_, bm, L=L, R_pad=R_pad, W=W, accum_dtype=torch.float32,
+                            pattern=plan.pattern)
+
+    s2_ms = cuda_ms(torch, fetch_all, iters=3, warmup=1)
+    s3_ms = cuda_ms(torch, lambda: ss._compact_to_csr(outs, nrow=A.nrow, nnz_pad=nnz_pad,
+                                                       dtype=torch.float32, device=dev), iters=3, warmup=1)
+    say(f"phase 5 stages (CUDA events): S2 expansion {s2_ms:.3f} ms | S1 sort+merge {num_ms:.3f} ms | "
+        f"S3 compaction {s3_ms:.3f} ms")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ss.spgemm_slab_device(A, A, plan)
+        torch.cuda.synchronize()
+    by_op, by_kernel, busy = device_breakdown(prof, 3)
+    say(f"phase 5 profile, warm numeric (device ms per product, busy {busy:.3f}): by op: "
+        + " | ".join(f"{e.key} x{e.count // 3} {e.self_device_time_total / 3e3:.3f}" for e in by_op[:6])
+        + " || by kernel: "
+        + " | ".join(f"{e.key[:70]} x{e.count // 3} {e.self_device_time_total / 3e3:.3f}"
+                     for e in by_kernel[:6]))
+    del outs, Cd, Ch, plan
+
+    base = reset()
+    Cdev, t_csr = timed(lambda: ss.spgemm_slab_csr(A, A, device=dev, sizing=sizing))
+    peak_csr = peak_since(base)
+    held_against(Cdev, ref, "spgemm_slab_csr")
+    del Cdev
+    say(f"phase 5 device CSR: spgemm_slab_csr {t_csr:.1f} ms (sizing given) | peak {peak_csr:.3f} GB "
+        f"= {peak_csr * 1e9 / exp_pad:.2f} B per padded-expansion slot | exact")
+
+    ss._PLAN_SEEN.clear()
+    ss._PLAN_CACHE.clear()
+    t_calls, peaks = [], []
+    for i in range(3):
+        base = reset()
+        C, t = timed(lambda: ops.spgemm(A, A, device=dev))
+        held_against(C, ref, f"ops.spgemm call {i + 1}")
+        t_calls.append(t)
+        peaks.append(peak_since(base))
+    require(len(ss._PLAN_CACHE) == 1, "ops.spgemm did not keep its plan")
+    say(f"phase 5 ops.spgemm: call 1 {t_calls[0]:.1f} ms | call 2 (plan build) {t_calls[1]:.1f} ms | "
+        f"call 3 (plan reuse) {t_calls[2]:.1f} ms | peaks {', '.join(f'{p:.3f}' for p in peaks)} GB | "
+        f"the CLI's first SpGEMM in this process {cli_spgemm_ms:.1f} ms | each exact")
+    # the device's idle share of one call, plan reuse and then without a plan
+    idle = []
+    for label in ("plan reuse", "no plan"):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, t = timed(lambda: ops.spgemm(A, A, device=dev))
+        _, by_kernel, busy = device_breakdown(prof, 1)
+        copies = sum(e.self_device_time_total for e in by_kernel if e.key.startswith("Memcpy")) / 1e3
+        idle.append(f"{label}: {t:.1f} ms under the profiler, device busy {busy:.3f} ms "
+                    f"(copies {copies:.3f}), idle {100 * (1 - busy / t):.1f}%")
+        ss._PLAN_SEEN.clear()
+        ss._PLAN_CACHE.clear()
+    say("phase 5 idle share of ops.spgemm: " + " | ".join(idle))
+
+    Av = dataclasses.replace(A, data=rng.standard_normal(np.asarray(A.data).shape).astype(np.float32))
+    ref_v = scipy_square(Av.to_scipy())
+    Cv, t_v = timed(lambda: ops.spgemm(Av, Av, device=dev))
+    err_v = held_against(Cv, ref_v, "value-mode ops.spgemm", rtol=1e-4)
+    Cs, t_sorted = timed(lambda: ops.spgemm_sorted(A, A, device=dev))
+    held_against(Cs, ref, "spgemm_sorted")
+    say(f"phase 5 value mode: ops.spgemm {t_v:.1f} ms, max_abs_err {err_v:.3e} (tol 1e-4 of max "
+        f"{float(np.abs(ref_v.data).max()):.3e}) | spgemm_sorted {t_sorted:.1f} ms, exact")
+    del Cv, Cs, ref_v
+
+    calls = []
+    real = ss._piece_exec
+    ss._piece_exec = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        with tempfile.TemporaryDirectory() as ck:
+            base = reset()
+            Cb, t_big = timed(lambda: ss.spgemm_slab_big(A, A, pieces=4, device=dev, checkpoint_dir=ck))
+            peak_big = peak_since(base)
+            held_against(Cb, ref, "spgemm_slab_big")
+            n_first = len(calls)
+            calls.clear()
+            Cb, t_resume = timed(lambda: ss.spgemm_slab_big(A, A, pieces=4, device=dev, checkpoint_dir=ck))
+            held_against(Cb, ref, "spgemm_slab_big resumed")
+    finally:
+        ss._piece_exec = real
+    require(n_first == 4, f"spgemm_slab_big ran {n_first} pieces, not 4")
+    require(not calls, f"the resume recomputed {len(calls)} pieces")
+    say(f"phase 5 big path: 4 pieces {t_big:.1f} ms, peak {peak_big:.3f} GB, exact | resume "
+        f"{t_resume:.1f} ms, 0 pieces recomputed, exact | phase 5 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -237,7 +428,9 @@ def main() -> int:
     for kname, n in launches.items():
         require(n > 0, f"kernel {kname} was not launched on the main path")
 
-    # ---- 5. report ---------------------------------------------------------
+    slab_phase(torch, A_web, dev, rng, cli_spgemm_ms=r["spgemm_ms"])
+
+    # ---- 6. report ---------------------------------------------------------
     replaces = {
         "bsr_spmm": ("spmm_tpu_torch/csrc/bsr_spmm.cu", "spmm_tpu/ops/pallas_bsr.py:38"),
         "ell_slab_spmm": ("spmm_tpu_torch/csrc/ell_slab_spmm.cu", "spmm_tpu/ops/pallas_ell.py:82"),

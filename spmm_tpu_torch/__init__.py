@@ -8,8 +8,14 @@ reference the port is tested against:
 - ``preprocess`` — the reference's locality pipeline (host numpy + the shared
                    native C++ passes)
 - ``ops``        — SpMM / SpMV (hand-written CUDA kernels K1 = BSR, K2 = ELL
-                   slab, with plain PyTorch versions on the CPU) and exact
-                   SpGEMM (global-sort ESC in torch)
+                   slab, with plain PyTorch versions on the CPU), exact
+                   SpGEMM (the slab-sorted ``ops.spgemm`` with plans, the
+                   streamed big path and checkpoints; the global-sort ESC
+                   for heavy rows) and sparse transforms
+- ``parallel``   — row partitioning (``partition_rows``) and the uniform
+                   chunk schedule of row pieces
+- ``utils``      — ``serialize.save`` / ``load`` (.npz, readable by both
+                   packages)
 - ``kernels``    — nvcc build + ctypes binding of ``csrc/*.cu``
 
 This package imports torch and numpy, never JAX or ``spmm_tpu``.

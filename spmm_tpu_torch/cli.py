@@ -7,11 +7,15 @@ containing ``matrix.txt`` (one matrix name per line) and
 ``mat/mtx/<name>/<name>.mtx``; writes ``<name> <preprocess_ms>ms`` lines to
 ``result.txt`` and a per-phase breakdown to stdout.  ``--spgemm`` / ``--spmm
 K`` run the compute (SpMM through kernel K2 on the ELL pack, exact A×A
-SpGEMM), ``--check`` verifies them against scipy, and ``--device`` picks the
-torch device (default ``cuda``; there is no silent fallback to the CPU).
+through the slab SpGEMM), ``--check`` verifies them against scipy, and
+``--device`` picks the torch device (default ``cuda``; there is no silent
+fallback to the CPU).  ``--save-format`` writes the preprocessed format beside
+each matrix as ``<name>.blocked.npz``; ``--checkpoint-dir`` lets a SpGEMM
+large enough to run in pieces resume from the pieces it finished.
 
 Usage:
   python -m spmm_tpu_torch.cli [--dir DIR] [--spgemm] [--spmm K] [--check] [--device DEV]
+                               [--save-format] [--checkpoint-dir DIR]
 """
 
 from __future__ import annotations
@@ -56,6 +60,13 @@ def process_matrix(path: str, args, device: torch.device) -> dict:
     out["v8_groups"] = P.ngroups
     checks = []
 
+    if args.save_format:
+        from spmm_tpu_torch.utils.serialize import save
+
+        fmt_path = os.path.splitext(path)[0] + ".blocked.npz"
+        save(fmt_path, P)
+        out["saved"] = fmt_path
+
     if args.spmm:
         from spmm_tpu_torch.formats.ell import ell_pack
         from spmm_tpu_torch.ops.ell_spmm import ell_spmm
@@ -84,7 +95,7 @@ def process_matrix(path: str, args, device: torch.device) -> dict:
 
         _sync(device)
         t0 = time.perf_counter()
-        C = spgemm(A, A, device=device)
+        C = spgemm(A, A, device=device, checkpoint_dir=args.checkpoint_dir)
         _sync(device)
         out["spgemm_ms"] = (time.perf_counter() - t0) * 1e3
         out["spgemm_out_nnz"] = C.nnz
@@ -124,7 +135,11 @@ def main(argv=None, results: list | None = None) -> int:
     ap.add_argument("--section-size", type=int, default=2048)
     ap.add_argument("--spmm", type=int, metavar="K", help="run SpMM with a random (n, K) RHS")
     ap.add_argument("--spgemm", action="store_true", help="run SpGEMM A@A")
+    ap.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                    help="piece-granular checkpoint/resume for huge SpGEMM "
+                    "products (killed runs resume at the last finished piece)")
     ap.add_argument("--check", action="store_true", help="verify against scipy")
+    ap.add_argument("--save-format", action="store_true", help="persist the packed format")
     ap.add_argument("--device", default="cuda", help="torch device for the compute (default cuda)")
     args = ap.parse_args(argv)
 

@@ -64,6 +64,8 @@ def _load() -> Optional[ctypes.CDLL]:
         ctypes.c_char_p, I32, LL, PLL, PLL, LL, LL,
         ctypes.c_char_p, I32,
     ]
+    lib.spgemm_sizing.restype = LL
+    lib.spgemm_sizing.argtypes = [PLL, I32, LL, PLL, LL, LL, PLL, LL, I32, PLL]
     _lib = lib
     return _lib
 
@@ -274,6 +276,36 @@ def panel_sort(lens: np.ndarray, panel_bounds: np.ndarray, group_width: int, max
         _i64p(group_row), _i64p(group_len), _i64p(row_group),
     )
     return perm, grouped.astype(bool), group_row[:ng].copy(), group_len[:ng].copy(), row_group
+
+
+def spgemm_sizing(a_indptr, a_ind, b_indptr, seg_w: int, classes):
+    """Native one-pass slab SpGEMM sizing (``ops/slab_spgemm.py``): for
+    C = A @ B with B rows cut into ``seg_w``-wide segments, returns (npa,
+    nsegB, cls) — the (A-nonzero × B-segment) pair count, the B segment
+    count and each A row's expansion class (index into the ascending
+    ``classes``; ``len(classes)`` above the last, ``len(classes) + 1`` for
+    an empty expansion) — or None."""
+    lib = _load()
+    if lib is None:
+        return None
+    a_indptr = np.ascontiguousarray(a_indptr, dtype=np.int64)
+    a_ind = np.ascontiguousarray(a_ind, dtype=np.int32)
+    b_indptr = np.ascontiguousarray(b_indptr, dtype=np.int64)
+    classes = np.ascontiguousarray(classes, dtype=np.int64)
+    nrowA = len(a_indptr) - 1
+    nrowB = len(b_indptr) - 1
+    # the C pass reads b_indptr[a_ind[p]] unchecked
+    if len(a_ind) < a_indptr[-1]:
+        raise ValueError("spgemm_sizing: a_ind is shorter than a_indptr[-1]")
+    if len(a_ind) and (int(a_ind.min()) < 0 or int(a_ind.max()) >= nrowB):
+        raise ValueError("spgemm_sizing: a column index of A is not a row of B")
+    cls = np.empty(nrowA, dtype=np.int32)
+    nsegB = np.zeros(1, dtype=np.int64)
+    npa = lib.spgemm_sizing(
+        _i64p(a_indptr), _i32p(a_ind), nrowA, _i64p(b_indptr), nrowB,
+        seg_w, _i64p(classes), len(classes), _i32p(cls), _i64p(nsegB),
+    )
+    return int(npa), int(nsegB[0]), cls
 
 
 def counting_argsort_i32(keys: np.ndarray, nkeys: int):

@@ -1,13 +1,31 @@
 from spmm_tpu_torch.ops.spmm import spmm, spmv, spmm_xla, spmv_xla
 from spmm_tpu_torch.ops.spgemm import spgemm_sorted, spgemm_coo_padded, spgemm_expand_bound
+from spmm_tpu_torch.ops.slab_spgemm import (
+    spgemm_chain_device,
+    spgemm_plan,
+    spgemm_plan_revalue,
+    spgemm_slab,
+    spgemm_slab_big,
+    spgemm_slab_csr,
+    spgemm_slab_device,
+)
 from spmm_tpu_torch.ops.ell_spmm import ell_spmm, ell_spmv
 from spmm_tpu_torch.ops.ell_kernel import ell_slab_spmm, ell_slab_spmm_reference
 from spmm_tpu_torch.ops.bsr_kernel import bsr_spmm, bsr_spmm_reference
 from spmm_tpu_torch.ops.segments import boundary_segments
+from spmm_tpu_torch.ops.transform import (
+    add,
+    col_sums,
+    diagonal,
+    row_sums,
+    scale_cols,
+    scale_rows,
+    transpose,
+)
 
-# the JAX package binds ``spgemm`` to its slab kernel (ops/slab_spgemm.py);
-# until that is ported, the exact global-sort ESC is the port's SpGEMM
-spgemm = spgemm_sorted
+# the production SpGEMM is the slab kernel, as in the JAX package; the
+# global-sort ESC (spgemm_sorted) takes its heavy-tail rows
+spgemm = spgemm_slab
 #: the JAX package's name for the BSR oracle
 bsr_spmm_xla = bsr_spmm_reference
 
@@ -17,6 +35,13 @@ __all__ = [
     "spmm_xla",
     "spmv_xla",
     "spgemm",
+    "spgemm_slab",
+    "spgemm_slab_device",
+    "spgemm_slab_csr",
+    "spgemm_slab_big",
+    "spgemm_plan",
+    "spgemm_plan_revalue",
+    "spgemm_chain_device",
     "spgemm_sorted",
     "spgemm_coo_padded",
     "spgemm_expand_bound",
@@ -28,4 +53,11 @@ __all__ = [
     "bsr_spmm_reference",
     "bsr_spmm_xla",
     "boundary_segments",
+    "transpose",
+    "add",
+    "diagonal",
+    "row_sums",
+    "col_sums",
+    "scale_rows",
+    "scale_cols",
 ]

@@ -8,9 +8,8 @@ device memory of huge products.  ``indptr``/``indices`` of the result are
 exact; data is the sum of the partial products in the values' dtype (integer
 counts, exact, for pattern matrices).
 
-The JAX package's production SpGEMM is the slab-sorted kernel
-(``ops/slab_spgemm.py``); until it is ported, this global-sort path is the
-port's ``ops.spgemm``.
+The production SpGEMM, ``ops.spgemm``, is the slab-sorted kernel
+(``ops/slab_spgemm.py``); it sends its heavy-tail rows here.
 """
 
 from __future__ import annotations
@@ -161,6 +160,5 @@ def spgemm(
     return out
 
 
-#: explicit name for the global-sort path (the JAX package's ``ops.spgemm``
-#: is the slab kernel; here both names are this function until it is ported)
+#: the global-sort path's name in ``ops`` (``ops.spgemm`` is the slab kernel)
 spgemm_sorted = spgemm

@@ -17,6 +17,8 @@ from spmm_tpu_torch import cli, ops
 from spmm_tpu_torch.formats import to_coo, write_mtx
 from spmm_tpu_torch.formats import synthetic as tsyn
 
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -93,3 +95,40 @@ def test_cli_module_entry_point(tmp_path):
     name, ms = (tmp_path / "result.txt").read_text().split()
     assert name == "g" and float(ms[:-2]) >= 0
     assert np.isfinite(float(ms[:-2]))
+
+
+def test_cli_save_format_writes_the_blocked_format(tmp_path):
+    from spmm_tpu_torch.preprocess import unpack_to_csr
+    from spmm_tpu_torch.utils.serialize import load
+
+    _layout(tmp_path, ("g",))
+    rows = []
+    assert cli.main(["--dir", str(tmp_path), "--save-format", "--device", "cpu"], results=rows) == 0
+    path = tmp_path / "mat" / "mtx" / "g" / "g.blocked.npz"
+    assert rows[0]["saved"] == str(path)
+    P = load(path)
+    assert (P.nregions, P.ngroups) == (rows[0]["regions"], rows[0]["v8_groups"])
+    ref = tsyn.webgraph_like(900, 6000, seed=0).to_scipy()
+    ref.sort_indices()
+    assert (unpack_to_csr(P).to_scipy() != ref).nnz == 0
+
+
+def test_cli_checkpoint_dir_resumes_a_pieced_spgemm(tmp_path, monkeypatch):
+    """With the piece budget cut, the CLI's SpGEMM runs in pieces, writes
+    them to --checkpoint-dir, and a second run recomputes none of them."""
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    monkeypatch.setattr(ss, "_MAX_EXP_PAD", 8192)
+    calls = []
+    real = ss._piece_exec
+    monkeypatch.setattr(ss, "_piece_exec", lambda *a, **k: calls.append(1) or real(*a, **k))
+    _layout(tmp_path, ("g",))
+    ck = tmp_path / "ck"
+    argv = ["--dir", str(tmp_path), "--spgemm", "--check", "--device", "cpu", "--checkpoint-dir", str(ck)]
+    rows = []
+    assert cli.main(argv, results=rows) == 0 and rows[0]["spgemm_exact"]
+    pieces = len(calls)
+    assert pieces >= 2 and len(list(ck.glob("piece_*.npz"))) == pieces
+    calls.clear()
+    assert cli.main(argv, results=rows) == 0 and rows[1]["spgemm_exact"]
+    assert calls == []

@@ -1,7 +1,7 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the
-card.  Every test here is marked ``cuda`` and skips without an NVIDIA GPU (a
-CUDA kernel has no CPU mode).  This file imports no JAX, so it also runs on a
-GPU machine without it:
+"""The hand-written CUDA kernels against their plain PyTorch versions, and
+both SpGEMM paths against scipy, on the card.  Every test here is marked
+``cuda`` and skips without an NVIDIA GPU (a CUDA kernel has no CPU mode).
+This file imports no JAX, so it also runs on a GPU machine without it:
 
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -98,10 +98,48 @@ def test_ell_spmm_on_card_matches_scipy(cuda, k):
 @pytest.mark.parametrize("budget", [1 << 26, 20000])
 def test_spgemm_on_card_is_exact(cuda, budget):
     A = tsyn.webgraph_like(5000, 30000, seed=1)
-    C = ops.spgemm(A, A, device=cuda, max_expand_per_chunk=budget)
+    C = ops.spgemm_sorted(A, A, device=cuda, max_expand_per_chunk=budget)
     S = A.to_scipy()
     ref = (S @ S).tocsr()
     ref.sort_indices()
     np.testing.assert_array_equal(C.indptr, ref.indptr)
     np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
     np.testing.assert_array_equal(C.data[: C.nnz], ref.data)  # integer counts: exact
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["pattern", "random"])
+def test_slab_spgemm_on_card_is_exact(cuda, values):
+    A = tsyn.webgraph_like(5000, 30000, seed=1)
+    if values == "random":
+        A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 5)[0])
+    C = ops.spgemm(A, A, device=cuda)
+    S = A.to_scipy()
+    ref = (S @ S).tocsr()
+    ref.sum_duplicates()
+    ref.sort_indices()
+    np.testing.assert_array_equal(C.indptr, ref.indptr)
+    np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
+    if values == "pattern":
+        np.testing.assert_array_equal(C.data[: C.nnz], ref.data)  # integer counts: exact
+    else:  # the merge's prefix-sum difference, as in tests/test_spgemm_slab.py
+        np.testing.assert_allclose(C.data[: C.nnz], ref.data, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_slab_merge_is_deterministic_on_card(cuda):
+    """Two runs of a value-mode product give bit-identical chunk outputs: the
+    duplicate merge uses sorts and prefix sums, no atomics."""
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    A = tsyn.webgraph_like(5000, 30000, seed=2)
+    A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 6)[0])
+    runs = [ss.spgemm_slab_device(A, A, device=cuda, slot_budget=1 << 16)[0] for _ in range(2)]
+    assert len(runs[0]) > 1
+    for c1, c2 in zip(*runs):
+        for x1, x2 in zip(c1, c2):
+            assert torch.equal(x1, x2)
+    plan = ss.spgemm_plan(A, A, device=cuda)
+    for c1, c2 in zip(ss.spgemm_slab_device(A, A, plan)[0], ss.spgemm_chain_device(plan, 2)):
+        for x1, x2 in zip(c1, c2):
+            assert torch.equal(x1, x2)

@@ -26,7 +26,7 @@ from spmm_tpu_torch.formats import mtx as tmtx
 from spmm_tpu_torch.formats import synthetic as tsyn
 from spmm_tpu_torch.ops.segments import boundary_segments
 
-from torch_parity import assert_same
+from torch_parity import assert_same, one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize(

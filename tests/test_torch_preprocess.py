@@ -16,7 +16,7 @@ from spmm_tpu_torch.config import Config
 from spmm_tpu_torch.formats import synthetic as tsyn
 from spmm_tpu_torch import preprocess as tpre
 
-from torch_parity import assert_same
+from torch_parity import assert_same, one_torch_thread  # noqa: F401  (autouse)
 
 CASES = [
     # the __graft_entry__.py:27-28 shape

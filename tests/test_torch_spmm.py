@@ -36,7 +36,7 @@ from spmm_tpu_torch.formats import synthetic as tsyn
 from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
 from spmm_tpu_torch.preprocess import preprocess
 
-from torch_parity import rhs
+from torch_parity import rhs, one_torch_thread  # noqa: F401  (autouse)
 
 
 BSR_CASES = [

@@ -4,8 +4,23 @@ two sparse containers, from either package, with numpy or torch leaves."""
 import dataclasses
 
 import numpy as np
+import pytest
+import torch
 
 from spmm_tpu_torch.formats import containers as tc
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for a test module that imports this fixture.  The
+    tier-1 run puts six pytest-xdist workers on the CPU's cores; with its own
+    pool of a thread per core, each worker's many small torch ops wait on
+    threads that do not get a core (the 1,024-piece big-path test: 44 s with
+    8 threads against 1.5 s with one, beside 7 busy processes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_same(a, b):
