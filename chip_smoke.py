@@ -27,8 +27,17 @@ Phases, each printing one line with its times (CUDA events for kernels,
               4-piece big path with a checkpoint and its resume (0 pieces
               recomputed), peak device memory, and a profiler breakdown of the
               warm numeric phase by op.
-6. report   — one JSON line of per-kernel results, the card's name and power
-              limit, and the final ``{"ok": true, ...}`` line.
+6. blocked  — slice 3 on the same graph, with the launch counters at 0 again:
+              ``preprocess`` → the slab views → ``blocked_spmm_slab`` at k=128
+              (one K2 launch per v8-group bucket; against its plain version
+              and scipy), the other BlockedCSR formulations, the 3-step
+              ``blocked_chain_spmv``, SpGEMM → SpMM on the device CSR (packed
+              by ``ell_pack_device``, K2 once per slab), ``bitmap_perm_device``
+              (equal to the host permutation), ``bsr_spmv``, ``sddmm`` and
+              ``entry()``; then each timed (CUDA events) beside ``ell_spmm``.
+7. report   — one JSON line of per-kernel results (launches of phases 4 and 6,
+              and the entry points that launched each kernel), the card's name
+              and power limit, and the final ``{"ok": true, ...}`` line.
 
 Any failure stops the run with a nonzero exit and no result line.  There is
 no CPU path: without CUDA, or without the rest of the repository beside this
@@ -40,6 +49,8 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import dataclasses
+import functools
+import importlib
 import json
 import os
 import re
@@ -85,6 +96,15 @@ def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_timed(torch, fn):
+    """``(fn(), ms)`` on the host clock around work that ends in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def max_errs(y, ref):
     err = float((y - ref).abs().max()) if y.numel() else 0.0
     scale = float(ref.abs().max()) if ref.numel() else 0.0
@@ -115,6 +135,19 @@ def held_against(C, ref, what: str, rtol=None) -> float:
     return err
 
 
+def traced(paths: dict, name: str, fn):
+    """Run ``fn`` and add ``name`` to the paths of every kernel it launched."""
+    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
+
+    mods = {"ell_slab_spmm": ell_kernel, "bsr_spmm": bsr_kernel}
+    before = {k: m.launches for k, m in mods.items()}
+    out = fn()
+    for k, m in mods.items():
+        if m.launches > before[k] and name not in paths[k]:
+            paths[k].append(name)
+    return out
+
+
 def device_breakdown(prof, n: int):
     """A profile's device time per run of ``n``: (ops by the device time of
     the kernels each launched, kernels and copies by their time, busy ms)."""
@@ -126,20 +159,15 @@ def device_breakdown(prof, n: int):
     return by_op, by_kernel, sum(e.self_device_time_total for e in by_kernel) / n / 1e3
 
 
-def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float) -> None:
+def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     """Phase 5: the slab SpGEMM's entry points at full size, each product held
-    against one scipy A×A."""
+    against one scipy A×A, which it returns (phase 6 reuses it)."""
     from torch.profiler import ProfilerActivity, profile
 
     from spmm_tpu_torch import ops
     from spmm_tpu_torch.ops import slab_spgemm as ss
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t0) * 1e3
+    timed = functools.partial(host_timed, torch)
 
     def peak_since(base):
         return (torch.cuda.max_memory_allocated() - base) / 1e9
@@ -271,6 +299,171 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float) -> None:
     require(not calls, f"the resume recomputed {len(calls)} pieces")
     say(f"phase 5 big path: 4 pieces {t_big:.1f} ms, peak {peak_big:.3f} GB, exact | resume "
         f"{t_resume:.1f} ms, 0 pieces recomputed, exact | phase 5 took {time.perf_counter() - t_phase:.1f} s")
+    return ref
+
+
+def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: float) -> dict:
+    """Phase 6: the BlockedCSR SpMM (the driver's single-chip forward) and
+    the rest of slice 3 at web-Google size.  Every entry point runs once
+    (the path, with the launch counts set to 0 by the caller), then each
+    result is held against scipy or its plain version and timed.  Returns
+    each kernel's launch count at the end of the path run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spmm_tpu_torch import ops
+    from spmm_tpu_torch.config import Config
+    from spmm_tpu_torch.entry import entry
+    from spmm_tpu_torch.formats import ell_pack_device
+    from spmm_tpu_torch.ops import blocked as bl
+    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
+    from spmm_tpu_torch.preprocess import bitmap_perm_device, bitmap_reorder, preprocess
+
+    spmm_mod = importlib.import_module("spmm_tpu_torch.ops.spmm")  # ops.spmm is the function
+
+    timed = functools.partial(host_timed, torch)
+
+    def within(y, ref, tol, what):
+        """max |y - ref| <= tol * max |ref| (numpy or tensors); returns the
+        max error over max |ref|."""
+        y, ref = (a.cpu().numpy() if hasattr(a, "cpu") else a for a in (y, ref))
+        err, scale = float(np.abs(y - ref).max()), float(np.abs(ref).max())
+        require(err <= tol * scale, f"{what}: max err {err:.3e} > {tol:g} * {scale:.3e}")
+        return err / scale
+
+    def k2_calls(name, fn, want):
+        n0 = ell_kernel.launches
+        out = traced(paths, name, fn)
+        require(ell_kernel.launches - n0 == want,
+                f"{name}: {ell_kernel.launches - n0} K2 launches, expected {want}")
+        return out
+
+    t_phase = time.perf_counter()
+    S = A.to_scipy()
+    # 1. preprocess and views (host clock)
+    P_host, t_pre = timed(lambda: preprocess(A, Config()))
+    P, t_h2d = timed(lambda: P_host.to(dev))
+    view, t_view = timed(lambda: ops.blocked_slab_view(P))
+    pview, t_pview = timed(lambda: ops.blocked_slab_view(P, panel=True))
+    ev, t_ev = timed(lambda: ops.blocked_exec_view(P))
+    pv, t_pv = timed(lambda: ops.blocked_panel_view(P))
+    buckets = view[0]
+    in_groups = sum(int(c.numel()) for _, c in buckets)
+    n_left = A.nrow - sum(int(c.shape[0]) for _, c in buckets)
+    Ls = [int(c.shape[1]) for _, c in buckets]
+    say(f"phase 6 setup: preprocess {t_pre:.1f} ms (host) | H2D {t_h2d:.1f} ms | slab view "
+        f"{t_view:.1f} ms, panel slab view {t_pview:.1f} ms, exec view {t_ev:.1f} ms, panel view "
+        f"{t_pv:.1f} ms | {P.ngroups} v8 groups in {len(buckets)} buckets (L {min(Ls)}-{max(Ls)}), "
+        f"{in_groups} of {A.nnz} nnz in groups, {n_left} leftover rows with {int(view[1][0].numel())} "
+        f"nnz | {P.nregions} regions, {P.ndistinct} panel columns")
+
+    B = torch.from_numpy(rng.standard_normal((A.ncol, 128)).astype(np.float32)).to(dev)
+    B32 = torch.from_numpy(rng.standard_normal((A.ncol, 32)).astype(np.float32)).to(dev)
+    x = torch.from_numpy(rng.standard_normal(A.ncol).astype(np.float32)).to(dev)
+    xb = torch.from_numpy(rng.standard_normal(A_band.shape[1]).astype(np.float32)).to(dev)
+    U = torch.from_numpy(rng.standard_normal((A.nrow, 128)).astype(np.float32)).to(dev)
+    V = torch.from_numpy(rng.standard_normal((A.ncol, 128)).astype(np.float32)).to(dev)
+    A_dev = A.pad(1024).to(dev)
+
+    # 2. the path: every entry point once
+    host_packs = []
+    real_pack = spmm_mod.ell_pack
+    spmm_mod.ell_pack = lambda *a, **k: host_packs.append(1) or real_pack(*a, **k)
+    y_slab = k2_calls("ops.blocked_spmm_slab", lambda: ops.blocked_spmm_slab(P, B, view), len(buckets))
+    y_pslab = k2_calls("ops.blocked_spmm_slab (panel view)",
+                       lambda: ops.blocked_spmm_slab(P, B, pview), len(pview[0]))
+    y_disp = k2_calls("ops.spmm(BlockedCSR)", lambda: ops.spmm(P, B), len(buckets))
+    y_xla = k2_calls("ops.blocked_spmm_xla", lambda: ops.blocked_spmm_xla(P, B, view=ev), 0)
+    y_panel = k2_calls("ops.blocked_spmm_panel", lambda: ops.blocked_spmm_panel(P, B, view=pv), 0)
+    y_chain = k2_calls("ops.blocked_chain_spmv", lambda: ops.blocked_chain_spmv(P, x, 3), 0)
+    Cd, t_csr = timed(lambda: ops.spgemm_slab_csr(A, A, device=dev))
+    n0 = ell_kernel.launches
+    y_c, t_cspmm_first = timed(lambda: traced(paths, "ops.spmm(device CSR)", lambda: ops.spmm(Cd, B32)))
+    Ec = spmm_mod._ell_of(Cd, dev)
+    require(ell_kernel.launches - n0 == len(Ec.data),
+            f"ops.spmm(device CSR): {ell_kernel.launches - n0} K2 launches, {len(Ec.data)} slabs")
+    spmm_mod.ell_pack = real_pack
+    require(not host_packs, "ops.spmm(device CSR) packed on the host")
+    require(all(t.is_cuda for t in (*Ec.data, *Ec.cols, Ec.perm, Ec.inv_perm, Ec.rest.data)),
+            "the device CSR's ELL pack has leaves off the card")
+    perm_d = bitmap_perm_device(A_dev, 2048)
+    y_bsrv = ops.bsr_spmv(Ab, xb)
+    C_sd = ops.sddmm(A_dev, U, V)
+    fn, args = entry(dev)
+    y_entry = k2_calls("entry.entry (blocked_spmm_slab)", lambda: fn(*args), len(args[2][0]))
+    torch.cuda.synchronize()
+    path_launches = {"ell_slab_spmm": ell_kernel.launches, "bsr_spmm": bsr_kernel.launches}
+
+    # 3. checks
+    ref = S @ B.cpu().numpy()
+    err_slab = within(y_slab, bl.blocked_spmm_slab_reference(P, B, view), RTOL_F32,
+                      "blocked_spmm_slab vs its plain version")
+    err_slab_sp = within(y_slab, ref, 1e-4, "blocked_spmm_slab vs scipy")
+    for y, what in ((y_pslab, "panel-view slab"), (y_disp, "ops.spmm(BlockedCSR)"),
+                    (y_xla, "blocked_spmm_xla"), (y_panel, "blocked_spmm_panel")):
+        within(y, ref, 1e-4, f"{what} vs scipy")
+    xh = x.cpu().numpy()
+    err_chain = within(y_chain, S @ (S @ (S @ xh)), 1e-4, "blocked_chain_spmv (3) vs scipy")
+    err_c = within(y_c, ref_C @ B32.cpu().numpy(), 1e-4, "ops.spmm(device CSR) vs scipy C @ B")
+    _, perm_h = bitmap_reorder(A, 2048, materialize=False)
+    require(np.array_equal(perm_d.cpu().numpy(), perm_h), "bitmap_perm_device differs from the host's")
+    xbh = xb.cpu().numpy().astype(np.float64)
+    err_bsrv = within(y_bsrv, A_band.to_scipy().astype(np.float64) @ xbh, 1e-4, "bsr_spmv vs scipy fp64")
+    sample = np.random.default_rng(6).choice(A.nnz, 10_000, replace=False)
+    rows = np.searchsorted(A.indptr, sample, side="right") - 1
+    cols = A.indices[sample]
+    ref_sd = np.einsum("ij,ij->i", U.cpu().numpy()[rows].astype(np.float64),
+                       V.cpu().numpy()[cols].astype(np.float64))
+    sd = C_sd.data.cpu().numpy()
+    err_sd = within(sd[sample], ref_sd, 1e-5, "sddmm sample vs numpy fp64")
+    require(not np.any(sd[A.nnz:]), "sddmm left a nonzero in the padding")
+    err_entry = within(y_entry, bl.blocked_spmm_slab_reference(*args), RTOL_F32,
+                       "entry() vs its plain version")
+    say(f"phase 6 checks (max err / max |ref|): slab vs plain {err_slab:.3e} (tol {RTOL_F32:g}), "
+        f"vs scipy {err_slab_sp:.3e}; panel slab, dispatcher, xla, panel within 1e-4 | "
+        f"chain {err_chain:.3e} | device-CSR SpMM k=32 {err_c:.3e} | bitmap_perm_device equal | "
+        f"bsr_spmv {err_bsrv:.3e} | "
+        f"sddmm {err_sd:.3e}, padding zero | entry {err_entry:.3e} | launches on the path "
+        f"{path_launches}")
+
+    # 4. times (CUDA events, mean of 10 unless said; host clock for set-up)
+    ms = {
+        "slab": cuda_ms(torch, lambda: ops.blocked_spmm_slab(P, B, view)),
+        "slab plain": cuda_ms(torch, lambda: bl.blocked_spmm_slab_reference(P, B, view), iters=5),
+        "panel slab": cuda_ms(torch, lambda: ops.blocked_spmm_slab(P, B, pview)),
+        "xla": cuda_ms(torch, lambda: ops.blocked_spmm_xla(P, B, view=ev)),
+        "panel": cuda_ms(torch, lambda: ops.blocked_spmm_panel(P, B, view=pv)),
+        "ell_spmm": cuda_ms(torch, lambda: ops.ell_spmm(E, B)),
+        "chain3": cuda_ms(torch, lambda: ops.blocked_chain_spmv(P, x, 3)),
+        "spmm Cd k=32": cuda_ms(torch, lambda: ops.spmm(Cd, B32)),
+        "perm": cuda_ms(torch, lambda: bitmap_perm_device(A_dev, 2048)),
+        "bsr_spmv": cuda_ms(torch, lambda: ops.bsr_spmv(Ab, xb)),
+        "sddmm": cuda_ms(torch, lambda: ops.sddmm(A_dev, U, V), iters=5),
+        "entry": cuda_ms(torch, lambda: fn(*args)),
+        "entry plain": cuda_ms(torch, lambda: bl.blocked_spmm_slab_reference(*args)),
+    }
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ops.blocked_spmm_slab(P, B, view)
+        torch.cuda.synchronize()
+    _, by_kernel, busy = device_breakdown(prof, 3)
+    _, t_pack_dev = timed(lambda: ell_pack_device(Cd))
+    _, t_pack_host = timed(lambda: real_pack(Cd).to(dev))
+    _, t_perm_host = timed(lambda: bitmap_reorder(A, 2048, materialize=False))
+    say(f"phase 6 times k=128 (CUDA events): blocked_spmm_slab {ms['slab']:.4f} ms ({len(buckets)} K2 "
+        f"launches) | its plain version {ms['slab plain']:.4f} | panel-view slab {ms['panel slab']:.4f} | "
+        f"blocked_spmm_xla {ms['xla']:.4f} | blocked_spmm_panel {ms['panel']:.4f} | ops.ell_spmm over the "
+        f"ELL pack {ms['ell_spmm']:.4f} (phase 3: K2 over its slabs {k2_ell_ms:.4f})")
+    say(f"phase 6 times: chain 3 iters {ms['chain3']:.4f} ms | device CSR ({Cd.nnz} nnz, spgemm_slab_csr "
+        f"{t_csr:.1f} ms host): ell_pack_device {t_pack_dev:.1f} ms host, host ell_pack + H2D "
+        f"{t_pack_host:.1f} ms host, {len(Ec.data)} slabs; ops.spmm k=32 first call (pack + SpMM) "
+        f"{t_cspmm_first:.1f} ms host, then {ms['spmm Cd k=32']:.4f} ms | bitmap_perm_device "
+        f"{ms['perm']:.4f} ms vs host bitmap_reorder {t_perm_host:.1f} ms | bsr_spmv {ms['bsr_spmv']:.4f} | "
+        f"sddmm k=128 {ms['sddmm']:.4f} | entry() {ms['entry']:.4f} vs plain {ms['entry plain']:.4f} | "
+        f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
+    say(f"phase 6 profile, blocked_spmm_slab k=128 (device ms per call, busy {busy:.3f}): by kernel: "
+        + " | ".join(f"{e.key[:60]} x{e.count // 3} {e.self_device_time_total / 3e3:.3f}"
+                     for e in by_kernel[:6]))
+    return path_launches
 
 
 def main() -> int:
@@ -394,12 +587,13 @@ def main() -> int:
         B_csr = torch.from_numpy(rng.standard_normal((WEB_N, 128)).astype(np.float32)).to(dev)
         ell_kernel.launches = 0
         bsr_kernel.launches = 0
+        paths = {"ell_slab_spmm": [], "bsr_spmm": []}
         t0 = time.perf_counter()
         rows: list = []
-        rc = cli.main(["--dir", tmp, "--spgemm", "--spmm", "128", "--check", "--device", "cuda"],
-                      results=rows)
-        y_csr = ops.spmm(A_web, B_csr)
-        y_bsr = ops.spmm(Ab, B_band)
+        rc = traced(paths, "cli.main --spmm 128 (ops.ell_spmm)", lambda: cli.main(
+            ["--dir", tmp, "--spgemm", "--spmm", "128", "--check", "--device", "cuda"], results=rows))
+        y_csr = traced(paths, "ops.spmm(CSR)", lambda: ops.spmm(A_web, B_csr))
+        y_bsr = traced(paths, "ops.spmm(BSR)", lambda: ops.spmm(Ab, B_band))
         torch.cuda.synchronize()
         t_main = time.perf_counter() - t0
         launches = {"ell_slab_spmm": ell_kernel.launches, "bsr_spmm": bsr_kernel.launches}
@@ -428,16 +622,25 @@ def main() -> int:
     for kname, n in launches.items():
         require(n > 0, f"kernel {kname} was not launched on the main path")
 
-    slab_phase(torch, A_web, dev, rng, cli_spgemm_ms=r["spgemm_ms"])
+    ref_C = slab_phase(torch, A_web, dev, rng, cli_spgemm_ms=r["spgemm_ms"])
 
-    # ---- 6. report ---------------------------------------------------------
+    # ---- 6. the BlockedCSR path and the rest of slice 3 --------------------
+    ell_kernel.launches = 0
+    bsr_kernel.launches = 0
+    launches6 = blocked_phase(torch, A_web, E, Ab, A_band, ref_C, dev, rng, paths,
+                              k2_ell_ms=results["ell_slab_spmm"]["ms"])
+    require(launches6["ell_slab_spmm"] > 0, "K2 was not launched on the blocked path (phase 6)")
+    for kname, n in launches6.items():
+        launches[kname] += n
+
+    # ---- 7. report ---------------------------------------------------------
     replaces = {
         "bsr_spmm": ("spmm_tpu_torch/csrc/bsr_spmm.cu", "spmm_tpu/ops/pallas_bsr.py:38"),
         "ell_slab_spmm": ("spmm_tpu_torch/csrc/ell_slab_spmm.cu", "spmm_tpu/ops/pallas_ell.py:82"),
     }
     report = [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[kname], **results[kname]}
+         "launches": launches[kname], "paths": paths[kname], **results[kname]}
         for kname, (src, rep) in replaces.items()
     ]
     say(json.dumps({"kernels": report}))

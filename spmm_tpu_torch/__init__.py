@@ -6,12 +6,16 @@ reference the port is tested against:
 - ``formats``    — COO / CSR / BSR / ELL / BlockedCSR containers (numpy on the
                    host, torch tensors on a device) + .mtx ingest + generators
 - ``preprocess`` — the reference's locality pipeline (host numpy + the shared
-                   native C++ passes)
+                   native C++ passes; the bitmap reorder also on the device)
 - ``ops``        — SpMM / SpMV (hand-written CUDA kernels K1 = BSR, K2 = ELL
-                   slab, with plain PyTorch versions on the CPU), exact
-                   SpGEMM (the slab-sorted ``ops.spgemm`` with plans, the
-                   streamed big path and checkpoints; the global-sort ESC
-                   for heavy rows) and sparse transforms
+                   slab, with plain PyTorch versions on the CPU) over ELL,
+                   BSR, CSR and the packed BlockedCSR (K2 per v8-group
+                   bucket), SDDMM, exact SpGEMM (the slab-sorted
+                   ``ops.spgemm`` with plans, the streamed big path and
+                   checkpoints; the global-sort ESC for heavy rows) and
+                   sparse transforms
+- ``entry``      — the single-chip forward step (blocked SpMM of the
+                   preprocessed format), as the JAX package's ``entry()``
 - ``parallel``   — row partitioning (``partition_rows``) and the uniform
                    chunk schedule of row pieces
 - ``utils``      — ``serialize.save`` / ``load`` (.npz, readable by both

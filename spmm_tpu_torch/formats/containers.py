@@ -38,6 +38,11 @@ def as_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def device_of(a) -> torch.device:
+    """Where an array leaf lies: a tensor's device, the CPU for numpy."""
+    return a.device if isinstance(a, torch.Tensor) else torch.device("cpu")
+
+
 def as_numpy(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()

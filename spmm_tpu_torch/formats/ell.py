@@ -1,4 +1,5 @@
-"""ELLPACK / SELL format (port of ``spmm_tpu/formats/ell.py``, host pack).
+"""ELLPACK / SELL format (port of ``spmm_tpu/formats/ell.py``): the host
+pack and the pack of a CSR held in tensors, on their device.
 
 Sorting rows by length and padding each length class to a dense (R, L) slab
 turns the row reduction into a dense per-row sum over L — no scatter; one
@@ -16,9 +17,10 @@ import dataclasses
 from typing import Any, Tuple
 
 import numpy as np
+import torch
 
 from spmm_tpu_torch import native
-from spmm_tpu_torch.formats.containers import CSR, Container
+from spmm_tpu_torch.formats.containers import CSR, Container, as_numpy
 
 Array = Any
 
@@ -157,6 +159,82 @@ def ell_pack(A: CSR, *, exact_max: int = 64, step: int = 32, max_len: int = 2048
         rest=rest,
         perm=perm.astype(np.int32),
         inv_perm=inv.astype(np.int32),
+        shape=(m, n),
+        nnz=A.nnz,
+        n_empty=n_empty,
+        n_rest_rows=n_rest,
+    )
+
+
+def ell_pack_device(
+    A: CSR, *, exact_max: int = 64, step: int = 32, max_len: int = 2048
+) -> ELL:
+    """ELL pack of a CSR held in tensors (e.g. a chained SpGEMM output,
+    ``ops.spgemm_slab_csr``), on their device: only the (nrow+1,) indptr
+    comes to the host, for the nrow-scale slab plan, and every nnz-scale
+    gather runs where the CSR lies.  This closes the chain C = A@B (device
+    CSR) -> SpMM/SpMV without an nnz-scale round trip through the host.  The
+    result equals :func:`ell_pack` of the same CSR, field for field."""
+    dev = A.data.device
+    m, n = A.shape
+    indptr = np.asarray(as_numpy(A.indptr), dtype=np.int64)  # nrow-scale D2H only
+    lens = indptr[1:] - indptr[:-1]
+    perm, n_empty, slabs, lo_rest = _slab_plan(lens, exact_max, step, max_len)
+    indices, data = A.indices, A.data
+    zero = torch.zeros((), dtype=data.dtype, device=dev)
+    # every row's start and length in sorted order, in one copy each
+    ptr_s = torch.from_numpy(indptr[perm]).to(dev)
+    len_s = torch.from_numpy(lens[perm]).to(dev)
+
+    col_slabs, data_slabs = [], []
+    for L, lo, hi in slabs:
+        # (R, L) slab: row r reads indices/data[ptr[r] : ptr[r] + L], zero
+        # past its length
+        pos = torch.arange(L, device=dev)
+        mask = pos[None, :] < len_s[lo:hi, None]
+        src = torch.where(mask, ptr_s[lo:hi, None] + pos[None, :], 0)
+        col_slabs.append(torch.where(mask, indices[src], 0).to(torch.int32))
+        data_slabs.append(torch.where(mask, data[src], zero))
+
+    rest_rows = perm[lo_rest:]
+    n_rest = len(rest_rows)
+    if n_rest:
+        ln = lens[rest_rows]
+        rest_indptr = np.zeros(n_rest + 1, dtype=np.int64)
+        np.cumsum(ln, out=rest_indptr[1:])
+        rest_nnz = int(rest_indptr[-1])
+        # destination position -> source nonzero, through the (small)
+        # leftover indptr: no nnz-scale host work
+        nnz_pad = -(-rest_nnz // 8) * 8
+        pos = torch.arange(nnz_pad, device=dev)
+        iptr = torch.from_numpy(rest_indptr).to(dev)
+        r_of = (torch.searchsorted(iptr, pos, right=True) - 1).clamp(0, n_rest - 1)
+        live = pos < rest_nnz
+        src = torch.where(live, ptr_s[lo_rest:][r_of] + pos - iptr[r_of], 0)
+        rest = CSR(
+            data=torch.where(live, data[src], zero),
+            indices=torch.where(live, indices[src], 0).to(torch.int32),
+            indptr=iptr.to(torch.int32),
+            shape=(n_rest, n),
+            nnz=rest_nnz,
+        )
+    else:
+        rest = CSR(
+            data=torch.zeros(1, dtype=data.dtype, device=dev),
+            indices=torch.zeros(1, dtype=torch.int32, device=dev),
+            indptr=torch.zeros(2, dtype=torch.int32, device=dev),
+            shape=(1, n),
+            nnz=0,
+        )
+
+    inv = np.empty(m, dtype=np.int64)
+    inv[perm] = np.arange(m)
+    return ELL(
+        data=tuple(data_slabs),
+        cols=tuple(col_slabs),
+        rest=rest,
+        perm=torch.from_numpy(perm.astype(np.int32)).to(dev),
+        inv_perm=torch.from_numpy(inv.astype(np.int32)).to(dev),
         shape=(m, n),
         nnz=A.nnz,
         n_empty=n_empty,

@@ -11,7 +11,19 @@ from spmm_tpu_torch.ops.slab_spgemm import (
 )
 from spmm_tpu_torch.ops.ell_spmm import ell_spmm, ell_spmv
 from spmm_tpu_torch.ops.ell_kernel import ell_slab_spmm, ell_slab_spmm_reference
-from spmm_tpu_torch.ops.bsr_kernel import bsr_spmm, bsr_spmm_reference
+from spmm_tpu_torch.ops.bsr_kernel import bsr_spmm, bsr_spmm_reference, bsr_spmv
+from spmm_tpu_torch.ops.blocked import (
+    blocked_chain_spmv,
+    blocked_exec_view,
+    blocked_panel_view,
+    blocked_slab_view,
+    blocked_spmm,
+    blocked_spmm_panel,
+    blocked_spmm_slab,
+    blocked_spmm_slab_reference,
+    blocked_spmm_xla,
+)
+from spmm_tpu_torch.ops.sddmm import sddmm, sddmm_values
 from spmm_tpu_torch.ops.segments import boundary_segments
 from spmm_tpu_torch.ops.transform import (
     add,
@@ -52,6 +64,18 @@ __all__ = [
     "bsr_spmm",
     "bsr_spmm_reference",
     "bsr_spmm_xla",
+    "bsr_spmv",
+    "blocked_exec_view",
+    "blocked_spmm_xla",
+    "blocked_panel_view",
+    "blocked_spmm_panel",
+    "blocked_slab_view",
+    "blocked_spmm_slab",
+    "blocked_spmm_slab_reference",
+    "blocked_chain_spmv",
+    "blocked_spmm",
+    "sddmm",
+    "sddmm_values",
     "boundary_segments",
     "transpose",
     "add",

@@ -1,10 +1,12 @@
 """K1 — BSR SpMM: the CUDA kernel ``csrc/bsr_spmm.cu``, its plain PyTorch
-version, and the wrapper that picks between them by the tensors' device.
+version, and the wrapper that picks between them by the tensors' device;
+beside them the BSR SpMV, plain PyTorch on every device.
 
 Replaces the Pallas TPU kernel ``spmm_tpu/ops/pallas_bsr.py:
 bsr_spmm_pallas``; ``bsr_spmm_reference`` is the counterpart of that
-module's ``bsr_spmm_xla`` oracle.  The kernel's header says what bounds it on
-the card and how its design answers that.
+module's ``bsr_spmm_xla`` oracle and ``bsr_spmv`` of its ``bsr_spmv``.  The
+kernel's header says what bounds it on the card and how its design answers
+that.
 """
 
 from __future__ import annotations
@@ -95,3 +97,22 @@ def bsr_spmm(A: BSR, B: torch.Tensor) -> torch.Tensor:
     )
     kernels.check(err, "bsr_spmm")
     return Y
+
+
+def bsr_spmv(A: BSR, x: torch.Tensor, *, accum_dtype=None) -> torch.Tensor:
+    """y[m] = A_bsr @ x[n] (port of ``spmm_tpu/ops/pallas_bsr.py: bsr_spmv``,
+    XLA there and plain PyTorch here on every device): one (nblocks, bn)
+    gather of x tiles, a batched matvec per block and an ``index_add_`` over
+    block rows.  Accumulates in ``accum_dtype``, by default the promotion of
+    the block dtype with fp32, so fp64 blocks stay fp64."""
+    bm, bn = A.block_shape
+    m = A.shape[0]
+    dev = x.device
+    data = as_tensor(A.data, dev)
+    acc = accum_dtype or torch.promote_types(data.dtype, torch.float32)
+    xt = _padded_rhs(A, x[:, None]).reshape(-1, bn)
+    gx = xt.index_select(0, as_tensor(A.block_cols, dev).long()).to(acc)  # (nblocks, bn)
+    prods = torch.bmm(data.to(acc), gx[:, :, None])[:, :, 0]  # (nblocks, bm)
+    y = torch.zeros((A.nbrows, bm), dtype=acc, device=dev)
+    y.index_add_(0, as_tensor(A.block_rows, dev).long(), prods)
+    return y.reshape(A.nbrows * bm)[:m]

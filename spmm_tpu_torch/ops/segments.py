@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from spmm_tpu_torch.formats.containers import as_tensor
+from spmm_tpu_torch.formats.containers import as_tensor, device_of
 
 
 def boundary_segments(boundaries, out_size: int, *, dtype=torch.int32, device=None) -> torch.Tensor:
@@ -22,7 +22,7 @@ def boundary_segments(boundaries, out_size: int, *, dtype=torch.int32, device=No
     for a numpy array).
     """
     if device is None:
-        device = boundaries.device if isinstance(boundaries, torch.Tensor) else "cpu"
+        device = device_of(boundaries)
     b = as_tensor(boundaries, device).to(torch.int64)[1:-1]
     b = b[b < out_size]  # out-of-range boundaries are dropped, as a scatter with mode="drop"
     z = torch.zeros((out_size,), dtype=torch.int64, device=device)

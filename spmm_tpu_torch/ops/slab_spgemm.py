@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from spmm_tpu_torch import native
-from spmm_tpu_torch.formats.containers import COO, CSR, Container, as_numpy, to_coo, to_csr
+from spmm_tpu_torch.formats.containers import COO, CSR, Container, as_numpy, device_of, to_coo, to_csr
 from spmm_tpu_torch.ops.spgemm import spgemm_sorted
 from spmm_tpu_torch.ops.transform import _stable_argsort_smallint
 
@@ -128,13 +128,14 @@ def _device(A: CSR, device) -> torch.device:
     """``device`` when given, else where A's tensors lie (the CPU for numpy)."""
     if device is not None:
         return torch.device(device)
-    return A.data.device if isinstance(A.data, torch.Tensor) else torch.device("cpu")
+    return device_of(A.data)
 
 
 class _ExpansionTooLarge(ValueError):
     """Padded expansion exceeds ``_MAX_EXP_PAD``.  ``spgemm_slab`` catches it
     and runs the product in pieces (``spgemm_slab_big``); from the lower-level
-    entry points it propagates as a ValueError naming that remedy."""
+    entry points it propagates as a ValueError naming that remedy.  Args:
+    (padded slots, padded slots of the rows below the class ceiling)."""
 
     def __str__(self):
         return (
@@ -178,6 +179,15 @@ def _fold_small_classes(counts: np.ndarray, nclasses: int):
     return counts, remap
 
 
+def _tail_pairs(a_iptr, a_ind, cls, tail: int, nseg_row) -> int:
+    """(A nonzero × B segment) pairs of the rows of class ``tail`` (above the
+    class ceiling: they take the global-sort ESC), over those rows alone."""
+    trows = np.nonzero(cls == tail)[0]
+    tl = a_iptr[trows + 1] - a_iptr[trows]
+    tpos = np.repeat(a_iptr[trows] - np.cumsum(tl) + tl, tl) + np.arange(tl.sum())
+    return int(nseg_row[np.asarray(a_ind)[tpos].astype(np.int64)].sum())
+
+
 def _sizing(A: CSR, B: CSR, W: int, classes) -> Sizing:
     """O(nnz + nrow) host sizing: (npa, nsegB, per-row class, counts) and the
     class permutation.  Native C++ pass, numpy without the native library.
@@ -202,7 +212,9 @@ def _sizing(A: CSR, B: CSR, W: int, classes) -> Sizing:
         cls = np.searchsorted(classes_np, exp_pad_row, side="left").astype(np.int32)
         cls[exp_pad_row == 0] = len(classes) + 1
     if npa * W >= _MAX_EXP_PAD:
-        raise _ExpansionTooLarge(npa * W)
+        nseg_row = (b_iptr[1:] - b_iptr[:-1] + W - 1) // W
+        tail = _tail_pairs(a_iptr, a_ind, cls, len(classes), nseg_row)
+        raise _ExpansionTooLarge(npa * W, (npa - tail) * W)
     counts, remap = _fold_small_classes(np.bincount(cls, minlength=len(classes) + 2), len(classes))
     cls = remap[cls]
     rows_sorted = native.counting_argsort_i32(cls, len(classes) + 2)
@@ -241,7 +253,7 @@ def _sizing_device(A: CSR, B: CSR, W: int, classes) -> Sizing:
     head = torch.cat([seg_c[-1:], nsegB_row.sum().view(1), counts]).cpu().numpy()
     npa, nsegB = int(head[0]), int(head[1])
     if npa * W >= _MAX_EXP_PAD:
-        raise _ExpansionTooLarge(npa * W)
+        raise _ExpansionTooLarge(npa * W, int(exp_pad_row[cls < nclasses].sum()))
     counts, remap = _fold_small_classes(head[2:], nclasses)
     cls = torch.from_numpy(remap).to(dev)[cls]
     return Sizing(
@@ -872,9 +884,10 @@ def spgemm_slab(
     try:
         sizing = _sizing(A, B, W, classes_n)
     except _ExpansionTooLarge as e:
-        # uniform row pieces; start the piece search at total / (budget / 2)
+        # uniform row pieces; start the piece search at the slab slots /
+        # (budget / 2): the tail rows' pairs take no slots
         hint = 2
-        while hint * _MAX_EXP_PAD < int(e.args[0]) * 2:
+        while hint * _MAX_EXP_PAD < int(e.args[1]) * 2:
             hint *= 2
         out = spgemm_slab_big(
             A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget,
@@ -1098,13 +1111,15 @@ def spgemm_slab_big(
         # splitting at one-row pieces
         at_min = S.rows_per_shard <= 1 or P >= A.nrow
         try:
-            cls, counts, npa_max, nnz_s = _per_shard_sizing(S, B, W, classes)
+            cls, counts, npa_max, nnz_s, npa_body = _per_shard_sizing(S, B, W, classes)
         except ValueError:  # a piece still exceeds the int32 expansion
             if at_min:
                 raise
             P *= 2
             continue
-        if pieces is not None or npa_max * W <= _MAX_EXP_PAD or at_min:
+        # the budget holds the slab slots only: tail rows take the ESC
+        body_max = int(npa_body.max(initial=0))
+        if pieces is not None or body_max * W <= _MAX_EXP_PAD or at_min:
             break
         P *= 2
 
@@ -1145,7 +1160,8 @@ def spgemm_slab_big(
         if checkpoint_dir is not None
         else None
     )
-    nnz_pad_piece = _round_up(npa_max * W, 1024)
+    # only tail-free pieces compact on the device, and their pairs are all body
+    nnz_pad_piece = _round_up(body_max * W, 1024)
     piece_csrs = []
     for p in range(P):
         if ckpt is not None:

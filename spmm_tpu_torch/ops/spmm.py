@@ -4,7 +4,8 @@
   counterparts of the JAX package's XLA gather + segment-sum paths).  Correct
   for any CSR, padded or tight.
 - ``spmm`` / ``spmv``: dispatchers on the input format — ELL (kernel K2), BSR
-  (kernel K1), CSR (large CSRs pack to ELL once, memoized per instance).
+  (kernel K1), BlockedCSR (``ops/blocked.py``, K2 per v8-group bucket), CSR
+  (large CSRs pack to ELL once, memoized per instance).
 
 Results are fp32; values may be stored bf16 or fp32 (fp64 parity is a later
 slice).
@@ -19,7 +20,8 @@ import torch
 
 from spmm_tpu_torch.formats.bsr import BSR
 from spmm_tpu_torch.formats.containers import CSR, BlockedCSR, as_tensor
-from spmm_tpu_torch.formats.ell import ELL, ell_pack
+from spmm_tpu_torch.formats.ell import ELL, ell_pack, ell_pack_device
+from spmm_tpu_torch.ops.blocked import blocked_spmm
 from spmm_tpu_torch.ops.bsr_kernel import bsr_spmm
 from spmm_tpu_torch.ops.ell_spmm import ell_spmm, ell_spmv
 from spmm_tpu_torch.ops.segments import boundary_segments
@@ -54,12 +56,15 @@ _ELL_CACHE: dict = {}  # id(CSR) -> (weakref, ELL on some device)
 
 def _ell_of(A: CSR, device) -> ELL:
     """Memoized ELL pack of a CSR (weakly keyed by instance), on ``device``.
-    A CSR held in tensors is packed on the host as well (the device pack,
-    ``ell_pack_device``, is not ported yet)."""
+    A numpy-held CSR packs on the host; a tensor-held one (e.g. a chained
+    SpGEMM output) packs on its own device through ``ell_pack_device``, so
+    no nnz-scale array crosses to the host."""
     key = id(A)
     ent = _ELL_CACHE.get(key)
     if ent is not None and ent[0]() is A:
         E = ent[1]
+    elif isinstance(A.data, torch.Tensor):
+        E = ell_pack_device(A)
     else:
         E = ell_pack(A)
     E = E.to(device)
@@ -71,22 +76,17 @@ def _auto_ell(A) -> bool:
     return isinstance(A, CSR) and A.nnz >= AUTO_ELL_THRESHOLD
 
 
-def _blocked_unported():
-    return NotImplementedError(
-        "BlockedCSR SpMM (spmm_tpu/ops/blocked.py) is not ported yet; see ROADMAP.md"
-    )
-
-
 def spmm(A, B: torch.Tensor, **kw) -> torch.Tensor:
-    """Dispatch SpMM on the input format: ELL (K2), BSR (K1), CSR (gather +
-    ``index_add_``; CSRs with nnz >= AUTO_ELL_THRESHOLD pack to ELL once and
-    reuse the pack across calls)."""
+    """Dispatch SpMM on the input format: ELL (K2), BSR (K1), BlockedCSR (the
+    v8-slab path, K2 per bucket), CSR (gather + ``index_add_``; CSRs with
+    nnz >= AUTO_ELL_THRESHOLD pack to ELL once and reuse the pack across
+    calls)."""
     if isinstance(A, ELL):
         return ell_spmm(A, B, **kw)
     if isinstance(A, BSR):
         return bsr_spmm(A, B, **kw)
     if isinstance(A, BlockedCSR):
-        raise _blocked_unported()
+        return blocked_spmm(A, B, **kw)
     if _auto_ell(A):
         return ell_spmm(_ell_of(A, B.device), B, **kw)
     return spmm_xla(A, B, **kw)
@@ -96,7 +96,7 @@ def spmv(A, x: torch.Tensor, **kw) -> torch.Tensor:
     if isinstance(A, ELL):
         return ell_spmv(A, x, **kw)
     if isinstance(A, BlockedCSR):
-        raise _blocked_unported()
+        return blocked_spmm(A, x[:, None], **kw)[:, 0]
     if _auto_ell(A):
         return ell_spmv(_ell_of(A, x.device), x, **kw)
     return spmv_xla(A, x, **kw)

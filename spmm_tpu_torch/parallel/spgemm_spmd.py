@@ -14,20 +14,25 @@ import numpy as np
 
 from spmm_tpu_torch import native
 from spmm_tpu_torch.formats.containers import CSR
-from spmm_tpu_torch.ops.slab_spgemm import _bucket_pow2, _round_up
+from spmm_tpu_torch.ops.slab_spgemm import _bucket_pow2, _round_up, _tail_pairs
 from spmm_tpu_torch.parallel.partition import ShardedCSR
 
 
 def _per_shard_sizing(S: ShardedCSR, B: CSR, W: int, classes):
     """Host sizing of each shard against one B: (cls (nsh, rows_pad) int32,
-    counts (nsh, nclasses + 1) int64, npa_max, nnz (nsh,) int32).  Raises
-    ValueError when a shard's padded expansion exceeds the int32 range."""
+    counts (nsh, nclasses + 1) int64, npa_max, nnz (nsh,) int32, npa_body
+    (nsh,) int64).  ``npa_body`` counts only the pairs of rows below the
+    class ceiling: a tail row goes to the global-sort ESC, so its pairs take
+    no slab slots.  Raises ValueError when a shard's padded expansion
+    exceeds the int32 range."""
     b_iptr = np.asarray(B.host().indptr, dtype=np.int64)
     lenB = b_iptr[1:] - b_iptr[:-1]
+    nsegB_row = (lenB + W - 1) // W
     ind = np.asarray(S.indices)
     iptr = np.asarray(S.indptr, dtype=np.int64)
     classes_np = np.asarray(classes, np.int64)
-    cls_all, counts_all, npa_max, nnz_s = [], [], 0, []
+    tail = len(classes)
+    cls_all, counts_all, npa_max, nnz_s, body = [], [], 0, [], []
     for s in range(S.n_shards):
         nnz = int(iptr[s, -1])
         nnz_s.append(nnz)
@@ -35,7 +40,7 @@ def _per_shard_sizing(S: ShardedCSR, B: CSR, W: int, classes):
         if res is not None:
             npa, _, cls = res
         else:
-            nseg = (lenB[ind[s, :nnz].astype(np.int64)] + W - 1) // W
+            nseg = nsegB_row[ind[s, :nnz].astype(np.int64)]
             npa = int(nseg.sum())
             segc = np.zeros(nnz + 1, dtype=np.int64)
             np.cumsum(nseg, out=segc[1:])
@@ -48,6 +53,7 @@ def _per_shard_sizing(S: ShardedCSR, B: CSR, W: int, classes):
                 "use more shards or chunk rows first"
             )
         npa_max = max(npa_max, npa)
+        body.append(npa - _tail_pairs(iptr[s], ind[s], cls, tail, nsegB_row))
         counts_all.append(np.bincount(cls, minlength=len(classes) + 2)[: len(classes) + 1])
         cls_all.append(cls)
     return (
@@ -55,6 +61,7 @@ def _per_shard_sizing(S: ShardedCSR, B: CSR, W: int, classes):
         np.stack(counts_all).astype(np.int64),
         npa_max,
         np.asarray(nnz_s, np.int32),
+        np.asarray(body, np.int64),
     )
 
 

@@ -1,5 +1,5 @@
 """Pass 1 — dominant-section row reordering (port of
-``spmm_tpu/preprocess/reorder.py``, host path).
+``spmm_tpu/preprocess/reorder.py``: the host path and the torch device path).
 
 Redesign of the reference's bitmap reorder (reference: bitmap.h:108-170,
 invoked with SECT=2048 at serial_newblock_clock.cpp:246).  Split the column
@@ -15,9 +15,11 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from spmm_tpu_torch import native
-from spmm_tpu_torch.formats.containers import CSR, permute_rows
+from spmm_tpu_torch.formats.containers import CSR, as_tensor, device_of, permute_rows
+from spmm_tpu_torch.ops.segments import boundary_segments
 
 
 def dominant_sections(A: CSR, section_size: int = 2048) -> np.ndarray:
@@ -65,3 +67,45 @@ def bitmap_reorder(
         perm = np.argsort(dom + 1, kind="stable")
     out = permute_rows(A, perm) if materialize else None
     return out, perm
+
+
+# ------------------------------------------------------------------------------
+# device path
+# ------------------------------------------------------------------------------
+
+
+def dominant_sections_device(
+    indices: torch.Tensor, indptr: torch.Tensor, nnz: int, shape: Tuple[int, int],
+    section_size: int,
+) -> torch.Tensor:
+    """Per-row dominant section id (int64), or -1 for empty rows, in torch on
+    the tensors' device.  Sort the per-nonzero keys ``row * nsect + sect``
+    (one int64 key: no overflow below 2^63); run lengths of equal keys are
+    the per-(row, section) counts; an ``amax`` scatter takes each row's best
+    count and an ``amin`` scatter the lowest section reaching it."""
+    nrow, ncol = shape
+    nsect = (ncol + section_size - 1) // section_size
+    dev = indices.device
+    rows = boundary_segments(indptr, nnz, dtype=torch.int64, device=dev)
+    key = rows * nsect + indices[:nnz].long() // section_size
+    runs, counts = torch.unique_consecutive(torch.sort(key).values, return_counts=True)
+    run_rows, run_sects = runs // nsect, runs % nsect
+    best_cnt = torch.full((nrow,), -1, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, run_rows, counts, "amax"
+    )
+    big = torch.iinfo(torch.int64).max
+    sect_c = torch.where(counts == best_cnt[run_rows], run_sects, big)
+    best_sect = torch.full((nrow,), big, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, run_rows, sect_c, "amin"
+    )
+    return torch.where(best_cnt < 0, -1, best_sect)
+
+
+def bitmap_perm_device(A: CSR, section_size: int = 2048) -> torch.Tensor:
+    """The permutation of :func:`bitmap_reorder` (new_pos → old_row, int32),
+    computed in torch on the device of A's leaves (the CPU for numpy)."""
+    dev = device_of(A.data)
+    dom = dominant_sections_device(
+        as_tensor(A.indices, dev), as_tensor(A.indptr, dev), A.nnz, A.shape, section_size
+    )
+    return torch.argsort(dom + 1, stable=True).to(torch.int32)

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, and
-both SpGEMM paths against scipy, on the card.  Every test here is marked
+the SpGEMM paths, the BlockedCSR SpMM, the device ELL pack and the device
+reorder against scipy or the host, on the card.  Every test here is marked
 ``cuda`` and skips without an NVIDIA GPU (a CUDA kernel has no CPU mode).
 This file imports no JAX, so it also runs on a GPU machine without it:
 
@@ -11,12 +12,14 @@ fp32 sums being taken in another order; bf16 inputs are widened to fp32 in both.
 """
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from spmm_tpu_torch import ops
+from spmm_tpu_torch.config import Config
 from spmm_tpu_torch.formats import csr_to_bsr, ell_pack
 from spmm_tpu_torch.formats import synthetic as tsyn
 from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
@@ -143,3 +146,56 @@ def test_slab_merge_is_deterministic_on_card(cuda):
     for c1, c2 in zip(ss.spgemm_slab_device(A, A, plan)[0], ss.spgemm_chain_device(plan, 2)):
         for x1, x2 in zip(c1, c2):
             assert torch.equal(x1, x2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("panel", [False, True])
+def test_blocked_spmm_slab_on_card(cuda, panel):
+    """One K2 launch per v8-group bucket, and the kernel path equal to K2's
+    plain version on the same view and to scipy."""
+    from spmm_tpu_torch.preprocess import preprocess
+
+    A = tsyn.webgraph_like(20000, 150000, seed=3)
+    P = preprocess(A, Config(region_budget=2048, panel_rows=512)).to(cuda)
+    view = ops.blocked_slab_view(P, panel=panel)
+    assert all(c.is_cuda and c.dtype == torch.int32 for _, c in view[0])
+    B = torch.from_numpy(rhs(20000, 128, 1)).to(cuda)
+    n0 = ell_kernel.launches
+    Y = ops.blocked_spmm_slab(P, B, view)
+    assert ell_kernel.launches == n0 + len(view[0]) > n0
+    ref = ops.blocked_spmm_slab_reference(P, B, view)
+    torch.cuda.synchronize()
+    assert float((Y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    want = A.to_scipy() @ B.cpu().numpy()
+    assert np.abs(Y.cpu().numpy() - want).max() <= 1e-4 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_device_csr_spmm_packs_on_card(cuda, monkeypatch):
+    """ops.spmm on a CSR held on the card packs through ell_pack_device (the
+    host ell_pack is not called) and runs K2 once per slab."""
+    spmm_mod = importlib.import_module("spmm_tpu_torch.ops.spmm")  # ops.spmm is the function
+    A = tsyn.webgraph_like(20000, 150000, seed=4)
+    Cd = ops.spgemm_slab_csr(A, A, device=cuda)
+    monkeypatch.setattr(spmm_mod, "ell_pack", lambda *a, **k: pytest.fail("host ell_pack called"))
+    monkeypatch.setattr(spmm_mod, "AUTO_ELL_THRESHOLD", 1)
+    B = torch.from_numpy(rhs(20000, 32, 2)).to(cuda)
+    n0 = ell_kernel.launches
+    Y = ops.spmm(Cd, B)
+    E = spmm_mod._ell_of(Cd, cuda)
+    assert ell_kernel.launches == n0 + len(E.data)
+    assert all(t.is_cuda for t in (*E.data, *E.cols, E.perm, E.rest.data))
+    S = A.to_scipy()
+    want = (S @ S) @ B.cpu().numpy()
+    assert np.abs(Y.cpu().numpy() - want).max() <= 1e-4 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("section", [2048, 256])
+def test_bitmap_perm_device_on_card(cuda, section):
+    from spmm_tpu_torch.preprocess import bitmap_perm_device, bitmap_reorder
+
+    A = tsyn.webgraph_like(50000, 300000, seed=5)
+    perm = bitmap_perm_device(A.to(cuda), section)
+    assert perm.is_cuda
+    np.testing.assert_array_equal(perm.cpu().numpy(), bitmap_reorder(A, section, materialize=False)[1])

@@ -172,6 +172,24 @@ def test_ell_pack_matches_jax(kw):
     assert a.padded_nnz == b.padded_nnz
 
 
+@pytest.mark.parametrize(
+    "kw", [{}, {"exact_max": 8, "step": 8, "max_len": 32}, {"exact_max": 4, "step": 4, "max_len": 16}]
+)
+def test_ell_pack_device_matches_host_pack_and_jax(kw):
+    """The pack of a tensor-held CSR equals the host pack field for field,
+    and the JAX package's ell_pack_device; every leaf is a tensor."""
+    import jax.numpy as jnp
+
+    A = tsyn.webgraph_like(1500, 10000, seed=5).pad(8)
+    b = tf.ell_pack_device(A.to("cpu"), **kw)
+    assert_same(tf.ell_pack(A, **kw), b)
+    Aj = jsyn.webgraph_like(1500, 10000, seed=5).pad(8)
+    a = jf.ell.ell_pack_device(jc.CSR(*(jnp.asarray(x) for x in (Aj.data, Aj.indices, Aj.indptr)),
+                                      Aj.shape, Aj.nnz), **kw)
+    assert_same(a, b)
+    assert all(isinstance(t, torch.Tensor) for t in (*b.data, *b.cols, b.perm, b.rest.indices))
+
+
 @pytest.mark.parametrize("block_shape", [(8, 128), (16, 64), (3, 32)])
 @pytest.mark.parametrize("gen", ["banded", "sparse"])
 def test_csr_to_bsr_matches_jax(block_shape, gen):
@@ -187,6 +205,7 @@ def test_csr_to_bsr_matches_jax(block_shape, gen):
 def test_port_imports_no_jax():
     code = (
         "import sys, spmm_tpu_torch, spmm_tpu_torch.cli, spmm_tpu_torch.formats.convert\n"
+        "import spmm_tpu_torch.entry\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'spmm_tpu.'))"
         " or m == 'spmm_tpu']\n"
         "assert not bad, bad\n"

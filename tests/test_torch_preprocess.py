@@ -6,10 +6,14 @@ every array must be equal, not merely close.
 
 import numpy as np
 import pytest
+import torch
+
+import jax.numpy as jnp
 
 from spmm_tpu.config import Config as JConfig
 from spmm_tpu.formats import synthetic as jsyn
 from spmm_tpu import preprocess as jpre
+from spmm_tpu.preprocess import reorder as jreorder
 
 from spmm_tpu_torch import native
 from spmm_tpu_torch.config import Config
@@ -79,3 +83,24 @@ def test_numpy_paths_match_native(monkeypatch, name, args, cfg):
     monkeypatch.setattr(native, "_tried", True)
     assert not native.available()
     assert_same(want, tpre.preprocess(At, Config(**cfg)))
+
+
+@pytest.mark.parametrize("name,args,section", [
+    ("webgraph_like", (800, 5000), 256),  # test_preprocess.py:46-61
+    ("webgraph_like", (4096, 24576), 2048),
+    ("random_csr", (700, 500, 0.01), 64),  # empty rows
+])
+def test_device_reorder_matches_host_and_jax(name, args, section):
+    """The torch device path gives the host pass's dominant sections and its
+    permutation exactly, and the JAX device path's."""
+    Aj, At = _pair(name, args, seed=2)
+    At, Aj = At.pad(16), Aj.pad(16)
+    dom = tpre.dominant_sections_device(
+        torch.from_numpy(At.indices), torch.from_numpy(At.indptr), At.nnz, At.shape, section)
+    np.testing.assert_array_equal(dom.numpy(), tpre.dominant_sections(At, section))
+    np.testing.assert_array_equal(dom.numpy(), np.asarray(jreorder.dominant_sections_device(
+        jnp.asarray(Aj.indices), jnp.asarray(Aj.indptr), Aj.nnz, Aj.shape, section)))
+    perm = tpre.bitmap_perm_device(At.to("cpu"), section)
+    assert perm.dtype == torch.int32
+    np.testing.assert_array_equal(perm.numpy(), tpre.bitmap_reorder(At, section, materialize=False)[1])
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jreorder.bitmap_perm_device(Aj, section)))

@@ -203,6 +203,25 @@ def test_big_path_with_tail_rows(monkeypatch):
     _check(C, _oracle(A, A))
 
 
+def test_big_path_tail_rows_take_no_piece_budget(monkeypatch):
+    """A row above the class ceiling goes to the global-sort ESC, so its
+    pairs do not count in a piece's budget: the heavy-row matrix of
+    test_big_path_with_tail_rows takes a handful of pieces (1,024 one-row
+    pieces when they counted), and the product stays exact."""
+    monkeypatch.setattr(ss, "_MAX_EXP_PAD", 4096)
+    rng = np.random.default_rng(21)
+    n = 900
+    A = sp.random(n, n, density=0.015, random_state=21, format="lil", dtype=np.float32)
+    A[7, :] = rng.standard_normal(n)
+    A = A.tocsr()
+    Ac = CSR.from_scipy(A)
+    calls = []
+    orig_exec = ss._piece_exec
+    monkeypatch.setattr(ss, "_piece_exec", lambda *a, **k: calls.append(1) or orig_exec(*a, **k))
+    _check(ss.spgemm_slab(Ac, Ac, classes=(4, 8, 16)), _oracle(A, A))
+    assert 2 <= len(calls) <= 4
+
+
 def test_big_path_checkpoint_resume(monkeypatch, tmp_path):
     """A second run with the same checkpoint dir recomputes no piece;
     deleting one piece file recomputes exactly that piece; another product

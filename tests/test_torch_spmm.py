@@ -25,7 +25,8 @@ from spmm_tpu.formats import synthetic as jsyn
 # modules, not the same-named functions that spmm_tpu.ops re-exports
 jell_spmm = importlib.import_module("spmm_tpu.ops.ell_spmm")
 jspmm = importlib.import_module("spmm_tpu.ops.spmm")
-from spmm_tpu.ops.pallas_bsr import bsr_spmm_pallas
+from spmm_tpu.ops.pallas_bsr import bsr_spmm_pallas, bsr_spmv as j_bsr_spmv
+from spmm_tpu.ops.sddmm import sddmm as j_sddmm
 from spmm_tpu.ops.pallas_ell import ell_slab_spmm_pallas
 
 tspmm_mod = importlib.import_module("spmm_tpu_torch.ops.spmm")
@@ -179,10 +180,10 @@ def test_spmm_dispatcher_formats(monkeypatch):
     Bw = torch.from_numpy(rhs(600, 128, 4))
     np.testing.assert_allclose(ops.spmm(csr_to_bsr(A), Bw).numpy(), A.to_scipy() @ Bw.numpy(),
                                rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.spmm(preprocess(A, Config(region_budget=256, panel_rows=128)), B)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.spmv(preprocess(A, Config(region_budget=256, panel_rows=128)), B[:, 0])
+    # the BlockedCSR branches: the v8-slab path (K2's plain version per bucket)
+    Pb = preprocess(A, Config(region_budget=256, panel_rows=128))
+    close(ops.spmm(Pb, B))
+    np.testing.assert_allclose(ops.spmv(Pb, B[:, 0]).numpy(), ref[:, 0], rtol=1e-4, atol=1e-4)
 
     # above the threshold the CSR packs to ELL once, memoized per instance
     monkeypatch.setattr(tspmm_mod, "AUTO_ELL_THRESHOLD", 1)
@@ -205,3 +206,73 @@ def test_cpu_path_counts_no_launch():
     ops.spmm(ell_pack(A), torch.from_numpy(rhs(300, 8, 0)))
     ops.spmm(csr_to_bsr(A), torch.from_numpy(rhs(300, 128, 0)))
     assert (ell_kernel.launches, bsr_kernel.launches) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_bsr_spmv_matches_jax_and_scipy(dtype):
+    """test_ell_bsr.py:109-133: block-compressed SpMV in fp32, and in fp64
+    (JAX under x64), where the accumulation stays fp64."""
+    Aj = jsyn.banded_random(600, 96, 0.35, seed=11)
+    At = tsyn.banded_random(600, 96, 0.35, seed=11)
+    S64 = At.to_scipy().astype(np.float64)
+    x = np.random.default_rng(5).standard_normal(600)
+    if dtype == "float32":
+        y = ops.bsr_spmv(csr_to_bsr(At), torch.from_numpy(x.astype(np.float32)))
+        yj = np.asarray(j_bsr_spmv(jbsr.csr_to_bsr(Aj).device(), jnp.asarray(x.astype(np.float32))))
+        assert y.dtype == torch.float32
+        np.testing.assert_allclose(y.numpy(), S64 @ x, rtol=1e-4, atol=1e-4)
+        assert np.abs(y.numpy() - yj).max() <= 1e-5 * np.abs(yj).max()
+        return
+    with jax.enable_x64():
+        A64j = dataclasses.replace(Aj, data=np.asarray(Aj.data, np.float64))
+        yj = np.asarray(j_bsr_spmv(jbsr.csr_to_bsr(A64j), jnp.asarray(x)))
+    A64 = dataclasses.replace(At, data=np.asarray(At.data, np.float64))
+    y = ops.bsr_spmv(csr_to_bsr(A64), torch.from_numpy(x))
+    assert y.dtype == torch.float64
+    np.testing.assert_allclose(y.numpy(), S64 @ x, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(y.numpy(), yj, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("scale_by_values", [False, True])
+def test_sddmm_matches_jax_and_dense(scale_by_values):
+    """test_ops.py:109-132: per-nonzero (U V^T) samples, padding zero."""
+    Aj = jsyn.webgraph_like(120, 700, seed=9)
+    At = tsyn.webgraph_like(120, 700, seed=9)
+    At = dataclasses.replace(At, data=rhs(1, At.nnz_pad, 4)[0])
+    Aj = dataclasses.replace(Aj, data=np.asarray(At.data))
+    U, V = rhs(120, 16, 9), rhs(120, 16, 10)
+    C = ops.sddmm(At.pad(8), torch.from_numpy(U), torch.from_numpy(V), scale_by_values=scale_by_values)
+    Cj = j_sddmm(Aj.pad(8).device(), jnp.asarray(U), jnp.asarray(V), scale_by_values=scale_by_values)
+    rows = np.repeat(np.arange(120), np.diff(At.indptr))
+    cols = At.indices[: At.nnz]
+    ref = (U @ V.T)[rows, cols] * (At.data[: At.nnz] if scale_by_values else 1)
+    got = C.data.numpy()
+    assert C.data.dtype == torch.float32 and isinstance(C.indices, torch.Tensor)
+    np.testing.assert_allclose(got[: At.nnz], ref, rtol=1e-4, atol=1e-5)
+    assert not np.any(got[At.nnz :])  # the padding stays zero
+    dj = np.asarray(Cj.data)
+    assert np.abs(got - dj).max() <= 1e-5 * np.abs(dj).max()
+    vals = ops.sddmm_values(At, torch.from_numpy(U), torch.from_numpy(V))
+    np.testing.assert_allclose(vals.numpy()[: At.nnz], (U @ V.T)[rows, cols], rtol=1e-4, atol=1e-5)
+
+
+def test_device_csr_auto_packs_on_its_device(monkeypatch):
+    """test_ops.py:194-203: a CSR held in tensors (e.g. a chained SpGEMM
+    output) packs through ell_pack_device, not the host ell_pack, and the
+    pack's leaves are tensors."""
+    monkeypatch.setattr(tspmm_mod, "AUTO_ELL_THRESHOLD", 1000)
+    host_packs = []
+    real = tspmm_mod.ell_pack
+    monkeypatch.setattr(tspmm_mod, "ell_pack", lambda *a, **k: host_packs.append(1) or real(*a, **k))
+    A = tsyn.webgraph_like(4000, 24000, seed=29)
+    Ad = A.pad(8).to("cpu")
+    B = torch.from_numpy(rhs(4000, 8, 8))
+    Y = ops.spmm(Ad, B)
+    y = ops.spmv(Ad, B[:, 0])
+    assert not host_packs
+    E = tspmm_mod._ell_of(Ad, "cpu")
+    leaves = [*E.data, *E.cols, E.perm, E.inv_perm, E.rest.data]
+    assert leaves and all(isinstance(t, torch.Tensor) for t in leaves)
+    ref = A.to_scipy() @ B.numpy()
+    np.testing.assert_allclose(Y.numpy(), ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(y.numpy(), ref[:, 0], rtol=1e-4, atol=1e-4)
