@@ -10,9 +10,13 @@ Phases, each printing one line with its times (CUDA events for kernels,
 3. kernels  — each hand-written kernel against its plain PyTorch version on
               the card: K1 (BSR) through ``ops.spmm(BSR, B)`` on
               ``banded_random(65536, 512, 0.25, seed=3)`` at k=128 in fp32 and
-              bf16; K2 (ELL slab) on every slab of the ELL pack of
+              bf16; K2 over all 78 slabs of the ELL pack of
               ``webgraph_like(916_428, 5_105_039, seed=0)`` (web-Google size)
-              at k=128 and k=32.  Max relative error and kernel/plain ms.
+              in one launch at k=128 and k=32.  Per kernel and shape: max
+              error, kernel / plain / library ms (CUDA events, mean of 10),
+              the bound computed from these matrices (bytes at 3.35 TB/s or
+              operations at the type's peak, whichever is larger), the share
+              of it reached, and the time before the kernel's redesign.
 4. main     — the port's main path with every launch counter at 0: the CLI
               (.mtx ingest → preprocess → ELL SpMM k=128 → exact A×A through
               the slab SpGEMM, --check against scipy) on the web-Google-sized
@@ -29,14 +33,15 @@ Phases, each printing one line with its times (CUDA events for kernels,
               warm numeric phase by op.
 6. blocked  — slice 3 on the same graph, with the launch counters at 0 again:
               ``preprocess`` → the slab views → ``blocked_spmm_slab`` at k=128
-              (one K2 launch per v8-group bucket; against its plain version
-              and scipy), the other BlockedCSR formulations, the 3-step
+              (one K2 launch over all v8-group buckets; against its plain
+              version and scipy), the other BlockedCSR formulations, the 3-step
               ``blocked_chain_spmv``, SpGEMM → SpMM on the device CSR (packed
-              by ``ell_pack_device``, K2 once per slab), ``bitmap_perm_device``
+              by ``ell_pack_device``, one K2 launch), ``bitmap_perm_device``
               (equal to the host permutation), ``bsr_spmv``, ``sddmm`` and
               ``entry()``; then each timed (CUDA events) beside ``ell_spmm``.
 7. report   — one JSON line of per-kernel results (launches of phases 4 and 6,
-              and the entry points that launched each kernel), the card's name
+              the entry points that launched each kernel, phase 3's times,
+              bound and library time at the main-path shape), the card's name
               and power limit, and the final ``{"ok": true, ...}`` line.
 
 Any failure stops the run with a nonzero exit and no result line.  There is
@@ -66,6 +71,12 @@ import numpy as np
 RTOL_F32 = 1e-5
 RTOL_BF16 = 2e-2
 WEB_N, WEB_NNZ = 916_428, 5_105_039  # web-Google size (bench.py:44-45)
+#: the H100 SXM's published rates (on-chip-measurement guide): HBM bytes/s,
+#: fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s
+HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+#: each kernel's time at the phase 3 shapes before its redesign for Hopper
+#: (PERF.md's kernel table)
+PRIOR_MS = {"K2 k=128": 2.8529, "K2 k=32": 2.6395, "K1 fp32": 0.8087}
 
 
 def fail(msg: str) -> None:
@@ -145,6 +156,20 @@ def traced(paths: dict, name: str, fn):
     for k, m in mods.items():
         if m.launches > before[k] and name not in paths[k]:
             paths[k].append(name)
+    return out
+
+
+def launched(paths: dict, name: str, fn, want: dict):
+    """``traced``, and fails unless ``fn`` launched each kernel in ``want``
+    exactly that many times (one K2 launch per product)."""
+    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
+
+    mods = {"ell_slab_spmm": ell_kernel, "bsr_spmm": bsr_kernel}
+    before = {k: m.launches for k, m in mods.items()}
+    out = traced(paths, name, fn)
+    for k, n in want.items():
+        got = mods[k].launches - before[k]
+        require(got == n, f"{name}: {got} {k} launches, expected {n}")
     return out
 
 
@@ -331,11 +356,7 @@ def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: fl
         return err / scale
 
     def k2_calls(name, fn, want):
-        n0 = ell_kernel.launches
-        out = traced(paths, name, fn)
-        require(ell_kernel.launches - n0 == want,
-                f"{name}: {ell_kernel.launches - n0} K2 launches, expected {want}")
-        return out
+        return launched(paths, name, fn, {"ell_slab_spmm": want})
 
     t_phase = time.perf_counter()
     S = A.to_scipy()
@@ -368,19 +389,15 @@ def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: fl
     host_packs = []
     real_pack = spmm_mod.ell_pack
     spmm_mod.ell_pack = lambda *a, **k: host_packs.append(1) or real_pack(*a, **k)
-    y_slab = k2_calls("ops.blocked_spmm_slab", lambda: ops.blocked_spmm_slab(P, B, view), len(buckets))
-    y_pslab = k2_calls("ops.blocked_spmm_slab (panel view)",
-                       lambda: ops.blocked_spmm_slab(P, B, pview), len(pview[0]))
-    y_disp = k2_calls("ops.spmm(BlockedCSR)", lambda: ops.spmm(P, B), len(buckets))
+    y_slab = k2_calls("ops.blocked_spmm_slab", lambda: ops.blocked_spmm_slab(P, B, view), 1)
+    y_pslab = k2_calls("ops.blocked_spmm_slab (panel view)", lambda: ops.blocked_spmm_slab(P, B, pview), 1)
+    y_disp = k2_calls("ops.spmm(BlockedCSR)", lambda: ops.spmm(P, B), 1)
     y_xla = k2_calls("ops.blocked_spmm_xla", lambda: ops.blocked_spmm_xla(P, B, view=ev), 0)
     y_panel = k2_calls("ops.blocked_spmm_panel", lambda: ops.blocked_spmm_panel(P, B, view=pv), 0)
     y_chain = k2_calls("ops.blocked_chain_spmv", lambda: ops.blocked_chain_spmv(P, x, 3), 0)
     Cd, t_csr = timed(lambda: ops.spgemm_slab_csr(A, A, device=dev))
-    n0 = ell_kernel.launches
-    y_c, t_cspmm_first = timed(lambda: traced(paths, "ops.spmm(device CSR)", lambda: ops.spmm(Cd, B32)))
+    y_c, t_cspmm_first = timed(lambda: k2_calls("ops.spmm(device CSR)", lambda: ops.spmm(Cd, B32), 1))
     Ec = spmm_mod._ell_of(Cd, dev)
-    require(ell_kernel.launches - n0 == len(Ec.data),
-            f"ops.spmm(device CSR): {ell_kernel.launches - n0} K2 launches, {len(Ec.data)} slabs")
     spmm_mod.ell_pack = real_pack
     require(not host_packs, "ops.spmm(device CSR) packed on the host")
     require(all(t.is_cuda for t in (*Ec.data, *Ec.cols, Ec.perm, Ec.inv_perm, Ec.rest.data)),
@@ -389,7 +406,7 @@ def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: fl
     y_bsrv = ops.bsr_spmv(Ab, xb)
     C_sd = ops.sddmm(A_dev, U, V)
     fn, args = entry(dev)
-    y_entry = k2_calls("entry.entry (blocked_spmm_slab)", lambda: fn(*args), len(args[2][0]))
+    y_entry = k2_calls("entry.entry (blocked_spmm_slab)", lambda: fn(*args), 1)
     torch.cuda.synchronize()
     path_launches = {"ell_slab_spmm": ell_kernel.launches, "bsr_spmm": bsr_kernel.launches}
 
@@ -449,8 +466,8 @@ def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: fl
     _, t_pack_dev = timed(lambda: ell_pack_device(Cd))
     _, t_pack_host = timed(lambda: real_pack(Cd).to(dev))
     _, t_perm_host = timed(lambda: bitmap_reorder(A, 2048, materialize=False))
-    say(f"phase 6 times k=128 (CUDA events): blocked_spmm_slab {ms['slab']:.4f} ms ({len(buckets)} K2 "
-        f"launches) | its plain version {ms['slab plain']:.4f} | panel-view slab {ms['panel slab']:.4f} | "
+    say(f"phase 6 times k=128 (CUDA events): blocked_spmm_slab {ms['slab']:.4f} ms (one K2 launch over "
+        f"{len(buckets)} buckets) | its plain version {ms['slab plain']:.4f} | panel-view slab {ms['panel slab']:.4f} | "
         f"blocked_spmm_xla {ms['xla']:.4f} | blocked_spmm_panel {ms['panel']:.4f} | ops.ell_spmm over the "
         f"ELL pack {ms['ell_spmm']:.4f} (phase 3: K2 over its slabs {k2_ell_ms:.4f})")
     say(f"phase 6 times: chain 3 iters {ms['chain3']:.4f} ms | device CSR ({Cd.nnz} nnz, spgemm_slab_csr "
@@ -483,6 +500,7 @@ def main() -> int:
     )
     from spmm_tpu_torch.native.build import build as build_native
     from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
+    from spmm_tpu_torch.ops.ell_spmm import slab_row_keys
 
     # the plain versions use batched matmuls: full fp32, as the kernels
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -516,12 +534,30 @@ def main() -> int:
     results = {}
 
     # ---- 3. kernels against their plain versions ---------------------------
+    def bound(nbytes: float, ops_: float, peak: float):
+        """The least time (ms) for the work: bytes at the HBM rate or
+        operations at the type's peak, whichever is larger, and which."""
+        t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops_ / peak * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+    def csr_tensor(A):
+        """A host CSR as a CUDA ``torch.sparse_csr_tensor``: the library
+        yardstick's operand, never used by the port."""
+        t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
+        return torch.sparse_csr_tensor(t(A.indptr, np.int64), t(A.indices[: A.nnz], np.int64),
+                                       t(A.data[: A.nnz], np.float32), size=A.shape)
+
     t0 = time.perf_counter()
     A_band = banded_random(65536, 512, 0.25, seed=3)
     Ab = csr_to_bsr(A_band).to(dev)
     B_band = torch.from_numpy(rng.standard_normal((A_band.shape[1], 128)).astype(np.float32)).to(dev)
+    # PyTorch's BSR product refuses non-square (8, 128) blocks on CUDA (an
+    # internal assert, torch 2.11), so K1's yardstick is cuSPARSE's CSR SpMM
+    # on the same matrix's 7.4M true nonzeros
+    S_band = csr_tensor(A_band)
     say(f"phase 3 setup: BSR {A_band.shape} nnz {A_band.nnz} blocks {Ab.nblocks} "
         f"({(time.perf_counter() - t0) * 1e3:.1f} ms host)")
+    bm, bn = Ab.block_shape
     for name, A_, B_, rtol in (
         ("fp32", Ab, B_band, RTOL_F32),
         ("bf16", dataclasses.replace(Ab, data=Ab.data.bfloat16()), B_band.bfloat16(), RTOL_BF16),
@@ -530,13 +566,27 @@ def main() -> int:
         ref = bsr_kernel.bsr_spmm_reference(A_, B_)
         torch.cuda.synchronize()
         err, rel = max_errs(y, ref)
-        ms = cuda_ms(torch, lambda: ops.spmm(A_, B_))
-        plain = cuda_ms(torch, lambda: bsr_kernel.bsr_spmm_reference(A_, B_), iters=5)
-        say(f"phase 3 K1 bsr_spmm {name} k=128: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
-            f"(tol {rtol:g}) | kernel {ms:.4f} ms | plain {plain:.4f} ms")
         require(rel <= rtol, f"K1 {name} differs from its plain version: rel {rel:.3e}")
+        ms = cuda_ms(torch, lambda: ops.spmm(A_, B_))
+        plain = cuda_ms(torch, lambda: bsr_kernel.bsr_spmm_reference(A_, B_))
+        flops = 2 * Ab.nblocks * bm * bn * 128
+        nbytes = A_.data.numel() * A_.data.element_size() + B_.numel() * B_.element_size() + y.numel() * 4
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS if name == "fp32" else BF16_FLOPS)
+        fma_ms = flops / FP32_FLOPS * 1e3  # the kernel's unit: fp32 FMA on the CUDA cores
+        line = (f"phase 3 K1 bsr_spmm {name} k=128: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+                f"(tol {rtol:g}) | kernel {ms:.4f} ms | plain {plain:.4f} ms | bound {b_ms:.4f} ms "
+                f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), share {b_ms / ms:.1%} | "
+                f"fp32-FMA bound {fma_ms:.4f} ms, share {fma_ms / ms:.1%}")
         if name == "fp32":
-            results["bsr_spmm"] = dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain)
+            lib = cuda_ms(torch, lambda: torch.sparse.mm(S_band, B_))
+            results["bsr_spmm"] = dict(
+                max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, library="torch.sparse.mm(sparse_csr_tensor) (cuSPARSE CSR SpMM)",
+                prior_ms=PRIOR_MS["K1 fp32"])
+            line += (f" | library torch.sparse.mm on the CSR {lib:.4f} ms | before the redesign "
+                     f"{PRIOR_MS['K1 fp32']} ms")
+        say(line)
+    del S_band
 
     t0 = time.perf_counter()
     A_web = webgraph_like(WEB_N, WEB_NNZ, seed=0)
@@ -544,34 +594,44 @@ def main() -> int:
     t0 = time.perf_counter()
     E = ell_pack(A_web).to(dev)
     t_pack = time.perf_counter() - t0
+    S_web = csr_tensor(A_web)
+    slots = sum(int(c.numel()) for c in E.cols)
+    slab_rows = sum(int(c.shape[0]) for c in E.cols)
+    distinct = int(torch.unique(torch.cat([c.flatten() for c in E.cols]).clamp(0, WEB_N - 1)).numel())
     say(f"phase 3 setup: webgraph {A_web.shape} nnz {A_web.nnz} ({t_gen * 1e3:.1f} ms host) | "
-        f"ELL {len(E.data)} slabs, padded nnz {E.padded_nnz}, rest rows {E.n_rest_rows} "
-        f"({t_pack * 1e3:.1f} ms pack)")
-    slabs = list(zip(E.cols, E.data))
+        f"ELL {len(E.data)} slabs, {slab_rows} slab rows, {slots} padded slots, {distinct} distinct "
+        f"B rows, padded nnz {E.padded_nnz}, rest rows {E.n_rest_rows} ({t_pack * 1e3:.1f} ms pack)")
+    keys = slab_row_keys(E)  # the work order ell_spmm gives K2
     for k in (128, 32):
         Bw = torch.from_numpy(rng.standard_normal((WEB_N, k)).astype(np.float32)).to(dev)
-        err = rel = 0.0
-        for c, d in slabs:
-            e_abs, e_rel = max_errs(ell_kernel.ell_slab_spmm(c, d, Bw),
-                                    ell_kernel.ell_slab_spmm_reference(c, d, Bw))
-            err, rel = max(err, e_abs), max(rel, e_rel)
-
-        def run_kernel():
-            for c, d in slabs:
-                ell_kernel.ell_slab_spmm(c, d, Bw)
-
-        def run_plain():
-            for c, d in slabs:
-                ell_kernel.ell_slab_spmm_reference(c, d, Bw)
-
-        ms = cuda_ms(torch, run_kernel)
-        plain = cuda_ms(torch, run_plain, iters=5)
-        say(f"phase 3 K2 ell_slab_spmm fp32 k={k} ({len(slabs)} slabs): max_abs_err {err:.3e} "
-            f"max_rel_err {rel:.3e} (tol {RTOL_F32:g}) | kernel {ms:.4f} ms | plain {plain:.4f} ms")
+        memo = {}
+        y = ell_kernel.ell_slabs_spmm(E.cols, E.data, Bw, memo=memo, row_keys=keys)
+        ref = ell_kernel.ell_slabs_spmm_reference(E.cols, E.data, Bw, torch.empty_like(y))
+        y_lib = torch.sparse.mm(S_web, Bw)
+        torch.cuda.synchronize()
+        err, rel = max_errs(y, ref)
         require(rel <= RTOL_F32, f"K2 k={k} differs from its plain version: rel {rel:.3e}")
+        _, rel_lib = max_errs(ops.ell_spmm(E, Bw), y_lib)
+        require(rel_lib <= 1e-4, f"the library yardstick computes another product at k={k}: {rel_lib:.3e}")
+        ms = cuda_ms(torch, lambda: ell_kernel.ell_slabs_spmm(E.cols, E.data, Bw, y, memo=memo))
+        plain = cuda_ms(torch, lambda: ell_kernel.ell_slabs_spmm_reference(E.cols, E.data, Bw, ref))
+        whole = cuda_ms(torch, lambda: ops.ell_spmm(E, Bw))
+        lib = cuda_ms(torch, lambda: torch.sparse.mm(S_web, Bw))
+        nbytes = slots * (4 + E.data[0].element_size()) + distinct * k * 4 + slab_rows * k * 4
+        b_ms, b_by = bound(nbytes, 2 * slots * k, FP32_FLOPS)
+        prior = PRIOR_MS[f"K2 k={k}"]
+        say(f"phase 3 K2 ell_slabs_spmm fp32 k={k} ({len(E.cols)} slabs, one launch): max_abs_err "
+            f"{err:.3e} max_rel_err {rel:.3e} (tol {RTOL_F32:g}) | kernel {ms:.4f} ms | plain "
+            f"{plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB), share {b_ms / ms:.1%} "
+            f"| library torch.sparse.mm on the CSR {lib:.4f} ms beside K2 {ms:.4f} and the whole "
+            f"ell_spmm {whole:.4f} | before the redesign {prior} ms")
         if k == 128:
-            results["ell_slab_spmm"] = dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain)
-        del Bw
+            results["ell_slab_spmm"] = dict(
+                max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, library="torch.sparse.mm(sparse_csr_tensor) (cuSPARSE CSR SpMM)",
+                prior_ms=prior, ell_spmm_ms=whole)
+        del Bw, y, ref, y_lib
+    del S_web
 
     # ---- 4. main path ------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -590,10 +650,14 @@ def main() -> int:
         paths = {"ell_slab_spmm": [], "bsr_spmm": []}
         t0 = time.perf_counter()
         rows: list = []
-        rc = traced(paths, "cli.main --spmm 128 (ops.ell_spmm)", lambda: cli.main(
-            ["--dir", tmp, "--spgemm", "--spmm", "128", "--check", "--device", "cuda"], results=rows))
-        y_csr = traced(paths, "ops.spmm(CSR)", lambda: ops.spmm(A_web, B_csr))
-        y_bsr = traced(paths, "ops.spmm(BSR)", lambda: ops.spmm(Ab, B_band))
+        # the CLI multiplies twice (first call, timed call): one K2 launch each
+        rc = launched(paths, "cli.main --spmm 128 (ops.ell_spmm)", lambda: cli.main(
+            ["--dir", tmp, "--spgemm", "--spmm", "128", "--check", "--device", "cuda"], results=rows),
+            {"ell_slab_spmm": 2, "bsr_spmm": 0})
+        y_csr = launched(paths, "ops.spmm(CSR)", lambda: ops.spmm(A_web, B_csr),
+                         {"ell_slab_spmm": 1, "bsr_spmm": 0})
+        y_bsr = launched(paths, "ops.spmm(BSR)", lambda: ops.spmm(Ab, B_band),
+                         {"ell_slab_spmm": 0, "bsr_spmm": 1})
         torch.cuda.synchronize()
         t_main = time.perf_counter() - t0
         launches = {"ell_slab_spmm": ell_kernel.launches, "bsr_spmm": bsr_kernel.launches}

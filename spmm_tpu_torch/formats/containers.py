@@ -43,6 +43,31 @@ def device_of(a) -> torch.device:
     return a.device if isinstance(a, torch.Tensor) else torch.device("cpu")
 
 
+def compute_device(device="cuda") -> torch.device:
+    """The device an entry point computes on, ``cuda`` unless the caller
+    names another.  Raises, naming ``device="cpu"``, when that device is
+    ``cuda`` and no CUDA device is available: there is no silent CPU
+    fallback."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device is available: pass device="cpu" to compute on the CPU')
+    return dev
+
+
+def memo_of(owner, name: str) -> dict | None:
+    """A dict kept on ``owner`` under ``name`` for what is derived from it
+    once (a kernel's work table, a group plan); None for an owner that
+    cannot carry one (a plain tuple).  It is no dataclass field, so
+    ``.to()``, ``dataclasses.replace`` and field comparisons do not see it."""
+    if not hasattr(owner, "__dict__"):
+        return None
+    memo = owner.__dict__.get(name)
+    if memo is None:
+        memo = {}
+        object.__setattr__(owner, name, memo)
+    return memo
+
+
 def as_numpy(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()

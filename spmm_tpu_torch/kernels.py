@@ -54,19 +54,24 @@ def build(force: bool = False) -> str:
     return compile_if_stale(sources(), LIB, [nvcc(), *NVCC_FLAGS], headers=headers, force=force)
 
 
+def load(path: str) -> ctypes.CDLL:
+    """A built kernel library with the C entries' argument types set."""
+    so = ctypes.CDLL(path)
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    so.bsr_spmm_launch.restype = I
+    so.bsr_spmm_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, LL, I, P]
+    so.ell_slabs_spmm_launch.restype = I
+    so.ell_slabs_spmm_launch.argtypes = [P, P, LL, I, P, I, P, LL, LL, I, I, P]
+    so.cuda_error_string.restype = ctypes.c_char_p
+    so.cuda_error_string.argtypes = [I]
+    return so
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
-        so = ctypes.CDLL(build())
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        so.bsr_spmm_launch.restype = I
-        so.bsr_spmm_launch.argtypes = [P, P, P, P, P, I, I, I, I, LL, I, P]
-        so.ell_slab_spmm_launch.restype = I
-        so.ell_slab_spmm_launch.argtypes = [P, P, I, P, I, P, LL, I, LL, LL, P]
-        so.cuda_error_string.restype = ctypes.c_char_p
-        so.cuda_error_string.argtypes = [I]
-        _lib = so
+        _lib = load(build())
     return _lib
 
 

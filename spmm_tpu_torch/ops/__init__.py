@@ -10,7 +10,12 @@ from spmm_tpu_torch.ops.slab_spgemm import (
     spgemm_slab_device,
 )
 from spmm_tpu_torch.ops.ell_spmm import ell_spmm, ell_spmv
-from spmm_tpu_torch.ops.ell_kernel import ell_slab_spmm, ell_slab_spmm_reference
+from spmm_tpu_torch.ops.ell_kernel import (
+    ell_slab_spmm,
+    ell_slab_spmm_reference,
+    ell_slabs_spmm,
+    ell_slabs_spmm_reference,
+)
 from spmm_tpu_torch.ops.bsr_kernel import bsr_spmm, bsr_spmm_reference, bsr_spmv
 from spmm_tpu_torch.ops.blocked import (
     blocked_chain_spmv,
@@ -61,6 +66,8 @@ __all__ = [
     "ell_spmv",
     "ell_slab_spmm",
     "ell_slab_spmm_reference",
+    "ell_slabs_spmm",
+    "ell_slabs_spmm_reference",
     "bsr_spmm",
     "bsr_spmm_reference",
     "bsr_spmm_xla",

@@ -8,9 +8,9 @@ rows un-permuted with ``row_inv`` at the end.
 
 - ``blocked_spmm_slab`` — the production path and the driver's single-chip
   forward (``entry.py``).  Each bucket of equal-length v8 groups is one
-  (8G, L) slab for kernel K2 (``ops/ell_kernel.py``), written into its row
-  range of one output; the leftover rows are a gather + ``index_add_``
-  stream; one ``index_select`` un-permutes.
+  (8G, L) slab, and kernel K2 (``ops/ell_kernel.py``) takes all of them in
+  one launch, each into its row range of one output; the leftover rows are
+  a gather + ``index_add_`` stream; one ``index_select`` un-permutes.
 - ``blocked_spmm_xla`` / ``blocked_spmm_panel`` — per-nonzero gather +
   ``index_add_`` formulations (single gather from B; two-stage gather through
   the compacted panel).
@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from spmm_tpu_torch.formats.containers import BlockedCSR, as_numpy, as_tensor, device_of
-from spmm_tpu_torch.ops.ell_kernel import ell_slab_spmm, ell_slab_spmm_reference
+from spmm_tpu_torch.ops.ell_kernel import ell_slabs_spmm, ell_slabs_spmm_reference, table_memo
 from spmm_tpu_torch.ops.segments import boundary_segments
 
 
@@ -121,7 +121,7 @@ def blocked_slab_view(P: BlockedCSR, *, panel: bool = False):
     ``index_add_`` stream; one precomputed gather un-permutes the
     concatenated parts to original row order.
 
-    Returns ``(buckets, rem, order_map)``:
+    Returns a :class:`SlabView` ``(buckets, rem, order_map)``:
       buckets: tuple of (data (8G, L), cols (8G, L) int32), both contiguous;
       rem: (cols int32, vals, seg int32) for the leftover rows;
       order_map: (nrow,) int32 concat position of each ORIGINAL row.
@@ -139,7 +139,7 @@ def blocked_slab_view(P: BlockedCSR, *, panel: bool = False):
     cols_full = cols_full.to(torch.int32)
     data_full = as_tensor(P.data, dev)
 
-    buckets = []
+    buckets, bucket_rows = [], []
     order_map_final = np.empty(nrow, np.int64)
     off = 0
     for L in np.unique(h_gl):
@@ -152,6 +152,7 @@ def blocked_slab_view(P: BlockedCSR, *, panel: bool = False):
         buckets.append((data_full[pos].reshape(8 * G, L), cols_full[pos].reshape(8 * G, L)))
         rows8 = h_grow[ids][:, None] + np.arange(8)[None, :]  # (G, 8)
         order_map_final[rows8.reshape(-1)] = off + np.arange(G * 8)
+        bucket_rows.append(rows8.reshape(-1))
         off += G * 8
 
     # non-group rows (empty ones included): sorted stream, segment id = rank
@@ -172,22 +173,35 @@ def blocked_slab_view(P: BlockedCSR, *, panel: bool = False):
     out = (tuple(buckets), rem, order_map)
     if panel:
         out = out + (as_tensor(P.gather_cols, dev),)
-    return out
+    view = SlabView(out)
+    view.row_keys = np.concatenate(bucket_rows) if bucket_rows else np.zeros(0, np.int64)
+    return view
 
 
-def _slab_product(B: torch.Tensor, view, slab) -> torch.Tensor:
-    """The slab view times B with ``slab(cols, data, B, out=rows)`` per bucket."""
+class SlabView(tuple):
+    """The tuple :func:`blocked_slab_view` returns.  Unlike a plain tuple it
+    carries ``row_keys``, the final-order row of each bucket row (K2 runs
+    its work in that order, which the preprocessing made local), and the
+    memo of K2's work table over its buckets."""
+
+
+def _slab_product(B: torch.Tensor, view, plain: bool) -> torch.Tensor:
+    """The slab view times B: every bucket through K2 in one call (its plain
+    version when ``plain``), the leftover stream through ``index_add_``."""
     if len(view) == 4:
         buckets, rem, order_map, gcols = view
         B = B.index_select(0, gcols)  # stage 1: compacted panel
     else:
         buckets, rem, order_map = view
     y = torch.empty((order_map.shape[0], B.shape[1]), dtype=torch.float32, device=B.device)
-    off = 0
-    for data, cols in buckets:
-        R = cols.shape[0]
-        slab(cols, data, B, out=y[off : off + R])
-        off += R
+    data = tuple(d for d, _ in buckets)
+    cols = tuple(c for _, c in buckets)
+    off = sum(int(c.shape[0]) for c in cols)
+    if plain:
+        ell_slabs_spmm_reference(cols, data, B, y[:off])
+    elif buckets:
+        ell_slabs_spmm(cols, data, B, y[:off], memo=table_memo(view),
+                       row_keys=getattr(view, "row_keys", None))
     cols, vals, seg = rem
     contrib = B.index_select(0, cols).float() * vals.float()[:, None]
     y[off:].zero_().index_add_(0, seg, contrib)
@@ -196,21 +210,17 @@ def _slab_product(B: torch.Tensor, view, slab) -> torch.Tensor:
 
 def blocked_spmm_slab(P: BlockedCSR, B: torch.Tensor, view) -> torch.Tensor:
     """Y = unpack(P) @ B in fp32 via the v8-slab view (pack once, multiply
-    many): K2 per bucket (its plain version for CPU tensors), the leftover
-    stream through ``index_add_``.  Rows return in ORIGINAL order.  A
-    4-element (panel) view stages the compacted RHS panel once and every
-    bucket reads it by relabeled slot."""
-    return _slab_product(B, view, ell_slab_spmm)
-
-
-def _slab_reference(cols, data, B, *, out):
-    return out.copy_(ell_slab_spmm_reference(cols, data, B))
+    many): one K2 launch over all buckets (its plain version for CPU
+    tensors), the leftover stream through ``index_add_``.  Rows return in
+    ORIGINAL order.  A 4-element (panel) view stages the compacted RHS panel
+    once and every bucket reads it by relabeled slot."""
+    return _slab_product(B, view, plain=False)
 
 
 def blocked_spmm_slab_reference(P: BlockedCSR, B: torch.Tensor, view) -> torch.Tensor:
     """:func:`blocked_spmm_slab` with K2's plain version on every bucket, on
     any device: what the kernel path is held against on the card."""
-    return _slab_product(B, view, _slab_reference)
+    return _slab_product(B, view, plain=True)
 
 
 def blocked_chain_spmv(P: BlockedCSR, x: torch.Tensor, iters: int) -> torch.Tensor:

@@ -49,7 +49,9 @@ import numpy as np
 import torch
 
 from spmm_tpu_torch import native
-from spmm_tpu_torch.formats.containers import COO, CSR, Container, as_numpy, device_of, to_coo, to_csr
+from spmm_tpu_torch.formats.containers import (
+    COO, CSR, Container, as_numpy, compute_device, to_coo, to_csr,
+)
 from spmm_tpu_torch.ops.spgemm import spgemm_sorted
 from spmm_tpu_torch.ops.transform import _stable_argsort_smallint
 
@@ -125,10 +127,11 @@ def _dtype_name(dt) -> str:
 
 
 def _device(A: CSR, device) -> torch.device:
-    """``device`` when given, else where A's tensors lie (the CPU for numpy)."""
-    if device is not None:
-        return torch.device(device)
-    return device_of(A.data)
+    """``device`` when given, else where A's tensors lie; numpy-held operands
+    go to ``cuda`` (:func:`compute_device` raises without one)."""
+    if device is None and isinstance(A.data, torch.Tensor):
+        return A.data.device
+    return compute_device("cuda" if device is None else device)
 
 
 class _ExpansionTooLarge(ValueError):
@@ -426,8 +429,9 @@ def spgemm_plan(
     accum_dtype=torch.float32,
     sizing: Sizing | None = None,
 ) -> SpgemmPlan:
-    """Build the expansion layout on ``device`` (default: where A lies).  Host
-    work is the O(nnz + nrow) sizing; all O(expansion) work is on the device.
+    """Build the expansion layout on ``device`` (default: where A's tensors
+    lie, the card for numpy-held operands).  Host work is the O(nnz + nrow)
+    sizing; all O(expansion) work is on the device.
     ``pattern=None`` detects all-ones values (value tables omitted).
 
     ``expand=True`` also gathers every chunk's partial products into the
@@ -495,7 +499,8 @@ def spgemm_plan_revalue(
     the value tables and the aligned value blocks are rebuilt.  The caller
     guarantees A/B have exactly the structure ``plan`` was built from (only
     nrow/nnz are checked).  A plan that lost its sizing cache (moved with
-    ``.to()`` or serialized) is sized again."""
+    ``.to()`` or serialized) is sized again.  The new plan lies where
+    ``plan`` does unless ``device`` names another place."""
     cache = getattr(plan, "_sizing_cache", None)
     sizing = None
     if cache is not None:
@@ -508,6 +513,8 @@ def spgemm_plan_revalue(
             )
     if accum_dtype is None:
         accum_dtype = plan.aligned_accum or "float32"
+    if device is None and isinstance(plan.rows_sorted, torch.Tensor):
+        device = plan.rows_sorted.device
     return spgemm_plan(
         A,
         B,
@@ -852,12 +859,13 @@ def spgemm_slab(
     seg_w: int = DEFAULT_SEG_W,
     slot_budget: int = DEFAULT_SLOT_BUDGET,
     accum_dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     as_csr: bool = True,
     pattern: bool | None = None,
     checkpoint_dir: str | None = None,
 ):
-    """C = A @ B on ``device`` via per-row-class batched slab sorts (exact:
+    """C = A @ B on ``device`` (the card unless the caller names another; no
+    CUDA device raises) via per-row-class batched slab sorts (exact:
     duplicate columns merged, rows ascending, columns sorted within rows).
     Returns a host CSR (or COO).
 
@@ -867,7 +875,7 @@ def spgemm_slab(
     AUTO_PLAN_MIN_NNZ).  Rows above the largest class take the global-sort
     ESC; products above ``_MAX_EXP_PAD`` padded slots run in row pieces
     (:func:`spgemm_slab_big`), checkpointed to ``checkpoint_dir`` if given."""
-    dev = torch.device(device)
+    dev = compute_device(device)
     if pattern is None:
         pattern = _is_pattern(A) and _is_pattern(B)
     if A.nnz == 0 or B.nnz == 0:
@@ -1082,7 +1090,7 @@ def spgemm_slab_big(
     seg_w: int = DEFAULT_SEG_W,
     slot_budget: int = DEFAULT_SLOT_BUDGET,
     accum_dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     pattern: bool | None = None,
     checkpoint_dir: str | None = None,
 ) -> CSR:
@@ -1091,14 +1099,14 @@ def spgemm_slab_big(
     (:func:`_piece_exec`); each piece's output is pulled to the host and
     freed, so the device peak stays piece-sized.  ``pieces`` defaults to the
     smallest power of two whose largest piece fits ``_MAX_EXP_PAD`` padded
-    slots.  Returns a host CSR.
+    slots.  Runs on ``device``, the card by default.  Returns a host CSR.
 
     ``checkpoint_dir``: persist each finished piece and resume a killed run
     from them (:class:`_BigCheckpoint`).  The caller owns the directory."""
     from spmm_tpu_torch.parallel.partition import partition_rows
     from spmm_tpu_torch.parallel.spgemm_spmd import _per_shard_sizing, _uniform_schedule
 
-    dev = torch.device(device)
+    dev = compute_device(device)
     W = seg_w
     classes = _norm_classes(classes, W)
     if pattern is None:

@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from spmm_tpu_torch.formats.containers import COO, CSR, as_tensor, to_csr
+from spmm_tpu_torch.formats.containers import COO, CSR, as_tensor, compute_device, to_csr
 from spmm_tpu_torch.ops.segments import boundary_segments
 
 _INVALID = torch.iinfo(torch.int64).max
@@ -87,14 +87,15 @@ def spgemm(
     A: CSR,
     B: CSR,
     *,
-    device="cpu",
+    device="cuda",
     max_expand_per_chunk: int = 64 * 1024 * 1024,
     as_csr: bool = True,
 ):
     """Global-sort ESC driver: exact host sizing, row chunks of at most
     ``max_expand_per_chunk`` partial products (one row may exceed it alone),
-    the ESC of each chunk on ``device``, host concatenation.  Returns a host
-    CSR (or COO)."""
+    the ESC of each chunk on ``device`` (the card unless the caller names
+    another), host concatenation.  Returns a host CSR (or COO)."""
+    device = compute_device(device)
     if A.nnz == 0 or B.nnz == 0:
         out = COO(
             row=np.zeros(0, np.int32),

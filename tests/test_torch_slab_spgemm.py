@@ -63,7 +63,8 @@ def test_random_rectangular(seed):
     m, n, k = (int(x) for x in rng.integers(5, 250, 3))
     A = sp.random(m, n, density=0.05, random_state=seed, format="csr", dtype=np.float32)
     B = sp.random(n, k, density=0.05, random_state=seed + 99, format="csr", dtype=np.float32)
-    C = spgemm_slab(CSR.from_scipy(A), CSR.from_scipy(B), classes=(4, 16, 64), slot_budget=1 << 14)
+    C = spgemm_slab(CSR.from_scipy(A), CSR.from_scipy(B), classes=(4, 16, 64), slot_budget=1 << 14,
+                    device="cpu")
     _check(C, _oracle(A, B))
 
 
@@ -73,7 +74,7 @@ def test_webgraph_axa_seg_widths(seg_w, values):
     A = tsyn.webgraph_like(2000, 12000, seed=3)
     if values == "random":
         A = _with_values(A, 31)
-    C = spgemm_slab(A, A, seg_w=seg_w)
+    C = spgemm_slab(A, A, seg_w=seg_w, device="cpu")
     _check(C, _oracle(A.to_scipy(), A.to_scipy()))
 
 
@@ -85,29 +86,30 @@ def test_tail_fallback():
     A = sp.random(n, n, density=0.02, random_state=7, format="lil", dtype=np.float32)
     A[0, :] = rng.standard_normal(n)  # heavy row: expansion ~ nnz(A)
     A = A.tocsr()
-    C = spgemm_slab(CSR.from_scipy(A), CSR.from_scipy(A), classes=(4, 8), slot_budget=1 << 12)
+    C = spgemm_slab(CSR.from_scipy(A), CSR.from_scipy(A), classes=(4, 8), slot_budget=1 << 12,
+                    device="cpu")
     _check(C, _oracle(A, A))
 
 
 def test_empty_and_zero_rows():
     A = sp.csr_matrix((5, 7), dtype=np.float32)
     B = sp.random(7, 3, density=0.3, random_state=0, format="csr", dtype=np.float32)
-    C = spgemm_slab(CSR.from_scipy(A), CSR.from_scipy(B))
+    C = spgemm_slab(CSR.from_scipy(A), CSR.from_scipy(B), device="cpu")
     assert C.nnz == 0 and C.shape == (5, 3)
-    C2 = spgemm_slab(CSR.from_scipy(B), CSR.from_scipy(A.T.tocsr()))
+    C2 = spgemm_slab(CSR.from_scipy(B), CSR.from_scipy(A.T.tocsr()), device="cpu")
     assert C2.nnz == 0 and C2.shape == (7, 5)
 
 
 def test_duplicate_merge_values():
     A = sp.csr_matrix(np.array([[1.0, 2.0, 0.0], [0.0, 1.0, 1.0]], np.float32))
     B = sp.csr_matrix(np.array([[1.0, 1.0], [1.0, 0.0], [0.5, 0.5]], np.float32))
-    C = spgemm_slab(CSR.from_scipy(A), CSR.from_scipy(B))
+    C = spgemm_slab(CSR.from_scipy(A), CSR.from_scipy(B), device="cpu")
     _check(C, _oracle(A, B))
 
 
 def test_plan_metadata():
     A = tsyn.webgraph_like(500, 3000, seed=4)
-    plan = spgemm_plan(A, A, seg_w=4)
+    plan = spgemm_plan(A, A, seg_w=4, device="cpu")
     assert plan.nrow == 500
     assert sum(plan.class_counts) <= 500
     lenB = np.diff(np.asarray(A.indptr))
@@ -116,8 +118,8 @@ def test_plan_metadata():
 
 def test_matches_global_sort_path():
     A = tsyn.webgraph_like(800, 4800, seed=5)
-    C1 = spgemm_slab(A, A)
-    C2 = ops.spgemm_sorted(A, A)
+    C1 = spgemm_slab(A, A, device="cpu")
+    C2 = ops.spgemm_sorted(A, A, device="cpu")
     assert np.array_equal(np.asarray(C1.indices[: C1.nnz]), np.asarray(C2.indices[: C2.nnz]))
     np.testing.assert_allclose(np.asarray(C1.data[: C1.nnz]), np.asarray(C2.data[: C2.nnz]), rtol=1e-5)
 
@@ -126,7 +128,7 @@ def test_prebuilt_plan_uses_its_own_budget():
     """A plan built with a small slot budget runs with that budget, not the
     default: a larger one would schedule chunks past its rows_sorted padding."""
     A = tsyn.webgraph_like(3000, 18000, seed=6)
-    plan = spgemm_plan(A, A, slot_budget=1 << 14)
+    plan = spgemm_plan(A, A, slot_budget=1 << 14, device="cpu")
     outs, tails, _ = ss.spgemm_slab_device(A, A, plan=plan)  # default budget differs
     nnz_out = sum(int(o[3].sum()) for o in outs)
     ref = _oracle(A.to_scipy(), A.to_scipy())
@@ -136,7 +138,7 @@ def test_prebuilt_plan_uses_its_own_budget():
 def test_spgemm_slab_csr_device_chainable():
     """The CSR held in tensors chains into SpMM without host transfers."""
     A = tsyn.webgraph_like(1200, 7200, seed=8)
-    C = ss.spgemm_slab_csr(A, A)
+    C = ss.spgemm_slab_csr(A, A, device="cpu")
     assert isinstance(C.data, torch.Tensor)
     ref = _oracle(A.to_scipy(), A.to_scipy())
     assert C.nnz == ref.nnz
@@ -153,7 +155,7 @@ def test_spgemm_chain_no_host_roundtrip(monkeypatch):
     """Chaining C = A@A into C@C keeps sizing on the device: no ``.host()``
     of the chained operand."""
     A = tsyn.webgraph_like(900, 5400, seed=5)
-    C = ss.spgemm_slab_csr(A, A)
+    C = ss.spgemm_slab_csr(A, A, device="cpu")
     pulled = []
     orig_host = CSR.host
     monkeypatch.setattr(CSR, "host", lambda self: pulled.append(self) or orig_host(self))
@@ -182,7 +184,7 @@ def test_sizing_device_matches_host():
 def test_huge_expansion_row_chunking(monkeypatch):
     monkeypatch.setattr(ss, "_MAX_EXP_PAD", 4096)
     A = tsyn.webgraph_like(1000, 6000, seed=14)
-    C = ss.spgemm_slab(A, A)
+    C = ss.spgemm_slab(A, A, device="cpu")
     ref = _oracle(A.to_scipy(), A.to_scipy())
     assert C.nnz == ref.nnz
     np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
@@ -199,7 +201,7 @@ def test_big_path_with_tail_rows(monkeypatch):
     A[7, :] = rng.standard_normal(n)
     A = A.tocsr()
     Ac = CSR.from_scipy(A)
-    C = ss.spgemm_slab(Ac, Ac, classes=(4, 8, 16))
+    C = ss.spgemm_slab(Ac, Ac, classes=(4, 8, 16), device="cpu")
     _check(C, _oracle(A, A))
 
 
@@ -218,7 +220,7 @@ def test_big_path_tail_rows_take_no_piece_budget(monkeypatch):
     calls = []
     orig_exec = ss._piece_exec
     monkeypatch.setattr(ss, "_piece_exec", lambda *a, **k: calls.append(1) or orig_exec(*a, **k))
-    _check(ss.spgemm_slab(Ac, Ac, classes=(4, 8, 16)), _oracle(A, A))
+    _check(ss.spgemm_slab(Ac, Ac, classes=(4, 8, 16), device="cpu"), _oracle(A, A))
     assert 2 <= len(calls) <= 4
 
 
@@ -238,26 +240,26 @@ def test_big_path_checkpoint_resume(monkeypatch, tmp_path):
         return orig_exec(*a, **k)
 
     monkeypatch.setattr(ss, "_piece_exec", counting_exec)
-    _check(ss.spgemm_slab(A, A, checkpoint_dir=ckdir), ref)
+    _check(ss.spgemm_slab(A, A, checkpoint_dir=ckdir, device="cpu"), ref)
     assert len(calls) >= 2  # the tiny budget forces a real split
 
     calls.clear()
-    _check(ss.spgemm_slab(A, A, checkpoint_dir=ckdir), ref)
+    _check(ss.spgemm_slab(A, A, checkpoint_dir=ckdir, device="cpu"), ref)
     assert calls == []
 
     os.remove(sorted(glob.glob(os.path.join(ckdir, "piece_*.npz")))[1])
     calls.clear()
-    _check(ss.spgemm_slab(A, A, checkpoint_dir=ckdir), ref)
+    _check(ss.spgemm_slab(A, A, checkpoint_dir=ckdir, device="cpu"), ref)
     assert len(calls) == 1
 
     A2 = tsyn.webgraph_like(1000, 6000, seed=15)
     with pytest.raises(ValueError, match="manifest"):
-        ss.spgemm_slab(A2, A2, checkpoint_dir=ckdir)
+        ss.spgemm_slab(A2, A2, checkpoint_dir=ckdir, device="cpu")
 
 
 def test_rmat_axa():
     A = tsyn.rmat_matrix(11, edge_factor=8, seed=19)
-    C = spgemm_slab(A, A)
+    C = spgemm_slab(A, A, device="cpu")
     _check(C, _oracle(A.to_scipy(), A.to_scipy()))
 
 
@@ -266,8 +268,8 @@ def test_plan_aligned_cache_parity():
     gathers from the plan's tables, in pattern and value modes."""
     A = tsyn.webgraph_like(1200, 7200, seed=7)
     for M in (A, _with_values(A, 8)):
-        p_al = spgemm_plan(M, M)
-        p_fe = spgemm_plan(M, M, expand=False)
+        p_al = spgemm_plan(M, M, device="cpu")
+        p_fe = spgemm_plan(M, M, expand=False, device="cpu")
         assert bool(p_al.aligned_cols) and not p_fe.aligned_cols
         o1, t1, _ = ss.spgemm_slab_device(M, M, plan=p_al)
         o2, t2, _ = ss.spgemm_slab_device(M, M, plan=p_fe)
@@ -278,7 +280,7 @@ def test_plan_aligned_cache_parity():
 def test_chain_device_matches_single():
     A = tsyn.webgraph_like(1200, 7200, seed=9)
     for M in (A, _with_values(A, 10)):
-        plan = spgemm_plan(M, M)
+        plan = spgemm_plan(M, M, device="cpu")
         o1, _, _ = ss.spgemm_slab_device(M, M, plan=plan)
         _assert_chunks_equal(o1, ss.spgemm_chain_device(plan, 3))
 
@@ -289,7 +291,7 @@ def test_plan_serialize_roundtrip(tmp_path):
     from spmm_tpu_torch.utils.serialize import load, save
 
     A = tsyn.webgraph_like(1100, 6600, seed=17)
-    plan = spgemm_plan(A, A)
+    plan = spgemm_plan(A, A, device="cpu")
     path = tmp_path / "plan.npz"
     save(path, plan)
     plan2 = load(path)
@@ -317,14 +319,14 @@ def test_auto_plan_reuse(monkeypatch):
         ss._PLAN_CACHE.clear()
         ref = _oracle(M.to_scipy(), M.to_scipy())
         for call in range(3):
-            C = ops.spgemm(M, M)
+            C = ops.spgemm(M, M, device="cpu")
             assert C.nnz == ref.nnz, (call, C.nnz, ref.nnz)
             np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
             np.testing.assert_allclose(C.data[: C.nnz], ref.data, rtol=1e-5, atol=1e-5)
         assert len(ss._PLAN_CACHE) == 1
     Av.data[: Av.nnz] *= 2.0
     ref2 = _oracle(Av.to_scipy(), Av.to_scipy())
-    C = ops.spgemm(Av, Av)
+    C = ops.spgemm(Av, Av, device="cpu")
     np.testing.assert_allclose(C.data[: C.nnz], ref2.data, rtol=1e-4, atol=1e-4)
 
 
@@ -348,7 +350,7 @@ def test_plan_revalue_new_values(monkeypatch):
         raise AssertionError("host sizing must not re-run on revalue")
 
     A1, B1 = _with_values(A0, 1), _with_values(A0, 2)
-    plan1 = ss.spgemm_plan(A1, B1)
+    plan1 = ss.spgemm_plan(A1, B1, device="cpu")
     _check(run(plan1, A1, B1), _oracle(A1.to_scipy(), B1.to_scipy()))
 
     A2, B2 = _with_values(A0, 3), _with_values(A0, 4)
@@ -357,7 +359,7 @@ def test_plan_revalue_new_values(monkeypatch):
     monkeypatch.undo()
     _check(run(plan2, A2, B2), _oracle(A2.to_scipy(), B2.to_scipy()))
 
-    plan_p = ss.spgemm_plan(A0, A0)
+    plan_p = ss.spgemm_plan(A0, A0, device="cpu")
     assert plan_p.pattern
     monkeypatch.setattr(ss, "_sizing", boom)
     plan_v = ss.spgemm_plan_revalue(plan_p, A1, B1)
@@ -385,7 +387,7 @@ def _pair(n, nnz, seed, values_seed=None):
 @pytest.mark.parametrize("values", ["pattern", "random"])
 def test_spgemm_slab_matches_jax(values):
     A, Aj = _pair(1500, 9000, 21, None if values == "pattern" else 22)
-    C = ops.spgemm(A, A)
+    C = ops.spgemm(A, A, device="cpu")
     Cj = js.spgemm_slab(Aj, Aj)
     np.testing.assert_array_equal(C.indptr, np.asarray(Cj.indptr))
     np.testing.assert_array_equal(C.indices, np.asarray(Cj.indices[: Cj.nnz]))
@@ -416,7 +418,7 @@ def test_plan_and_chunks_match_jax(values):
     slots of each row; past them both packages leave unspecified values)
     exactly, vals_u within 2e-5."""
     A, Aj = _pair(2000, 12000, 6, None if values == "pattern" else 5)
-    plan = spgemm_plan(A, A, slot_budget=1 << 14)
+    plan = spgemm_plan(A, A, slot_budget=1 << 14, device="cpu")
     plan_j = js.spgemm_plan(Aj, Aj, slot_budget=1 << 14)
     assert plan.class_counts == plan_j.class_counts and plan.pattern == plan_j.pattern
     np.testing.assert_array_equal(plan.rows_sorted.numpy(), np.asarray(plan_j.rows_sorted))
@@ -438,7 +440,7 @@ def test_big_path_matches_jax(monkeypatch):
     A, Aj = _pair(600, 3600, 14, 3)
     monkeypatch.setattr(ss, "_MAX_EXP_PAD", 4096)
     monkeypatch.setattr(js, "_MAX_EXP_PAD", 4096)
-    C = ss.spgemm_slab_big(A, A, pieces=4, slot_budget=1 << 14)
+    C = ss.spgemm_slab_big(A, A, pieces=4, slot_budget=1 << 14, device="cpu")
     Cj = js.spgemm_slab_big(Aj, Aj, pieces=4, slot_budget=1 << 14)
     np.testing.assert_array_equal(C.indptr, np.asarray(Cj.indptr))
     np.testing.assert_array_equal(C.indices, np.asarray(Cj.indices))
@@ -464,17 +466,17 @@ def test_routes_tail_rows_by_sizing_not_by_catching(monkeypatch):
         raise ValueError("device fault")
 
     monkeypatch.setattr(ss, "spgemm_slab_csr", broken)
-    _check(spgemm_slab(Ac, Ac, classes=(4, 8)), _oracle(Ac.to_scipy(), Ac.to_scipy()))
+    _check(spgemm_slab(Ac, Ac, classes=(4, 8), device="cpu"), _oracle(Ac.to_scipy(), Ac.to_scipy()))
     B = tsyn.webgraph_like(300, 1500, seed=2)
     with pytest.raises(ValueError, match="device fault"):
-        spgemm_slab(B, B)
+        spgemm_slab(B, B, device="cpu")
 
 
 def test_chunk_slice_past_padding_raises():
     """A chunk whose rows would run past rows_sorted's padding raises instead
     of coming back short."""
     A = tsyn.webgraph_like(500, 3000, seed=4)
-    plan = spgemm_plan(A, A, expand=False)
+    plan = spgemm_plan(A, A, expand=False, device="cpu")
     n = plan.rowmeta.shape[0]
     with pytest.raises(ValueError, match="padding"):
         ss._chunk_meta(plan.rowmeta, n - 4, 4, 8, 1)
@@ -508,3 +510,36 @@ def test_checkpoint_io_error_keeps_piece(tmp_path, monkeypatch, multi):
         f.write(b"PK\x03\x04torn")
     assert load(0, *args) is None
     assert not os.path.exists(ck._piece_path(0))
+
+
+# ---- the entry points compute on the card unless the caller names another ---
+
+DEFAULT_CUDA_ENTRIES = [
+    ("ops.spgemm", lambda A: ops.spgemm(A, A)),
+    ("spgemm_slab_big", lambda A: ss.spgemm_slab_big(A, A, pieces=2)),
+    ("ops.spgemm_sorted", lambda A: ops.spgemm_sorted(A, A)),
+    ("spgemm_plan", lambda A: ss.spgemm_plan(A, A)),
+    ("spgemm_slab_device", lambda A: ss.spgemm_slab_device(A, A)),
+    ("spgemm_slab_csr", lambda A: ss.spgemm_slab_csr(A, A)),
+]
+
+
+@pytest.mark.parametrize("name,call", DEFAULT_CUDA_ENTRIES, ids=[n for n, _ in DEFAULT_CUDA_ENTRIES])
+def test_default_device_is_cuda_and_raises_without_one(name, call, monkeypatch):
+    """With no device named, a numpy-held product goes to ``cuda``; without a
+    CUDA device that raises and names ``device="cpu"`` (no silent CPU run)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    A = tsyn.webgraph_like(200, 1200, seed=3)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call(A)
+
+
+def test_tensor_held_operands_stay_on_their_device():
+    """``device=None`` keeps a tensor-held operand where it lies (here the
+    CPU), as the chained products need."""
+    A = tsyn.webgraph_like(300, 1800, seed=4).to("cpu")
+    plan = ss.spgemm_plan(A, A)
+    assert plan.rows_sorted.device.type == "cpu"
+    C = ss.spgemm_slab_csr(A, A)
+    assert isinstance(C.data, torch.Tensor) and C.data.device.type == "cpu"
+    _check(ss._csr_to_host(C), _oracle(A.to_scipy(), A.to_scipy()))

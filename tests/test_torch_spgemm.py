@@ -121,7 +121,7 @@ def test_ops_spgemm_is_slab_and_sorted_keeps_its_chunking():
     assert ops.spgemm_sorted is not ops.spgemm
     with pytest.raises(TypeError):
         ops.spgemm(tsyn.random_csr(5, 5, 0.3, seed=1), tsyn.random_csr(5, 5, 0.3, seed=1),
-                   max_expand_per_chunk=1)
+                   max_expand_per_chunk=1, device="cpu")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -197,7 +197,7 @@ def test_triangle_count_matches_scipy():
     Us.eliminate_zeros()
     Us.data[:] = 1.0
     U = CSR.from_scipy(Us.astype(np.float32))
-    C = ops.spgemm(U, U)
+    C = ops.spgemm(U, U, device="cpu")
     t = C.to_scipy().multiply(U.to_scipy()).sum() / 6.0
     S = U.to_scipy()
     ref = (S @ S).multiply(S).sum() / 6.0
