@@ -71,7 +71,7 @@ import numpy as np
 RTOL_F32 = 1e-5
 RTOL_BF16 = 2e-2
 WEB_N, WEB_NNZ = 916_428, 5_105_039  # web-Google size (bench.py:44-45)
-#: the H100 SXM's published rates (on-chip-measurement guide): HBM bytes/s,
+#: the H100 SXM's published rates (NVIDIA's H100 datasheet): HBM bytes/s,
 #: fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 #: each kernel's time at the phase 3 shapes before its redesign for Hopper
