@@ -15,8 +15,10 @@ Phases, each printing one line with its times (CUDA events for kernels,
               in one launch at k=128 and k=32.  Per kernel and shape: max
               error, kernel / plain / library ms (CUDA events, mean of 10),
               the bound computed from these matrices (bytes at 3.35 TB/s or
-              operations at the type's peak, whichever is larger), the share
-              of it reached, and the time before the kernel's redesign.
+              operations at the type's peak, whichever is larger; for K1
+              fp32 also the fp32-FMA and the 3xTF32 tensor-core bounds), the
+              share of it reached, and the time before the kernel's redesign
+              (from PERF.md, printed only).
 4. main     — the port's main path with every launch counter at 0: the CLI
               (.mtx ingest → preprocess → ELL SpMM k=128 → exact A×A through
               the slab SpGEMM, --check against scipy) on the web-Google-sized
@@ -72,10 +74,11 @@ RTOL_F32 = 1e-5
 RTOL_BF16 = 2e-2
 WEB_N, WEB_NNZ = 916_428, 5_105_039  # web-Google size (bench.py:44-45)
 #: the H100 SXM's published rates (NVIDIA's H100 datasheet): HBM bytes/s,
-#: fp32 FLOP/s outside the tensor cores, dense bf16 tensor-core FLOP/s
-HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
-#: each kernel's time at the phase 3 shapes before its redesign for Hopper
-#: (PERF.md's kernel table)
+#: fp32 FLOP/s outside the tensor cores, dense tf32 and bf16 tensor-core FLOP/s
+HBM_BPS, FP32_FLOPS, TF32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 495e12, 989e12
+#: each kernel's time at the phase 3 shapes before its redesign for Hopper,
+#: printed beside the new one (PERF.md's kernel table; not a measurement of
+#: this run, so not in the kernels line)
 PRIOR_MS = {"K2 k=128": 2.8529, "K2 k=32": 2.6395, "K1 fp32": 0.8087}
 
 
@@ -578,13 +581,15 @@ def main() -> int:
                 f"({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), share {b_ms / ms:.1%} | "
                 f"fp32-FMA bound {fma_ms:.4f} ms, share {fma_ms / ms:.1%}")
         if name == "fp32":
+            # fp32-accurate on the tensor cores: three tf32 products (3xTF32 split)
+            tc_ms, tc_by = bound(nbytes, 3 * flops, TF32_FLOPS)
             lib = cuda_ms(torch, lambda: torch.sparse.mm(S_band, B_))
             results["bsr_spmm"] = dict(
                 max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, library="torch.sparse.mm(sparse_csr_tensor) (cuSPARSE CSR SpMM)",
-                prior_ms=PRIOR_MS["K1 fp32"])
-            line += (f" | library torch.sparse.mm on the CSR {lib:.4f} ms | before the redesign "
-                     f"{PRIOR_MS['K1 fp32']} ms")
+                library_ms=lib, library="torch.sparse.mm(sparse_csr_tensor) (cuSPARSE CSR SpMM)")
+            line += (f" | 3xTF32 tensor-core bound {tc_ms:.4f} ms ({tc_by}), share {tc_ms / ms:.1%} | "
+                     f"library torch.sparse.mm on the CSR {lib:.4f} ms | before the redesign "
+                     f"{PRIOR_MS['K1 fp32']} ms (PERF.md)")
         say(line)
     del S_band
 
@@ -624,12 +629,12 @@ def main() -> int:
             f"{err:.3e} max_rel_err {rel:.3e} (tol {RTOL_F32:g}) | kernel {ms:.4f} ms | plain "
             f"{plain:.4f} ms | bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e6:.1f} MB), share {b_ms / ms:.1%} "
             f"| library torch.sparse.mm on the CSR {lib:.4f} ms beside K2 {ms:.4f} and the whole "
-            f"ell_spmm {whole:.4f} | before the redesign {prior} ms")
+            f"ell_spmm {whole:.4f} | before the redesign {prior} ms (PERF.md)")
         if k == 128:
             results["ell_slab_spmm"] = dict(
                 max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib, library="torch.sparse.mm(sparse_csr_tensor) (cuSPARSE CSR SpMM)",
-                prior_ms=prior, ell_spmm_ms=whole)
+                ell_spmm_ms=whole)
         del Bw, y, ref, y_lib
     del S_web
 

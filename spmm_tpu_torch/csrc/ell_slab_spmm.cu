@@ -42,7 +42,8 @@
 // - Order: the items run in the order of their rows in the original matrix
 //   (or the packed format's final order), not slab by slab: neighbouring
 //   rows of a graph share columns, so the CTAs in flight share B rows
-//   through L2 (the largest single gain of the redesign; sweep_k2.py).
+//   through L2 (the largest single gain of the redesign; the repo's
+//   sweep_k2.py).
 // - Short rows (L <= the split threshold): one row per group, the CTA's
 //   groups on consecutive rows of one slab.  Long rows: one row per CTA, its
 //   L entries cut into chunks over the CTA's groups; the partial sums meet in
@@ -80,9 +81,15 @@ __global__ void __launch_bounds__(kThreads)
 ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ items,
                  const TB* __restrict__ B, float* __restrict__ out, long long n, long long k) {
   // independent B-row loads in flight per lane: 4 at 16-32 lanes a row (2-4
-  // KB of B rows per warp), 8 below -- the fastest of 2, 4, 8 and 16 at each
-  // lane layout in spmm_tpu_torch/sweep_k2.py on the H100 (PERF.md)
-  constexpr int kUnroll = TPR >= 16 ? 4 : 8;
+  // KB of B rows per warp) and at one lane a row (k = 1), 8 at 2-8 lanes --
+  // the fastest of 2, 4, 8 and 16 at each lane layout in the repo's
+  // sweep_k2.py on the H100 (PERF.md), which builds its variants with
+  // -DSPMM_K2_UNROLL=n
+#ifdef SPMM_K2_UNROLL
+  constexpr int kUnroll = SPMM_K2_UNROLL;
+#else
+  constexpr int kUnroll = TPR >= 16 || TPR == 1 ? 4 : 8;
+#endif
   constexpr int kPairs = kUnroll > TPR ? kUnroll / TPR : 1;  // (col, data) registers per lane
   constexpr int kBatch = kPairs * TPR;                       // entries handed out per batch
   __shared__ float part[kThreads * VEC];                     // a split row's partial sums

@@ -30,12 +30,12 @@ launches = 0
 _DTYPES = {torch.float32: kernels.F32, torch.bfloat16: kernels.BF16}
 
 #: threads per CTA (the kernel's kThreads) and the most B-row loads it keeps
-#: in flight per lane (its kUnroll at fewer than 32 lanes a row); a split
+#: in flight per lane (its kUnroll at 2-8 lanes a row); a split
 #: row's chunks are multiples of it
 THREADS = 256
 UNROLL = 8
 #: rows longer than this are cut over the groups of one CTA (on the H100, 64
-#: and 128 tie and 32 or no split are slower: sweep_k2.py, PERF.md)
+#: and 128 tie and 32 or no split are slower: the repo's sweep_k2.py, PERF.md)
 SPLIT_L = 64
 #: int64 fields per slab in the device table (the kernel's kSlabFields)
 SLAB_FIELDS = 6
@@ -60,7 +60,7 @@ def lane_layout(k: int, aligned: bool) -> tuple[int, int]:
     return vec, tpr_log2
 
 
-def work_table(shapes, tpr_log2: int, *, row_keys=None):
+def work_table(shapes, tpr_log2: int, *, row_keys=None, split_l: int = SPLIT_L):
     """K2's work table for slabs of ``shapes`` [(R, L), ...] laid out one
     after another, for groups of ``2**tpr_log2`` lanes.  ``row_keys``: one
     key per row of the concatenated slabs (e.g. its row in the original
@@ -68,39 +68,35 @@ def work_table(shapes, tpr_log2: int, *, row_keys=None):
     the CTAs in flight share B rows through L2.  Returns
 
     - ``meta`` (S, 4) int64: L, R, output row offset, ``chunk``.  A slab with
-      L > ``SPLIT_L`` has ``chunk`` > 0: each of its rows is one item whose
+      L > ``split_l`` has ``chunk`` > 0: each of its rows is one item whose
       entries are cut into chunks of ``chunk`` over the CTA's groups (a
       multiple of the unroll, so each group's loads come in full batches).
       Otherwise ``chunk`` = 0 and an item is one row per group;
     - ``items`` (n_items, 2) int32: (slab, first row) per CTA, in key order,
-      or heaviest first (stable) without keys.
+      or slab by slab and row by row without keys.
     """
     groups = THREADS >> tpr_log2
     meta = np.zeros((len(shapes), 4), np.int64)
-    item_slab, item_row, item_work = [], [], []
+    item_slab, item_row = [], []
     row0 = 0
     for s, (R, L) in enumerate(shapes):
         R, L = int(R), int(L)
-        if L > SPLIT_L:
+        if L > split_l:
             chunk = -(-L // groups)
             chunk = -(-chunk // UNROLL) * UNROLL
-            starts, work = np.arange(R), chunk
+            starts = np.arange(R)
         else:
             chunk = 0
-            starts, work = np.arange(0, R, groups), L
+            starts = np.arange(0, R, groups)
         meta[s] = (L, R, row0, chunk)
         item_slab.append(np.full(len(starts), s, np.int32))
         item_row.append(starts.astype(np.int32))
-        item_work.append(np.full(len(starts), work, np.int64))
         row0 += R
     if not shapes:
         return meta, np.zeros((0, 2), np.int32)
     items = np.stack([np.concatenate(item_slab), np.concatenate(item_row)], 1)
-    if row_keys is None:
-        order = np.argsort(-np.concatenate(item_work), kind="stable")
-    else:
-        order = np.argsort(np.asarray(row_keys)[meta[items[:, 0], 2] + items[:, 1]], kind="stable")
-    items = items[order]
+    if row_keys is not None:
+        items = items[np.argsort(np.asarray(row_keys)[meta[items[:, 0], 2] + items[:, 1]], kind="stable")]
     return meta, np.ascontiguousarray(items, np.int32)
 
 
@@ -143,7 +139,7 @@ def table_memo(owner) -> dict | None:
     return memo_of(owner, "_k2_tables")
 
 
-def _slab_table(cols, data, device, tpr_log2: int, row_keys=None) -> SlabTable:
+def _slab_table(cols, data, device, tpr_log2: int, row_keys=None, split_l: int = SPLIT_L) -> SlabTable:
     cols = [as_tensor(c, device) for c in cols]
     data = [as_tensor(d, device) for d in data]
     dtypes = {d.dtype for d in data}
@@ -161,7 +157,8 @@ def _slab_table(cols, data, device, tpr_log2: int, row_keys=None) -> SlabTable:
             raise ValueError("ell_slabs_spmm: slabs must be contiguous")
     if callable(row_keys):
         row_keys = row_keys()
-    meta, items = work_table([(c.shape[0], c.shape[1]) for c in cols], tpr_log2, row_keys=row_keys)
+    meta, items = work_table([(c.shape[0], c.shape[1]) for c in cols], tpr_log2, row_keys=row_keys,
+                             split_l=split_l)
     host = np.zeros((len(cols), SLAB_FIELDS), np.int64)
     host[:, 0] = [c.data_ptr() for c in cols]
     host[:, 1] = [d.data_ptr() for d in data]

@@ -1,19 +1,22 @@
-"""Sweep K2's design choices on one NVIDIA GPU, over the ELL pack of the
-web-Google-sized graph (``webgraph_like(916_428, 5_105_039, seed=0)``):
+#!/usr/bin/env python3
+"""Sweep the design choices of K2 (``spmm_tpu_torch/csrc/ell_slab_spmm.cu``)
+on one NVIDIA GPU, over the ELL pack of the web-Google-sized graph
+(``webgraph_like(916_428, 5_105_039, seed=0)``):
 
 - the work order: items in the original-row order ``ell_spmm`` gives K2,
-  against heaviest first, slab by slab;
+  against heaviest first (the first design's order, given as row keys);
 - the B-row loads in flight per lane (the kernel's ``kUnroll``) at each lane
   layout, k = 128, 64, 32, 8 and 1: the source's rule against fixed values;
-- the split threshold of long rows (``ell_kernel.SPLIT_L``) at k = 128, 32.
+- the split threshold of long rows (``work_table``'s ``split_l``) at k = 128
+  and 32.
 
-Each ``kUnroll`` variant is the kernel source with that one line changed,
-built into ``_build/sweep/`` (the builds run side by side).  Every product
-is checked against the plain version before it is timed (CUDA events, mean
-of 10).  Prints one line per k and the card's name and power limit; exits
-nonzero without CUDA.
+Each ``kUnroll`` variant is the kernel library built from the unchanged
+sources with ``-DSPMM_K2_UNROLL=n`` into ``spmm_tpu_torch/_build/sweep/``
+(the builds run side by side).  Every product is checked against the plain
+version before it is timed (CUDA events, mean of 10).  Prints one line per k
+and the card's name and power limit; exits nonzero without CUDA.
 
-Usage: python -m spmm_tpu_torch.sweep_k2
+Usage: python3 sweep_k2.py
 """
 
 from __future__ import annotations
@@ -32,37 +35,35 @@ from spmm_tpu_torch.native.build import compile_if_stale
 from spmm_tpu_torch.ops import ell_kernel
 from spmm_tpu_torch.ops.ell_spmm import slab_row_keys
 
-UNROLL_LINE = "constexpr int kUnroll = TPR >= 16 ? 4 : 8;"
 UNROLLS = (2, 4, 8, 16)
 SPLITS = (32, 64, 128, 1 << 30)
 
 
 def _variant(unroll: int) -> str:
     """The kernel library with ``kUnroll`` fixed at ``unroll``."""
-    out = os.path.join(os.path.dirname(kernels.LIB), "sweep", f"unroll{unroll}")
-    os.makedirs(out, exist_ok=True)
-    for name in os.listdir(kernels.CSRC):
-        with open(os.path.join(kernels.CSRC, name)) as f:
-            text = f.read()
-        if name == "ell_slab_spmm.cu":
-            if UNROLL_LINE not in text:
-                raise RuntimeError("the kernel's kUnroll line changed; update UNROLL_LINE")
-            text = text.replace(UNROLL_LINE, f"constexpr int kUnroll = {unroll};")
-        with open(os.path.join(out, name), "w") as f:
-            f.write(text)
-    srcs = sorted(os.path.join(out, n) for n in os.listdir(out) if n.endswith(".cu"))
-    return compile_if_stale(srcs, os.path.join(out, "lib.so"), [kernels.nvcc(), *kernels.NVCC_FLAGS],
+    lib = os.path.join(os.path.dirname(kernels.LIB), "sweep", f"unroll{unroll}", "lib.so")
+    return compile_if_stale(kernels.sources(), lib,
+                            [kernels.nvcc(), *kernels.NVCC_FLAGS, f"-DSPMM_K2_UNROLL={unroll}"],
                             force=True)
 
 
-def _ms(torch_fn, iters: int = 10) -> float:
+def heaviest_first_keys(shapes, tpr_log2: int) -> np.ndarray:
+    """Row keys under which ``work_table`` runs the heaviest items first,
+    slab by slab among equals: each row keyed by minus its item's work (L,
+    or the chunk of a split row)."""
+    meta, _ = ell_kernel.work_table(shapes, tpr_log2)
+    work = np.where(meta[:, 3] > 0, meta[:, 3], meta[:, 0])
+    return np.repeat(-work, meta[:, 1])
+
+
+def _ms(fn, iters: int = 10) -> float:
     for _ in range(2):
-        torch_fn()
+        fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        torch_fn()
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -84,8 +85,9 @@ def main() -> int:
 
     A = webgraph_like(916_428, 5_105_039, seed=0)
     E = ell_pack(A).to(dev)
+    shapes = [tuple(c.shape) for c in E.cols]
     keys = slab_row_keys(E)
-    rows = sum(int(c.shape[0]) for c in E.cols)
+    rows = sum(R for R, _ in shapes)
     rng = np.random.default_rng(0)
 
     def timed(so, table, B, out, ref, vec, tpr_log2):
@@ -110,23 +112,17 @@ def main() -> int:
         ref = ell_kernel.ell_slabs_spmm_reference(E.cols, E.data, B, torch.empty_like(out))
         vec, tpr_log2 = ell_kernel.lane_layout(k, True)
         keyed = ell_kernel._slab_table(E.cols, E.data, dev, tpr_log2, keys)
-        heavy = ell_kernel._slab_table(E.cols, E.data, dev, tpr_log2)
-        rule = 4 if tpr_log2 >= 4 else 8
+        heavy = ell_kernel._slab_table(E.cols, E.data, dev, tpr_log2, heaviest_first_keys(shapes, tpr_log2))
+        rule = 4 if tpr_log2 >= 4 or tpr_log2 == 0 else 8
         line = (f"k={k} ({1 << tpr_log2} lanes a row): source (kUnroll {rule}) in key order "
                 f"{timed(main_lib, keyed, B, out, ref, vec, tpr_log2):.4f} ms, heaviest first "
                 f"{timed(main_lib, heavy, B, out, ref, vec, tpr_log2):.4f} ms | key order with kUnroll ")
         line += ", ".join(f"{u}: {timed(so, keyed, B, out, ref, vec, tpr_log2):.4f}" for u, so in libs.items())
         if k in (128, 32):
-            split = ell_kernel.SPLIT_L
-            try:
-                cells = []
-                for s in SPLITS:
-                    ell_kernel.SPLIT_L = s
-                    t = ell_kernel._slab_table(E.cols, E.data, dev, tpr_log2, keys)
-                    cells.append(f"{s if s < 1 << 30 else 'none'}: "
-                                 f"{timed(main_lib, t, B, out, ref, vec, tpr_log2):.4f}")
-            finally:
-                ell_kernel.SPLIT_L = split
+            cells = []
+            for s in SPLITS:
+                t = ell_kernel._slab_table(E.cols, E.data, dev, tpr_log2, keys, split_l=s)
+                cells.append(f"{s if s < 1 << 30 else 'none'}: {timed(main_lib, t, B, out, ref, vec, tpr_log2):.4f}")
             line += " | split threshold " + ", ".join(cells)
         print(line + " ms", flush=True)
     print(smi.stdout.strip(), flush=True)

@@ -12,6 +12,8 @@ on the card by tests/test_torch_cuda.py.
 
 import dataclasses
 import importlib
+import importlib.util
+import os
 
 import jax
 import jax.numpy as jnp
@@ -99,8 +101,8 @@ def test_k2_work_table_covers_every_slot_once(tpr_log2):
             assert chunk == 0
             np.testing.assert_array_equal(mine[:, 1], np.arange(0, R, groups))
             assert np.all(part[slab == s] == -1)
-    work = np.where(meta[items[:, 0], 3] > 0, meta[items[:, 0], 3], meta[items[:, 0], 0])
-    assert np.all(np.diff(work) <= 0)  # heaviest items first
+    # without row keys: slab by slab, row by row
+    np.testing.assert_array_equal(np.lexsort((items[:, 1], items[:, 0])), np.arange(len(items)))
 
 
 @pytest.mark.parametrize("k", [1, 3, 32, 128])
@@ -184,15 +186,28 @@ def test_k2_multi_slab_writes_its_rows_and_rejects_bad_shapes():
         ops.ell_slabs_spmm(ct, dt, B.to("meta"))
 
 
-def test_k2_sweep_finds_its_line_and_needs_the_card():
-    """spmm_tpu_torch.sweep_k2 rewrites the kernel's kUnroll line, which must
-    stay as the sweep knows it, and exits nonzero without CUDA."""
-    from spmm_tpu_torch import kernels, sweep_k2
+def _sweep_k2():
+    """The repo's top-level sweep_k2.py, imported by path."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sweep_k2.py")
+    spec = importlib.util.spec_from_file_location("sweep_k2", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
-    with open(kernels.CSRC + "/ell_slab_spmm.cu") as f:
-        assert f.read().count(sweep_k2.UNROLL_LINE) == 1
+
+def test_k2_sweep_orders_heaviest_first_and_needs_the_card():
+    """sweep_k2.py's baseline order (heaviest items first, given as row
+    keys) and its exit without CUDA."""
+    sweep = _sweep_k2()
+    for tpr_log2 in (0, 3, 5):
+        keys = sweep.heaviest_first_keys(SLAB_SHAPES, tpr_log2)
+        meta, items = ell_kernel.work_table(SLAB_SHAPES, tpr_log2, row_keys=keys)
+        work = np.where(meta[items[:, 0], 3] > 0, meta[items[:, 0], 3], meta[items[:, 0], 0])
+        assert np.all(np.diff(work) <= 0)  # heaviest items first
+        heavy = items[:, 0] * 10**6 + items[:, 1]
+        assert len(np.unique(heavy)) == len(ell_kernel.work_table(SLAB_SHAPES, tpr_log2)[1])
     if not torch.cuda.is_available():
-        assert sweep_k2.main() == 1
+        assert sweep.main() == 1
 
 
 # ---- K1: the group plan -----------------------------------------------------
