@@ -9,12 +9,16 @@ Phases, each printing one line with its times (CUDA events for kernels,
               from this checkout's sources; print the nvcc version.
 3. kernels  — each hand-written kernel against its plain PyTorch version on
               the card: K1 (BSR) through ``ops.spmm(BSR, B)`` on
-              ``banded_random(65536, 512, 0.25, seed=3)`` at k=128 in fp32 and
-              bf16; K2 over all 78 slabs of the ELL pack of
-              ``webgraph_like(916_428, 5_105_039, seed=0)`` (web-Google size)
-              in one launch at k=128 and k=32.  Per kernel and shape: max
-              error, kernel / plain / library ms (CUDA events, mean of 10),
-              the bound computed from these matrices (bytes at 3.35 TB/s or
+              ``banded_random(65536, 512, 0.25, seed=3)`` at k=128 in fp32,
+              bf16 and fp64, and on the transposed BSR (the gradient with
+              respect to B), beside the ``torch.bmm`` value gradient; K2 over
+              all 78 slabs of the ELL pack of ``webgraph_like(916_428,
+              5_105_039, seed=0)`` (web-Google size) in one launch at k=128
+              and k=32, in fp64 at k=128, and over the transposed pack; K3
+              (the slab values' gradient) at k=128.  Per kernel and shape:
+              max error, kernel / plain / library ms (CUDA events, mean of
+              10; the package's ``utils.timing.measure``), the bound computed
+              from these matrices (``ops.roofline``: bytes at 3.35 TB/s or
               operations at the type's peak, whichever is larger; for K1
               fp32 also the fp32-FMA and the 3xTF32 tensor-core bounds), the
               share of it reached, and the time before the kernel's redesign
@@ -41,8 +45,22 @@ Phases, each printing one line with its times (CUDA events for kernels,
               by ``ell_pack_device``, one K2 launch), ``bitmap_perm_device``
               (equal to the host permutation), ``bsr_spmv``, ``sddmm`` and
               ``entry()``; then each timed (CUDA events) beside ``ell_spmm``.
-7. report   — one JSON line of per-kernel results (launches of phases 4 and 6,
-              the entry points that launched each kernel, phase 3's times,
+7. grad     — this slice's path, with the launch counters at 0 again: (a)
+              ``sum(spmm(A, B)**2)`` forward and ``backward()`` at full size
+              and k=128 through ``ell_spmm`` (B and the slab values),
+              ``blocked_spmm_slab`` and ``ops.spmm(BSR)``: gradients against
+              scipy's ``2 Aᵀ(A B)`` and the plain versions' autograd
+              gradient, the slab values' against ``2 Y[row]·B[col]``,
+              bit-identical repeats, the launch counts (one K2 forward, one
+              K2 on the transposed pack, one K3), forward + backward ms and a
+              profile; (b) fp64 ``ell_spmm`` and a value-mode
+              ``ops.spgemm(accum_dtype=float64)`` against scipy; (c) the four
+              ``examples/*_torch.py`` programs through their functions:
+              PageRank (50 iterations), CG (200) and BFS at web-Google size,
+              triangle counting at 16,384 nodes (the symmetrised web-Google
+              graph's hubs make its A×A 1.8e11 partial products).
+8. report   — one JSON line of per-kernel results (launches of phases 4, 6 and
+              7, the entry points that launched each kernel, phase 3's times,
               bound and library time at the main-path shape), the card's name
               and power limit, and the final ``{"ok": true, ...}`` line.
 
@@ -73,9 +91,10 @@ import numpy as np
 RTOL_F32 = 1e-5
 RTOL_BF16 = 2e-2
 WEB_N, WEB_NNZ = 916_428, 5_105_039  # web-Google size (bench.py:44-45)
-#: the H100 SXM's published rates (NVIDIA's H100 datasheet): HBM bytes/s,
-#: fp32 FLOP/s outside the tensor cores, dense tf32 and bf16 tensor-core FLOP/s
-HBM_BPS, FP32_FLOPS, TF32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 495e12, 989e12
+#: fp64 kernels hold their plain versions to this
+RTOL_F64 = 1e-12
+#: nodes of the triangle-counting graph (phase 7c says why not web-Google's)
+TRI_N = 49_152
 #: each kernel's time at the phase 3 shapes before its redesign for Hopper,
 #: printed beside the new one (PERF.md's kernel table; not a measurement of
 #: this run, so not in the kernels line)
@@ -97,17 +116,11 @@ def say(line: str) -> None:
 
 
 def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls (warm L2)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (warm L2):
+    CUDA events through the package's ``measure``."""
+    from spmm_tpu_torch.utils.timing import measure
+
+    return measure(fn, warmup=warmup, iters=iters, cuda=True).mean_ms
 
 
 def host_timed(torch, fn):
@@ -149,51 +162,60 @@ def held_against(C, ref, what: str, rtol=None) -> float:
     return err
 
 
-def traced(paths: dict, name: str, fn):
-    """Run ``fn`` and add ``name`` to the paths of every kernel it launched."""
+def counters() -> dict:
+    """Every launch counter of the port, by the name it has in the report."""
     from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
 
-    mods = {"ell_slab_spmm": ell_kernel, "bsr_spmm": bsr_kernel}
-    before = {k: m.launches for k, m in mods.items()}
+    return {"ell_slab_spmm": ell_kernel.launches, "bsr_spmm": bsr_kernel.launches,
+            "ell_slab_spmm_transposed": ell_kernel.transposed_launches,
+            "ell_slab_sddmm": ell_kernel.sddmm_launches,
+            "bsr_spmm_transposed": bsr_kernel.transposed_launches}
+
+
+def reset_counters() -> None:
+    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
+
+    ell_kernel.launches = ell_kernel.transposed_launches = ell_kernel.sddmm_launches = 0
+    bsr_kernel.launches = bsr_kernel.transposed_launches = 0
+
+
+def traced(paths: dict, name: str, fn, tally: dict | None = None):
+    """Run ``fn`` and add ``name`` to the paths of every kernel it launched;
+    ``tally``, when given, gains the launches of this one call (a phase that
+    also times its path keeps the timing repeats out of its count so)."""
+    before = counters()
     out = fn()
-    for k, m in mods.items():
-        if m.launches > before[k] and name not in paths[k]:
+    for k, n in counters().items():
+        if n > before[k] and name not in paths[k]:
             paths[k].append(name)
+        if tally is not None:
+            tally[k] = tally.get(k, 0) + n - before[k]
     return out
 
 
-def launched(paths: dict, name: str, fn, want: dict):
+def launched(paths: dict, name: str, fn, want: dict, tally: dict | None = None):
     """``traced``, and fails unless ``fn`` launched each kernel in ``want``
     exactly that many times (one K2 launch per product)."""
-    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
-
-    mods = {"ell_slab_spmm": ell_kernel, "bsr_spmm": bsr_kernel}
-    before = {k: m.launches for k, m in mods.items()}
-    out = traced(paths, name, fn)
+    before = counters()
+    out = traced(paths, name, fn, tally)
+    after = counters()
     for k, n in want.items():
-        got = mods[k].launches - before[k]
+        got = after[k] - before[k]
         require(got == n, f"{name}: {got} {k} launches, expected {n}")
     return out
 
 
-def device_breakdown(prof, n: int):
-    """A profile's device time per run of ``n``: (ops by the device time of
-    the kernels each launched, kernels and copies by their time, busy ms)."""
-    from torch.autograd import DeviceType
-
-    events = sorted(prof.key_averages(), key=lambda e: e.self_device_time_total, reverse=True)
-    by_op = [e for e in events if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
-    by_kernel = [e for e in events if e.device_type != DeviceType.CPU]
-    return by_op, by_kernel, sum(e.self_device_time_total for e in by_kernel) / n / 1e3
+def profile_line(p, n: int = 6) -> str:
+    """The top ``n`` kernels of a ``utils.profiling.Profile``."""
+    return " | ".join(f"{o.name[:60]} x{o.count:g} {o.ms:.3f}" for o in p.ops[:n])
 
 
 def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     """Phase 5: the slab SpGEMM's entry points at full size, each product held
     against one scipy A×A, which it returns (phase 6 reuses it)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from spmm_tpu_torch import ops
     from spmm_tpu_torch.ops import slab_spgemm as ss
+    from spmm_tpu_torch.utils.profiling import profile_fn
 
     timed = functools.partial(host_timed, torch)
 
@@ -252,16 +274,10 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
                                                        dtype=torch.float32, device=dev), iters=3, warmup=1)
     say(f"phase 5 stages (CUDA events): S2 expansion {s2_ms:.3f} ms | S1 sort+merge {num_ms:.3f} ms | "
         f"S3 compaction {s3_ms:.3f} ms")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            ss.spgemm_slab_device(A, A, plan)
-        torch.cuda.synchronize()
-    by_op, by_kernel, busy = device_breakdown(prof, 3)
-    say(f"phase 5 profile, warm numeric (device ms per product, busy {busy:.3f}): by op: "
-        + " | ".join(f"{e.key} x{e.count // 3} {e.self_device_time_total / 3e3:.3f}" for e in by_op[:6])
-        + " || by kernel: "
-        + " | ".join(f"{e.key[:70]} x{e.count // 3} {e.self_device_time_total / 3e3:.3f}"
-                     for e in by_kernel[:6]))
+    p = profile_fn(lambda: ss.spgemm_slab_device(A, A, plan), repeats=3, warm=False)
+    say(f"phase 5 profile, warm numeric (device ms per product, busy {p.total_device_ms:.3f}): by op: "
+        + " | ".join(f"{src} {ms:.3f}" for src, ms in list(p.by_source().items())[:6])
+        + " || by kernel: " + profile_line(p))
     del outs, Cd, Ch, plan
 
     base = reset()
@@ -288,10 +304,10 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     # the device's idle share of one call, plan reuse and then without a plan
     idle = []
     for label in ("plan reuse", "no plan"):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            _, t = timed(lambda: ops.spgemm(A, A, device=dev))
-        _, by_kernel, busy = device_breakdown(prof, 1)
-        copies = sum(e.self_device_time_total for e in by_kernel if e.key.startswith("Memcpy")) / 1e3
+        t_call = []
+        p = profile_fn(lambda: t_call.append(timed(lambda: ops.spgemm(A, A, device=dev))[1]), warm=False)
+        t, busy = t_call[0], p.total_device_ms
+        copies = sum(o.ms for o in p.ops if o.name.startswith("Memcpy"))
         idle.append(f"{label}: {t:.1f} ms under the profiler, device busy {busy:.3f} ms "
                     f"(copies {copies:.3f}), idle {100 * (1 - busy / t):.1f}%")
         ss._PLAN_SEEN.clear()
@@ -335,9 +351,8 @@ def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: fl
     the rest of slice 3 at web-Google size.  Every entry point runs once
     (the path, with the launch counts set to 0 by the caller), then each
     result is held against scipy or its plain version and timed.  Returns
-    each kernel's launch count at the end of the path run."""
-    from torch.profiler import ProfilerActivity, profile
-
+    each kernel's launch count at the end of the path run, and the packed
+    matrix and its slab view (phase 7 differentiates through them)."""
     from spmm_tpu_torch import ops
     from spmm_tpu_torch.config import Config
     from spmm_tpu_torch.entry import entry
@@ -345,6 +360,7 @@ def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: fl
     from spmm_tpu_torch.ops import blocked as bl
     from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
     from spmm_tpu_torch.preprocess import bitmap_perm_device, bitmap_reorder, preprocess
+    from spmm_tpu_torch.utils.profiling import profile_fn
 
     spmm_mod = importlib.import_module("spmm_tpu_torch.ops.spmm")  # ops.spmm is the function
 
@@ -411,7 +427,7 @@ def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: fl
     fn, args = entry(dev)
     y_entry = k2_calls("entry.entry (blocked_spmm_slab)", lambda: fn(*args), 1)
     torch.cuda.synchronize()
-    path_launches = {"ell_slab_spmm": ell_kernel.launches, "bsr_spmm": bsr_kernel.launches}
+    path_launches = counters()
 
     # 3. checks
     ref = S @ B.cpu().numpy()
@@ -461,11 +477,7 @@ def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: fl
         "entry": cuda_ms(torch, lambda: fn(*args)),
         "entry plain": cuda_ms(torch, lambda: bl.blocked_spmm_slab_reference(*args)),
     }
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            ops.blocked_spmm_slab(P, B, view)
-        torch.cuda.synchronize()
-    _, by_kernel, busy = device_breakdown(prof, 3)
+    prof = profile_fn(lambda: ops.blocked_spmm_slab(P, B, view), repeats=3, warm=False)
     _, t_pack_dev = timed(lambda: ell_pack_device(Cd))
     _, t_pack_host = timed(lambda: real_pack(Cd).to(dev))
     _, t_perm_host = timed(lambda: bitmap_reorder(A, 2048, materialize=False))
@@ -480,10 +492,238 @@ def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: fl
         f"{ms['perm']:.4f} ms vs host bitmap_reorder {t_perm_host:.1f} ms | bsr_spmv {ms['bsr_spmv']:.4f} | "
         f"sddmm k=128 {ms['sddmm']:.4f} | entry() {ms['entry']:.4f} vs plain {ms['entry plain']:.4f} | "
         f"phase 6 took {time.perf_counter() - t_phase:.1f} s")
-    say(f"phase 6 profile, blocked_spmm_slab k=128 (device ms per call, busy {busy:.3f}): by kernel: "
-        + " | ".join(f"{e.key[:60]} x{e.count // 3} {e.self_device_time_total / 3e3:.3f}"
-                     for e in by_kernel[:6]))
-    return path_launches
+    say(f"phase 6 profile, blocked_spmm_slab k=128 (device ms per call, busy "
+        f"{prof.total_device_ms:.3f}): by kernel: " + profile_line(prof))
+    return path_launches, P, view
+
+
+def grad_phase(torch, A, E, Ab, A_band, P, view, dev, rng, paths, root) -> dict:
+    """Phase 7, this slice's path at web-Google size: gradients through the
+    SpMM kernels, fp64 on the kernels, and the four example programs.
+    Returns each kernel's launches on the phase's path: those of the path's
+    own calls, none of the timing and profiling repeats beside them."""
+    import importlib.util
+
+    from spmm_tpu_torch import ops
+    from spmm_tpu_torch.formats import ell_pack, webgraph_like
+    from spmm_tpu_torch.ops import blocked as bl
+    from spmm_tpu_torch.ops import bsr_kernel
+    from spmm_tpu_torch.utils.profiling import profile_fn
+
+    timed = functools.partial(host_timed, torch)
+    t_phase = time.perf_counter()
+    tally = dict.fromkeys(counters(), 0)
+
+    def on_path(name, fn, want=None):
+        """One call of the path: traced, counted into ``tally``, and held to
+        the launch counts in ``want``."""
+        return launched(paths, name, fn, want or {}, tally)
+
+    def within(y, ref, tol, what):
+        y, ref = (a.detach().cpu().numpy() if hasattr(a, "cpu") else a for a in (y, ref))
+        err, scale = float(np.abs(y - ref).max()), float(np.abs(ref).max())
+        require(err <= tol * scale, f"{what}: max err {err:.3e} > {tol:g} * {scale:.3e}")
+        return err / scale
+
+    def same_bits(g1, g2, what):
+        require(all(torch.equal(a, b) for a, b in zip(g1, g2, strict=True)),
+                f"{what}: two backward runs differ in their bits")
+
+    def plain_grad(fn, *leaves):
+        """The gradient of sum(fn()**2) by autograd of plain torch ops."""
+        return torch.autograd.grad((fn() ** 2).sum(), leaves)
+
+    # ---- (a) sum(spmm(A, B)**2): forward and backward, k = 128 ---------------
+    k = 128
+    S = A.to_scipy()
+    B0 = rng.standard_normal((A.ncol, k)).astype(np.float32)
+    Y0 = S @ B0
+    ref_g = 2.0 * (S.T @ Y0)
+    B = torch.from_numpy(B0).to(dev).requires_grad_()
+    Eg = dataclasses.replace(E, data=tuple(d.clone().requires_grad_() for d in E.data))
+
+    def ell_fb():
+        return torch.autograd.grad((ops.ell_spmm(Eg, B) ** 2).sum(), [B, *Eg.data])
+
+    def ell_fb_B():
+        return torch.autograd.grad((ops.ell_spmm(E, B) ** 2).sum(), [B])
+
+    want = {"ell_slab_spmm": 2, "ell_slab_spmm_transposed": 1, "ell_slab_sddmm": 1, "bsr_spmm": 0}
+    g1, t_first = timed(lambda: on_path("ops.ell_spmm + backward (B and slab values)", ell_fb, want))
+    g2 = on_path("ops.ell_spmm + backward (B and slab values)", ell_fb, want)
+    same_bits(g1, g2, "ell_spmm")
+    on_path("ops.ell_spmm + backward (B)", ell_fb_B, {**want, "ell_slab_sddmm": 0})
+    err_sp = within(g1[0], ref_g, 1e-4, "ell_spmm grad B vs scipy 2 Aᵀ(A B)")
+    A_dev = A.pad(1024).to(dev)
+    Bp = B.detach().clone().requires_grad_()
+    err_pl = within(g1[0], plain_grad(lambda: ops.spmm_xla(A_dev, Bp), Bp)[0], 1e-4,
+                    "ell_spmm grad B vs the plain gather + index_add_ gradient")
+    # the slab values' gradient, 2 Y[row] . B[col], on a sample of slots
+    cols_flat = np.concatenate([c.cpu().numpy().reshape(-1) for c in E.cols])
+    rows_flat = np.concatenate([np.repeat(np.arange(c.shape[0]), c.shape[1]) for c in E.cols])
+    row0 = np.cumsum([0] + [int(c.shape[0]) for c in E.cols])
+    rows_flat = rows_flat + np.repeat(row0[:-1], [int(c.numel()) for c in E.cols])
+    perm = E.perm.cpu().numpy()[E.n_empty:]
+    sample = rng.choice(len(cols_flat), 10_000, replace=False)
+    want_v = 2.0 * np.einsum("ij,ij->i", Y0[perm[rows_flat[sample]]].astype(np.float64),
+                             B0[np.clip(cols_flat[sample], 0, A.ncol - 1)].astype(np.float64))
+    gv = torch.cat([g.reshape(-1) for g in g1[1:]])[torch.from_numpy(sample).to(dev)]
+    err_v = within(gv, want_v, 1e-4, "ell_spmm grad of the slab values vs 2 Y[row].B[col]")
+    ms = {"ell fwd": cuda_ms(torch, lambda: ops.ell_spmm(E, B.detach())),
+          "ell fwd+bwd B": cuda_ms(torch, ell_fb_B, iters=5),
+          "ell fwd+bwd B+values": cuda_ms(torch, ell_fb, iters=5)}
+    prof_ell = profile_fn(ell_fb, repeats=3, warm=False)
+    say(f"phase 7a ell_spmm k={k} loss sum(Y**2): grad B vs scipy {err_sp:.3e}, vs the plain gradient "
+        f"{err_pl:.3e} (tol 1e-4 of max) | slab values' grad on 10,000 slots {err_v:.3e} | two backward runs "
+        f"bit-identical | launches per forward + backward: K2 2 (1 on the transposed pack), K3 1 | first "
+        f"call (builds the work tables and the transposed pack) {t_first:.1f} ms host | forward "
+        f"{ms['ell fwd']:.4f} ms, forward + backward (B) {ms['ell fwd+bwd B']:.4f} ms, (B and values) "
+        f"{ms['ell fwd+bwd B+values']:.4f} ms (CUDA events)")
+    say(f"phase 7a profile, ell_spmm forward + backward (device ms per step, busy "
+        f"{prof_ell.total_device_ms:.3f}): " + profile_line(prof_ell, 8))
+    del g1, g2, gv, Eg
+
+    Bb = B.detach().clone().requires_grad_()
+
+    def blocked_fb():
+        return torch.autograd.grad((ops.blocked_spmm_slab(P, Bb, view) ** 2).sum(), [Bb])
+
+    gb = on_path("ops.blocked_spmm_slab + backward (B)", blocked_fb,
+                  {"ell_slab_spmm": 2, "ell_slab_spmm_transposed": 1, "ell_slab_sddmm": 0})
+    err_b_sp = within(gb[0], ref_g, 1e-4, "blocked_spmm_slab grad B vs scipy")
+    err_b_pl = within(gb[0], plain_grad(lambda: bl.blocked_spmm_slab_reference(P, Bp, view), Bp)[0], 1e-4,
+                      "blocked_spmm_slab grad B vs its plain version's gradient")
+    ms["blocked fwd+bwd"] = cuda_ms(torch, blocked_fb, iters=5)
+    say(f"phase 7a blocked_spmm_slab k={k}: grad B vs scipy {err_b_sp:.3e}, vs the plain version's gradient "
+        f"{err_b_pl:.3e} | one K2 forward + one K2 launch on the transposed view | forward + backward "
+        f"{ms['blocked fwd+bwd']:.4f} ms")
+    del gb, Bb, Bp, A_dev
+
+    Sb = A_band.to_scipy()
+    Bk0 = rng.standard_normal((A_band.shape[1], k)).astype(np.float32)
+    ref_k = 2.0 * (Sb.T @ (Sb @ Bk0))
+    Bk = torch.from_numpy(Bk0).to(dev).requires_grad_()
+    blocks = Ab.data.clone().requires_grad_()
+    Abg = dataclasses.replace(Ab, data=blocks)
+
+    def bsr_fb():
+        return torch.autograd.grad((ops.spmm(Abg, Bk) ** 2).sum(), [Bk, blocks])
+
+    want1 = {"bsr_spmm": 2, "bsr_spmm_transposed": 1, "ell_slab_spmm": 0}
+    k1a = on_path("ops.spmm(BSR) + backward (B and blocks)", bsr_fb, want1)
+    k1b = on_path("ops.spmm(BSR) + backward (B and blocks)", bsr_fb, want1)
+    same_bits(k1a, k1b, "ops.spmm(BSR)")
+    err_k_sp = within(k1a[0], ref_k, 1e-4, "ops.spmm(BSR) grad B vs scipy")
+    Bkp, dp = Bk.detach().clone().requires_grad_(), blocks.detach().clone().requires_grad_()
+    pB, pD = plain_grad(lambda: bsr_kernel.bsr_spmm_reference(dataclasses.replace(Ab, data=dp), Bkp), Bkp, dp)
+    err_k_pl = within(k1a[0], pB, 1e-4, "ops.spmm(BSR) grad B vs the plain version's gradient")
+    err_k_d = within(k1a[1], pD, 1e-4, "ops.spmm(BSR) grad blocks vs the plain version's gradient")
+    ms["bsr fwd+bwd"] = cuda_ms(torch, bsr_fb, iters=5)
+    say(f"phase 7a ops.spmm(BSR) k={k}: grad B vs scipy {err_k_sp:.3e}, vs the plain gradient {err_k_pl:.3e}; "
+        f"grad blocks (torch.bmm) vs the plain gradient {err_k_d:.3e} | two backward runs bit-identical | K1 2 "
+        f"launches (1 on the transposed BSR) | forward + backward {ms['bsr fwd+bwd']:.4f} ms")
+    del k1a, k1b, pB, pD, Bkp, dp, blocks, Abg
+
+    # ---- (b) fp64 on the kernels -------------------------------------------
+    A64 = dataclasses.replace(A, data=rng.standard_normal(A.nnz_pad) * (np.arange(A.nnz_pad) < A.nnz))
+    S64 = A64.to_scipy()
+    E64 = ell_pack(A64).to(dev)
+    B64 = rng.standard_normal((A.ncol, k))
+    B64d = torch.from_numpy(B64).to(dev)
+    y64 = on_path("ops.ell_spmm fp64", lambda: ops.ell_spmm(E64, B64d, accum_dtype=torch.float64),
+                   {"ell_slab_spmm": 1})
+    require(y64.dtype == torch.float64, f"fp64 ell_spmm returned {y64.dtype}")
+    err64 = within(y64, S64 @ B64, 1e-12, "fp64 ell_spmm vs scipy")
+    Ab64 = dataclasses.replace(Ab, data=Ab.data.double())
+    yk64 = on_path("ops.spmm(BSR) fp64", lambda: ops.spmm(Ab64, Bk.detach().double()), {"bsr_spmm": 1})
+    errk64 = within(yk64, Sb.astype(np.float64) @ Bk0.astype(np.float64), 1e-12, "fp64 ops.spmm(BSR) vs scipy")
+    C64, t_c64 = timed(lambda: ops.spgemm(A64, A64, device=dev, accum_dtype=torch.float64))
+    require(np.asarray(C64.data).dtype == np.float64, "fp64 ops.spgemm returned another dtype")
+    errc64 = held_against(C64, scipy_square(S64), "fp64 value-mode ops.spgemm", rtol=1e-10)
+    say(f"phase 7b fp64: ell_spmm k={k} vs scipy {err64:.3e} (tol 1e-12 of max), one fp64 K2 launch | "
+        f"ops.spmm(BSR) {errk64:.3e}, one fp64 K1 launch | value-mode ops.spgemm(accum_dtype=float64) "
+        f"{t_c64:.1f} ms, structure exact, max_abs_err {errc64:.3e} (tol 1e-10 of max)")
+    del E64, B64d, y64, Ab64, yk64, C64, S64, A64
+
+    # ---- (c) the four example programs ---------------------------------------
+    def example(name):
+        spec = importlib.util.spec_from_file_location(name, os.path.join(root, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    n = A.nrow
+    before = counters()["ell_slab_spmm"]
+    st = {}
+    ranks, used = on_path("examples/pagerank_torch.pagerank (ell_spmv, K2 at k=1)",
+                         lambda: example("pagerank_torch").pagerank(A, iters=50, stats=st))
+    require(counters()["ell_slab_spmm"] - before == 50, "pagerank did not launch K2 once per iteration")
+    d = np.asarray(S.sum(axis=1)).ravel().astype(np.float64)
+    inv = np.where(d > 0, 1.0 / np.maximum(d, 1e-30), 0.0)
+    Pt = (S.astype(np.float64).multiply(inv[:, None])).T.tocsr()
+    x = np.full(n, 1.0 / n)
+    for _ in range(50):
+        x = 0.85 * (Pt @ x + x[d == 0].sum() / n) + 0.15 / n
+    require(abs(float(ranks.sum()) - 1.0) < 1e-3, f"pagerank ranks sum to {ranks.sum()}")
+    err_pr = within(ranks, x, 1e-3, "pagerank vs a scipy fp64 power iteration")
+    say(f"phase 7c pagerank: {n} nodes, 50 iterations ({used} to tol), sum {ranks.sum():.6f}, vs scipy "
+        f"{err_pr:.3e} of max | {st['loop_ms'] / 50:.4f} ms per iteration (host clock, one K2 launch each)")
+    prof_pr = profile_fn(lambda: example("pagerank_torch").pagerank(A, iters=10), warm=False)
+    say(f"phase 7c profile, pagerank with 10 iterations, the pack's copies included (device ms, busy "
+        f"{prof_pr.total_device_ms:.3f}): " + profile_line(prof_pr, 8))
+
+    cg_mod = example("cg_solver_torch")
+    L, t_L = timed(lambda: cg_mod.laplacian_system(A))
+    b = rng.standard_normal(n).astype(np.float32)
+    st = {}
+    xs, hist = on_path("examples/cg_solver_torch.cg (ell_spmv, K2 at k=1)",
+                      lambda: cg_mod.cg(L, b, iters=200, stats=st))
+    bn = float(np.linalg.norm(b))
+    res = float(np.linalg.norm(L.to_scipy().astype(np.float64) @ xs.astype(np.float64) - b)) / bn
+    rec, first = float(hist[-1]) / bn, float(hist[0]) / bn
+    peak = float(hist.max()) / bn
+    # 200 steps do not solve this system in fp32 (eps = 1e-2 under hubs of
+    # degree 3e5: a condition number near 1e8); the residual must have come
+    # down to a tenth of what it was after the first step, and be the one
+    # scipy computes from x
+    require(np.isfinite(xs).all() and rec <= 0.1 * first,
+            f"cg: the residual did not fall tenfold (after one step {first:.3e}, last {rec:.3e} of |b|)")
+    require(abs(res - rec) <= 0.05 * max(res, rec) + 1e-3,
+            f"cg: the recurrence's residual {rec:.3e} and scipy's {res:.3e} part")
+    say(f"phase 7c cg: Laplacian system {L.nnz} nnz ({t_L:.1f} ms host), {len(hist)} iterations, residual "
+        f"{rec:.3e} of |b| by the recurrence, {res:.3e} by scipy from x (peak {peak:.3e}, after one step "
+        f"{first:.3e}: fell {first / rec:.1f}-fold, at least 10 required) | {st['loop_ms'] / 200:.4f} ms per iteration")
+
+    from scipy.sparse.csgraph import shortest_path
+
+    st = {}
+    dist, ecc = on_path("examples/bfs_torch.bfs (ell_spmv, K2 at k=1)",
+                       lambda: example("bfs_torch").bfs(A, 0, stats=st))
+    ref_d = shortest_path(S, method="D", unweighted=True, indices=0)
+    ref_d = np.where(np.isinf(ref_d), -1, ref_d).astype(np.int32)
+    require(np.array_equal(dist, ref_d) and ecc == int(ref_d.max()),
+            "bfs distances differ from scipy.sparse.csgraph's")
+    say(f"phase 7c bfs: source 0 reaches {int((dist >= 0).sum())} of {n} nodes in {ecc} levels, equal to "
+        f"scipy.sparse.csgraph | {st['loop_ms'] / st['levels']:.4f} ms per level (one scalar read each)")
+
+    # triangle counting materialises A×A: between the neighbours of a hub of
+    # degree d that is d**2 output entries (web-Google's symmetrised hubs:
+    # 345,506, so 1.2e11), which neither the port nor scipy's masked product
+    # can hold.  TRI_N keeps the product and its scipy reference within a
+    # minute of this script's time (probe_backward.py times the sizes)
+    tri = example("triangle_count_torch")
+    U = tri.symmetrize(webgraph_like(TRI_N, 6 * TRI_N, seed=0))
+    st = {}
+    count, t_tri = timed(lambda: tri.count_triangles(U, stats=st))
+    Su = U.to_scipy()
+    ref_t = float((Su @ Su).multiply(Su).sum()) / 6.0
+    require(count == ref_t and count > 0, f"triangle count {count} differs from scipy's {ref_t}")
+    say(f"phase 7c triangle_count: {U.nrow} nodes, {U.nnz // 2} edges, {count:.0f} triangles, equal to scipy's "
+        f"masked product | {t_tri:.1f} ms: ops.spgemm with its copy to the host {st['spgemm_ms']:.1f} "
+        f"({st['out_nnz']} nnz), host join {st['join_ms']:.1f}")
+    say(f"phase 7 launches on its path (timing and profiling repeats left out): {tally} | phase 7 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return tally
 
 
 def main() -> int:
@@ -504,6 +744,8 @@ def main() -> int:
     from spmm_tpu_torch.native.build import build as build_native
     from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
     from spmm_tpu_torch.ops.ell_spmm import slab_row_keys
+    from spmm_tpu_torch.ops.roofline import Roofline, detect_chip
+    from spmm_tpu_torch.ops.transform import transpose
 
     # the plain versions use batched matmuls: full fp32, as the kernels
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -537,18 +779,26 @@ def main() -> int:
     results = {}
 
     # ---- 3. kernels against their plain versions ---------------------------
+    chip = detect_chip(dev)  # the H100's datasheet rates (ops/roofline.py)
+    FP32_FLOPS, TF32_FLOPS, BF16_FLOPS, FP64_FLOPS, FP64_TC_FLOPS = (
+        chip.flops_f32, chip.flops_tf32, chip.flops_bf16, chip.flops_f64, chip.flops_f64_tensor)
+
     def bound(nbytes: float, ops_: float, peak: float):
         """The least time (ms) for the work: bytes at the HBM rate or
         operations at the type's peak, whichever is larger, and which."""
-        t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops_ / peak * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        roof = Roofline(flops=ops_, hbm_bytes=nbytes, chip=chip, peak_flops=peak)
+        return roof.t_sol_s * 1e3, roof.bound_by
 
-    def csr_tensor(A):
+    def csr_tensor(A, dtype=np.float32):
         """A host CSR as a CUDA ``torch.sparse_csr_tensor``: the library
         yardstick's operand, never used by the port."""
         t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a, dt)).to(dev)
         return torch.sparse_csr_tensor(t(A.indptr, np.int64), t(A.indices[: A.nnz], np.int64),
-                                       t(A.data[: A.nnz], np.float32), size=A.shape)
+                                       t(A.data[: A.nnz], dtype), size=A.shape)
+
+    def entry(err, rel, ms, plain, b, lib, library, **extra):
+        return dict(max_abs_err=err, max_rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b[0],
+                    bound_by=b[1], library_ms=lib, library=library, **extra)
 
     t0 = time.perf_counter()
     A_band = banded_random(65536, 512, 0.25, seed=3)
@@ -593,6 +843,69 @@ def main() -> int:
         say(line)
     del S_band
 
+    # K1 in fp64: the same kernel with double sums.  Its bound is at the
+    # card's fp64 peak for a dense block product, the tensor cores' (DMMA is
+    # exact fp64); the FMA rate of the CUDA cores, the kernel's unit, beside it
+    Ab64 = dataclasses.replace(Ab, data=Ab.data.double())
+    B64 = B_band.double()
+    S_band64 = csr_tensor(A_band, np.float64)
+    y = ops.spmm(Ab64, B64)
+    ref = bsr_kernel.bsr_spmm_reference(Ab64, B64)
+    torch.cuda.synchronize()
+    err, rel = max_errs(y, ref)
+    require(y.dtype == torch.float64 and rel <= RTOL_F64, f"K1 fp64 differs from its plain version: rel {rel:.3e}")
+    ms = cuda_ms(torch, lambda: ops.spmm(Ab64, B64))
+    plain = cuda_ms(torch, lambda: bsr_kernel.bsr_spmm_reference(Ab64, B64), iters=3)
+    lib = cuda_ms(torch, lambda: torch.sparse.mm(S_band64, B64))
+    nbytes64 = 8 * (Ab64.data.numel() + B64.numel() + y.numel())
+    b64 = bound(nbytes64, flops, FP64_TC_FLOPS)
+    fma64_ms = flops / FP64_FLOPS * 1e3
+    results["bsr_spmm"]["fp64"] = entry(err, rel, ms, plain, b64, lib, "torch.sparse.mm fp64 (cuSPARSE CSR SpMM)")
+    say(f"phase 3 K1 bsr_spmm fp64 k=128: max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {RTOL_F64:g}) | "
+        f"kernel {ms:.4f} ms | plain {plain:.4f} ms | bound {b64[0]:.4f} ms ({b64[1]}; {flops / 1e9:.2f} GFLOP "
+        f"at the tensor cores' fp64 peak, {nbytes64 / 1e6:.1f} MB), share {b64[0] / ms:.1%} | fp64-FMA bound "
+        f"{fma64_ms:.4f} ms, share {fma64_ms / ms:.1%} | library torch.sparse.mm fp64 on the CSR {lib:.4f} ms")
+    del Ab64, B64, S_band64, y, ref
+
+    # K1 on the transposed BSR: grad B = Aᵀ · dY, re-blocked at (8, 128)
+    dY_band = torch.from_numpy(rng.standard_normal((A_band.shape[0], 128)).astype(np.float32)).to(dev)
+    (T_band, _), t_T = host_timed(torch, lambda: bsr_kernel.transposed_bsr(Ab, dev))
+    S_band_T = csr_tensor(transpose(A_band))
+    g = bsr_kernel.bsr_spmm_transposed(Ab, dY_band)
+    ref = bsr_kernel.bsr_spmm_transposed_reference(Ab, dY_band)
+    torch.cuda.synchronize()
+    err, rel = max_errs(g, ref)
+    require(rel <= RTOL_F32, f"K1 on the transposed BSR differs from its plain version: rel {rel:.3e}")
+    _, rel_lib = max_errs(g, torch.sparse.mm(S_band_T, dY_band))
+    require(rel_lib <= 1e-4, f"K1 on the transposed BSR differs from cuSPARSE on Aᵀ: {rel_lib:.3e}")
+    ms = cuda_ms(torch, lambda: bsr_kernel.bsr_spmm_transposed(Ab, dY_band))
+    plain = cuda_ms(torch, lambda: bsr_kernel.bsr_spmm_transposed_reference(Ab, dY_band), iters=3)
+    lib = cuda_ms(torch, lambda: torch.sparse.mm(S_band_T, dY_band))
+    flops_T = 2 * T_band.nblocks * bm * bn * 128
+    bT = bound(4 * (T_band.nblocks * bm * bn + dY_band.numel() + g.numel()), flops_T, FP32_FLOPS)
+    results["bsr_spmm_transposed"] = entry(err, rel, ms, plain, bT, lib,
+                                           "torch.sparse.mm on the transposed CSR (cuSPARSE)")
+    say(f"phase 3 K1 on the transposed BSR fp32 k=128 ({T_band.nblocks} blocks of Aᵀ for {Ab.nblocks} of A; "
+        f"structure built once in {t_T:.1f} ms host; timed: value gather + K1): max_rel_err {rel:.3e} "
+        f"(tol {RTOL_F32:g}), vs cuSPARSE {rel_lib:.3e} | kernel {ms:.4f} ms | plain {plain:.4f} ms | bound "
+        f"{bT[0]:.4f} ms ({bT[1]}; {flops_T / 1e9:.2f} GFLOP), share {bT[0] / ms:.1%} | library "
+        f"torch.sparse.mm on the transposed CSR {lib:.4f} ms")
+    # K1's value gradient: one torch.bmm over gathered tiles (a library product, by design)
+    gd = bsr_kernel.bsr_data_grad(Ab, dY_band, B_band)
+    blocks = rng.choice(Ab.nblocks, 64, replace=False)
+    br, bc = Ab.block_rows[blocks].cpu().numpy(), Ab.block_cols[blocks].cpu().numpy()
+    dYh, Bh = dY_band.cpu().numpy().astype(np.float64), B_band.cpu().numpy().astype(np.float64)
+    want = np.stack([dYh[r * bm:(r + 1) * bm] @ Bh[c * bn:(c + 1) * bn].T for r, c in zip(br, bc)])
+    err_gd = float(np.abs(gd[blocks].cpu().numpy() - want).max())
+    require(err_gd <= 1e-5 * float(np.abs(want).max()), f"bsr_data_grad differs from numpy fp64: {err_gd:.3e}")
+    ms_gd = cuda_ms(torch, lambda: bsr_kernel.bsr_data_grad(Ab, dY_band, B_band))
+    b_gd = bound(4 * (dY_band.numel() + B_band.numel() + gd.numel()), flops, FP32_FLOPS)
+    results["bsr_spmm"]["data_grad_bmm"] = dict(ms=ms_gd, bound_ms=b_gd[0], bound_by=b_gd[1], max_abs_err=err_gd)
+    say(f"phase 3 K1 value gradient (torch.bmm over gathered tiles, a library product) k=128: max_abs_err "
+        f"{err_gd:.3e} on 64 blocks vs numpy fp64 | {ms_gd:.4f} ms | bound {b_gd[0]:.4f} ms ({b_gd[1]}), "
+        f"share {b_gd[0] / ms_gd:.1%}")
+    del S_band_T, g, ref, gd, dY_band
+
     t0 = time.perf_counter()
     A_web = webgraph_like(WEB_N, WEB_NNZ, seed=0)
     t_gen = time.perf_counter() - t0
@@ -636,7 +949,83 @@ def main() -> int:
                 library_ms=lib, library="torch.sparse.mm(sparse_csr_tensor) (cuSPARSE CSR SpMM)",
                 ell_spmm_ms=whole)
         del Bw, y, ref, y_lib
-    del S_web
+
+    # K2 in fp64, K2 on the transposed pack (grad B), K3 (grad data), at k = 128 (and 32)
+    perm_slab = torch.from_numpy(np.ascontiguousarray(keys)).to(dev).long()  # original row of each slab row
+    E64d = tuple(d.double() for d in E.data)
+    B64 = torch.from_numpy(rng.standard_normal((WEB_N, 128))).to(dev)
+    S_web64 = csr_tensor(A_web, np.float64)
+    memo64 = {}
+    y = ell_kernel.ell_slabs_spmm(E.cols, E64d, B64, memo=memo64, row_keys=keys)
+    ref = ell_kernel.ell_slabs_spmm_reference(E.cols, E64d, B64, torch.empty_like(y))
+    torch.cuda.synchronize()
+    err, rel = max_errs(y, ref)
+    require(y.dtype == torch.float64 and rel <= RTOL_F64, f"K2 fp64 differs from its plain version: rel {rel:.3e}")
+    ms = cuda_ms(torch, lambda: ell_kernel.ell_slabs_spmm(E.cols, E64d, B64, y, memo=memo64))
+    plain = cuda_ms(torch, lambda: ell_kernel.ell_slabs_spmm_reference(E.cols, E64d, B64, ref), iters=3)
+    lib = cuda_ms(torch, lambda: torch.sparse.mm(S_web64, B64))
+    b64 = bound(slots * 12 + distinct * 128 * 8 + slab_rows * 128 * 8, 2 * slots * 128, FP64_FLOPS)
+    results["ell_slab_spmm"]["fp64"] = entry(err, rel, ms, plain, b64, lib, "torch.sparse.mm fp64 (cuSPARSE CSR SpMM)")
+    say(f"phase 3 K2 ell_slabs_spmm fp64 k=128: max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {RTOL_F64:g}) | "
+        f"kernel {ms:.4f} ms | plain {plain:.4f} ms | bound {b64[0]:.4f} ms ({b64[1]}), share {b64[0] / ms:.1%} "
+        f"| library torch.sparse.mm fp64 on the CSR {lib:.4f} ms")
+    del E64d, B64, S_web64, memo64, y, ref
+
+    memo = {}
+    T_web, t_T = host_timed(torch, lambda: ell_kernel.transposed_slabs(E.cols, WEB_N, dev))
+    memo[("transposed", dev, WEB_N)] = T_web
+    t_slots = sum(int(c.numel()) for c in T_web.cols)
+    S_web_T = csr_tensor(transpose(A_web))
+    say(f"phase 3 setup: transposed pack built in {t_T:.1f} ms (device sort + host slab plan): "
+        f"{len(T_web.cols)} slabs, {T_web.rows} slab rows for {WEB_N} rows of Aᵀ, {t_slots} padded slots, "
+        f"{int(T_web.hub_rows.numel())} rows cut into up to {T_web.hub_idx.shape[1]} pieces of "
+        f"{ell_kernel.T_CUT}")
+    for k in (128, 32):
+        dY = torch.from_numpy(rng.standard_normal((slab_rows, k)).astype(np.float32)).to(dev)
+        dY_full = torch.zeros((WEB_N, k), device=dev).index_copy_(0, perm_slab, dY)
+        g = ell_kernel.ell_slabs_spmm_transposed(E.cols, E.data, dY, WEB_N, memo=memo)
+        ref = ell_kernel.ell_slabs_spmm_transposed_reference(E.cols, E.data, dY, WEB_N, memo=memo)
+        g_lib = torch.sparse.mm(S_web_T, dY_full)
+        torch.cuda.synchronize()
+        err, rel = max_errs(g, ref)
+        require(rel <= RTOL_F32, f"K2 on the transposed pack k={k} differs from its plain version: rel {rel:.3e}")
+        _, rel_lib = max_errs(g, g_lib)
+        require(rel_lib <= 1e-4, f"K2 on the transposed pack k={k} differs from cuSPARSE on Aᵀ: {rel_lib:.3e}")
+        ms = cuda_ms(torch, lambda: ell_kernel.ell_slabs_spmm_transposed(E.cols, E.data, dY, WEB_N, memo=memo))
+        plain = cuda_ms(torch, lambda: ell_kernel.ell_slabs_spmm_transposed_reference(
+            E.cols, E.data, dY, WEB_N, memo=memo), iters=3)
+        lib = cuda_ms(torch, lambda: torch.sparse.mm(S_web_T, dY_full))
+        bT = bound(t_slots * 8 + slab_rows * k * 4 + WEB_N * k * 4, 2 * t_slots * k, FP32_FLOPS)
+        say(f"phase 3 K2 on the transposed pack fp32 k={k} (one launch; timed: value gather + K2 + row "
+            f"gather + the cut rows' sum): max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {RTOL_F32:g}), vs "
+            f"cuSPARSE on Aᵀ {rel_lib:.3e} | kernel {ms:.4f} ms | plain {plain:.4f} ms | bound {bT[0]:.4f} ms "
+            f"({bT[1]}), share {bT[0] / ms:.1%} | library torch.sparse.mm on the transposed CSR {lib:.4f} ms")
+        if k == 128:
+            results["ell_slab_spmm_transposed"] = entry(err, rel, ms, plain, bT, lib,
+                                                        "torch.sparse.mm on the transposed CSR (cuSPARSE)")
+            # K3 on the same dY, against the forward's B
+            Bw = torch.from_numpy(rng.standard_normal((WEB_N, k)).astype(np.float32)).to(dev)
+            memo3 = {}
+            out = ell_kernel.ell_slabs_sddmm(E.cols, dY, Bw, data=E.data, memo=memo3, row_keys=keys)
+            ref3 = ell_kernel.ell_slabs_sddmm_reference(E.cols, dY, Bw)
+            torch.cuda.synchronize()
+            scale = max(float(r_.abs().max()) for r_ in ref3)
+            err = max(float((o - r_).abs().max()) for o, r_ in zip(out, ref3))
+            require(err <= RTOL_F32 * scale, f"K3 differs from its plain version: rel {err / scale:.3e}")
+            ms3 = cuda_ms(torch, lambda: ell_kernel.ell_slabs_sddmm(E.cols, dY, Bw, data=E.data, memo=memo3))
+            plain3 = cuda_ms(torch, lambda: ell_kernel.ell_slabs_sddmm_reference(E.cols, dY, Bw), iters=3)
+            Bt = Bw.t()
+            lib3 = cuda_ms(torch, lambda: torch.sparse.sampled_addmm(S_web, dY_full, Bt, beta=0.0))
+            b3 = bound(slots * 8 + distinct * k * 4 + slab_rows * k * 4, 2 * slots * k, FP32_FLOPS)
+            results["ell_slab_sddmm"] = entry(err, err / scale, ms3, plain3, b3, lib3,
+                                              "torch.sparse.sampled_addmm on the CSR pattern (cuSPARSE SDDMM)")
+            say(f"phase 3 K3 ell_slabs_sddmm fp32 k={k} ({len(E.cols)} slabs, one launch): max_abs_err {err:.3e} "
+                f"max_rel_err {err / scale:.3e} (tol {RTOL_F32:g}) | kernel {ms3:.4f} ms | plain {plain3:.4f} ms | "
+                f"bound {b3[0]:.4f} ms ({b3[1]}), share {b3[0] / ms3:.1%} | library torch.sparse.sampled_addmm "
+                f"{lib3:.4f} ms")
+            del Bw, out, ref3, Bt
+        del dY, dY_full, g, ref, g_lib
+    del S_web, S_web_T, T_web, memo
 
     # ---- 4. main path ------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -650,9 +1039,8 @@ def main() -> int:
         say(f"phase 4 setup: wrote {name}.mtx ({(time.perf_counter() - t0) * 1e3:.1f} ms host)")
 
         B_csr = torch.from_numpy(rng.standard_normal((WEB_N, 128)).astype(np.float32)).to(dev)
-        ell_kernel.launches = 0
-        bsr_kernel.launches = 0
-        paths = {"ell_slab_spmm": [], "bsr_spmm": []}
+        reset_counters()
+        paths = {kname: [] for kname in counters()}
         t0 = time.perf_counter()
         rows: list = []
         # the CLI multiplies twice (first call, timed call): one K2 launch each
@@ -665,7 +1053,7 @@ def main() -> int:
                          {"ell_slab_spmm": 0, "bsr_spmm": 1})
         torch.cuda.synchronize()
         t_main = time.perf_counter() - t0
-        launches = {"ell_slab_spmm": ell_kernel.launches, "bsr_spmm": bsr_kernel.launches}
+        launches = counters()
 
         require(rc == 0, f"cli.main returned {rc}")
         with open(os.path.join(tmp, "result.txt")) as f:
@@ -688,24 +1076,37 @@ def main() -> int:
             f"ops.spmm(CSR) differs from scipy: {err_csr:.3e}")
     _, rel_bsr = max_errs(y_bsr, bsr_kernel.bsr_spmm_reference(Ab, B_band))
     require(rel_bsr <= RTOL_F32, f"ops.spmm(BSR) differs from its plain version: {rel_bsr:.3e}")
-    for kname, n in launches.items():
-        require(n > 0, f"kernel {kname} was not launched on the main path")
+    for kname in ("ell_slab_spmm", "bsr_spmm"):
+        require(launches[kname] > 0, f"kernel {kname} was not launched on the main path")
 
     ref_C = slab_phase(torch, A_web, dev, rng, cli_spgemm_ms=r["spgemm_ms"])
 
     # ---- 6. the BlockedCSR path and the rest of slice 3 --------------------
-    ell_kernel.launches = 0
-    bsr_kernel.launches = 0
-    launches6 = blocked_phase(torch, A_web, E, Ab, A_band, ref_C, dev, rng, paths,
-                              k2_ell_ms=results["ell_slab_spmm"]["ms"])
+    reset_counters()
+    launches6, P, view = blocked_phase(torch, A_web, E, Ab, A_band, ref_C, dev, rng, paths,
+                                       k2_ell_ms=results["ell_slab_spmm"]["ms"])
     require(launches6["ell_slab_spmm"] > 0, "K2 was not launched on the blocked path (phase 6)")
     for kname, n in launches6.items():
         launches[kname] += n
 
-    # ---- 7. report ---------------------------------------------------------
+    # ---- 7. gradients, fp64 and the examples -------------------------------
+    reset_counters()
+    launches7 = grad_phase(torch, A_web, E, Ab, A_band, P, view, dev, rng, paths, root)
+    for kname, n in launches7.items():
+        require(n > 0, f"kernel {kname} was not launched on this slice's path (phase 7)")
+        launches[kname] += n
+
+    # ---- 8. report ---------------------------------------------------------
+    k2, k1 = "spmm_tpu/ops/pallas_ell.py:82", "spmm_tpu/ops/pallas_bsr.py:38"
     replaces = {
-        "bsr_spmm": ("spmm_tpu_torch/csrc/bsr_spmm.cu", "spmm_tpu/ops/pallas_bsr.py:38"),
-        "ell_slab_spmm": ("spmm_tpu_torch/csrc/ell_slab_spmm.cu", "spmm_tpu/ops/pallas_ell.py:82"),
+        "bsr_spmm": ("spmm_tpu_torch/csrc/bsr_spmm.cu", k1),
+        "ell_slab_spmm": ("spmm_tpu_torch/csrc/ell_slab_spmm.cu", k2),
+        "ell_slab_sddmm": ("spmm_tpu_torch/csrc/ell_slab_sddmm.cu",
+                           f"{k2} (no TPU counterpart: backward of K2, values)"),
+        "ell_slab_spmm_transposed": ("spmm_tpu_torch/csrc/ell_slab_spmm.cu",
+                                     f"{k2} (no TPU counterpart: backward of K2, B; K2 on the transposed pack)"),
+        "bsr_spmm_transposed": ("spmm_tpu_torch/csrc/bsr_spmm.cu",
+                                f"{k1} (no TPU counterpart: backward of K1, B; K1 on the transposed BSR)"),
     }
     report = [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

@@ -10,7 +10,10 @@ reference the port is tested against:
 - ``ops``        — SpMM / SpMV (hand-written CUDA kernels K1 = BSR, K2 = ELL
                    slab, with plain PyTorch versions on the CPU) over ELL,
                    BSR, CSR and the packed BlockedCSR (K2 per v8-group
-                   bucket), SDDMM, exact SpGEMM (the slab-sorted
+                   bucket), differentiable (K2 / K1 on the transposed
+                   structure, K3 = the slab values' gradient) and in fp32
+                   or fp64 (``accum_dtype``); SDDMM, the datasheet
+                   roofline, exact SpGEMM (the slab-sorted
                    ``ops.spgemm`` with plans, the streamed big path and
                    checkpoints; the global-sort ESC for heavy rows) and
                    sparse transforms
@@ -19,7 +22,8 @@ reference the port is tested against:
 - ``parallel``   — row partitioning (``partition_rows``) and the uniform
                    chunk schedule of row pieces
 - ``utils``      — ``serialize.save`` / ``load`` (.npz, readable by both
-                   packages)
+                   packages), ``timing.measure`` (CUDA events),
+                   ``profiling.profile_fn`` (``torch.profiler``)
 - ``kernels``    — nvcc build + ctypes binding of ``csrc/*.cu``
 
 This package imports torch and numpy, never JAX or ``spmm_tpu``.

@@ -1,4 +1,5 @@
-// K1: BSR SpMM on Hopper, Y[m, k] = A_bsr @ B[n_pad, k], in full fp32.
+// K1: BSR SpMM on Hopper, Y[m, k] = A_bsr @ B[n_pad, k], in full fp32 (fp32 or
+// bf16 operands) or in fp64 (fp64 operands).
 //
 // Replaces the Pallas TPU kernel spmm_tpu/ops/pallas_bsr.py: bsr_spmm_pallas
 // (pl.pallas_call at :69, body _kernel at :26-35).  Same contract: for each
@@ -37,8 +38,13 @@
 //   would change the result; a 3xTF32 split is the next step if the SIMT
 //   product falls short of its bound.
 //
+// - fp64 operands run the same kernel with double sums (the card's native
+//   fp64 FMA, 34 TFLOP/s outside the tensor cores): the 8 x 4 register tile
+//   and the stages double in size (100 KB of shared memory, one CTA of 256
+//   threads per SM by its registers).
+//
 // Limits (checked by the Python wrapper): k % 128 == 0, bm <= 64, data and B
-// of one dtype (fp32 or bf16), B 16-byte aligned with n_pad rows.
+// of one dtype (fp32, bf16 or fp64), B 16-byte aligned with n_pad rows.
 
 #include "common.cuh"
 
@@ -51,9 +57,13 @@ constexpr int kTile = 128;          // output columns per CTA
 constexpr int kKC = 32;             // depth per stage
 constexpr int kAStride = kRows + 4; // padded row of the transposed A stage
 
+// the sums' type: double for fp64 operands, else float
+template <typename T> struct Acc { using type = float; };
+template <> struct Acc<double> { using type = double; };
+
 template <typename T>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * 2 * kKC * kAStride + sizeof(T) * 2 * kKC * kTile;
+  return sizeof(typename Acc<T>::type) * 2 * kKC * kAStride + sizeof(T) * 2 * kKC * kTile;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
@@ -70,6 +80,21 @@ __device__ __forceinline__ void lds4(const float* p, float* v) {
   v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
 }
 
+__device__ __forceinline__ void lds4(const double* p, double* v) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ void st4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void st4(double* p, const double* v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+}
+
 __device__ __forceinline__ void lds4(const __nv_bfloat16* p, float* v) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
@@ -78,14 +103,15 @@ __device__ __forceinline__ void lds4(const __nv_bfloat16* p, float* v) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 8 ? 1 : 2)
 bsr_group_kernel(const T* __restrict__ data, const int* __restrict__ gptr,
                  const int* __restrict__ ucols, const int* __restrict__ blk,
-                 const T* __restrict__ B, float* __restrict__ Y, int G, int bm, int bn, int m,
-                 long long k) {
+                 const T* __restrict__ B, typename Acc<T>::type* __restrict__ Y, int G, int bm,
+                 int bn, int m, long long k) {
+  using TA = typename Acc<T>::type;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);                           // [2][kKC][kAStride]
-  T* Bs = reinterpret_cast<T*>(smem + sizeof(float) * 2 * kKC * kAStride);  // [2][kKC][kTile]
+  TA* As = reinterpret_cast<TA*>(smem);                                  // [2][kKC][kAStride]
+  T* Bs = reinterpret_cast<T*>(smem + sizeof(TA) * 2 * kKC * kAStride);  // [2][kKC][kTile]
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -104,27 +130,27 @@ bsr_group_kernel(const T* __restrict__ data, const int* __restrict__ gptr,
   const int a_i = a_row / bm, a_rr = a_row % bm;
   const bool a_live = a_i < G;
 
-  float acc[8][4];
+  TA acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
-  float areg[8];
+  TA areg[8];
   auto load_a = [&](int s) {
     const int j = s / nchunk, kc = (s % nchunk) * kKC;
     const int b = a_live ? blk[static_cast<long long>(base + j) * G + a_i] : -1;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) areg[q] = 0.f;
+    for (int q = 0; q < 8; ++q) areg[q] = 0;
     if (b >= 0) {
       const T* src = data + b * blk_elems + static_cast<long long>(a_rr) * bn + kc + a_c8;
 #pragma unroll
       for (int q = 0; q < 8; ++q)
-        if (kc + a_c8 + q < bn) areg[q] = to_f32(src[q]);
+        if (kc + a_c8 + q < bn) areg[q] = to_acc<TA>(src[q]);
     }
   };
   auto store_a = [&](int buf) {
-    float* dst = As + buf * kKC * kAStride;
+    TA* dst = As + buf * kKC * kAStride;
 #pragma unroll
     for (int q = 0; q < 8; ++q) dst[(a_c8 + q) * kAStride + a_row] = areg[q];
   };
@@ -159,18 +185,18 @@ bsr_group_kernel(const T* __restrict__ data, const int* __restrict__ gptr,
       issue_b(s + 1, cur ^ 1);
       cp_async_commit();
     }
-    const float* a_t = As + cur * kKC * kAStride + rg * 8;
+    const TA* a_t = As + cur * kKC * kAStride + rg * 8;
     const T* b_t = Bs + cur * kKC * kTile + cg * 4;
 #pragma unroll
     for (int kk = 0; kk < kKC; ++kk) {
-      float a[8], b[4];
+      TA a[8], b[4];
       lds4(a_t + kk * kAStride, a);
       lds4(a_t + kk * kAStride + 4, a + 4);
       lds4(b_t + kk * kTile, b);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = mad(a[i], b[j], acc[i][j]);
     }
     if (s + 1 < S) {
       store_a(cur ^ 1);
@@ -185,15 +211,14 @@ bsr_group_kernel(const T* __restrict__ data, const int* __restrict__ gptr,
     const int rl = rg * 8 + i;
     const long long row = row_base + rl;
     if (rl < G * bm && row < m) {
-      *reinterpret_cast<float4*>(Y + row * k + col0 + cg * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      st4(Y + row * k + col0 + cg * 4, acc[i]);
     }
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* data, const int* gptr, const int* ucols, const int* blk,
-                   const void* B, float* Y, int ngroups, int G, int bm, int bn, int m, long long k,
+                   const void* B, void* Y, int ngroups, int G, int bm, int bn, int m, long long k,
                    cudaStream_t s) {
   constexpr size_t smem = smem_bytes<T>();
   static bool smem_raised = false;  // once per instantiation and process
@@ -205,7 +230,9 @@ cudaError_t launch(const void* data, const int* gptr, const int* ucols, const in
   }
   const dim3 grid(static_cast<unsigned>(ngroups), static_cast<unsigned>(k / kTile));
   bsr_group_kernel<T><<<grid, kThreads, smem, s>>>(static_cast<const T*>(data), gptr, ucols, blk,
-                                                  static_cast<const T*>(B), Y, G, bm, bn, m, k);
+                                                  static_cast<const T*>(B),
+                                                  static_cast<typename Acc<T>::type*>(Y), G, bm,
+                                                  bn, m, k);
   return cudaGetLastError();
 }
 
@@ -213,7 +240,8 @@ cudaError_t launch(const void* data, const int* gptr, const int* ucols, const in
 }  // namespace spmm_tpu_torch
 
 // gptr (ngroups + 1,), ucols (nunion,), blk (nunion, G): the group plan
-// (ops/bsr_kernel.py: group_plan), int32 on the device.
+// (ops/bsr_kernel.py: group_plan), int32 on the device.  Y is fp32 for fp32 and
+// bf16 operands, fp64 for fp64.
 extern "C" int bsr_spmm_launch(const void* data, const void* gptr, const void* ucols,
                                const void* blk, const void* B, void* Y, int dtype, int ngroups,
                                int G, int bm, int bn, long long k, int m, void* stream) {
@@ -226,13 +254,14 @@ extern "C" int bsr_spmm_launch(const void* data, const void* gptr, const void* u
   const int* gp = static_cast<const int*>(gptr);
   const int* uc = static_cast<const int*>(ucols);
   const int* bk = static_cast<const int*>(blk);
-  float* y = static_cast<float*>(Y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == kF32)
-    err = launch<float>(data, gp, uc, bk, B, y, ngroups, G, bm, bn, m, k, s);
+    err = launch<float>(data, gp, uc, bk, B, Y, ngroups, G, bm, bn, m, k, s);
   else if (dtype == kBF16)
-    err = launch<__nv_bfloat16>(data, gp, uc, bk, B, y, ngroups, G, bm, bn, m, k, s);
+    err = launch<__nv_bfloat16>(data, gp, uc, bk, B, Y, ngroups, G, bm, bn, m, k, s);
+  else if (dtype == kF64)
+    err = launch<double>(data, gp, uc, bk, B, Y, ngroups, G, bm, bn, m, k, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -2,7 +2,8 @@
 // ONE launch.  Slab s is (R_s, L_s); its rows land at rows row0_s .. row0_s +
 // R_s of one output:
 //   out[row0_s + r, :] = sum_{e < L_s} data_s[r, e] * B[clamp(cols_s[r, e], 0, n-1), :]
-// accumulated in fp32.
+// accumulated in fp32 (fp32 or bf16 data and B) or in fp64 (fp64 data and B:
+// the card has native fp64 units, so fp64 products run on this kernel too).
 //
 // Replaces the Pallas TPU kernel spmm_tpu/ops/pallas_ell.py:
 // ell_slab_octets_pallas (pl.pallas_call at :89, body _octet_kernel at
@@ -31,8 +32,9 @@
 //   first row).
 // - A row's k columns go to a group of TPR adjacent lanes (the smallest power
 //   of two covering k / VEC column units, a warp at k = 128); each lane owns
-//   VEC = 4 adjacent columns (one 16-byte fp32 / 8-byte bf16 load) when k % 4
-//   == 0 and the pointers are 16-byte aligned, else VEC = 1 (any k).
+//   VEC = 4 adjacent columns (one 16-byte fp32 / 8-byte bf16 load; 2 columns
+//   in fp64, the same 16 bytes) when k % VEC == 0 and the pointers are
+//   16-byte aligned, else VEC = 1 (any k).
 // - Loads in flight: the group loads its next TPR (col, data) pairs with one
 //   coalesced load per lane, clamps them, and hands them out by __shfl_sync;
 //   every lane then issues kUnroll (4-8) independent B-row loads through the
@@ -58,28 +60,10 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSlabFields = 6;  // int64 per slab: cols, data, L, R, row0, chunk
 
-__device__ __forceinline__ void ldg4(const float* p, float* v) {
-  const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-}
-
-__device__ __forceinline__ void ldg4(const __nv_bfloat16* p, float* v) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float ldg1(const __nv_bfloat16* p) {
-  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
-}
-
-template <typename TD, typename TB, int VEC, int TPR>
+template <typename TD, typename TB, typename TA, int VEC, int TPR>
 __global__ void __launch_bounds__(kThreads)
 ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ items,
-                 const TB* __restrict__ B, float* __restrict__ out, long long n, long long k) {
+                 const TB* __restrict__ B, TA* __restrict__ out, long long n, long long k) {
   // independent B-row loads in flight per lane: 4 at 16-32 lanes a row (2-4
   // KB of B rows per warp) and at one lane a row (k = 1), 8 at 2-8 lanes --
   // the fastest of 2, 4, 8 and 16 at each lane layout in the repo's
@@ -92,7 +76,7 @@ ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ i
 #endif
   constexpr int kPairs = kUnroll > TPR ? kUnroll / TPR : 1;  // (col, data) registers per lane
   constexpr int kBatch = kPairs * TPR;                       // entries handed out per batch
-  __shared__ float part[kThreads * VEC];                     // a split row's partial sums
+  __shared__ TA part[kThreads * VEC];                        // a split row's partial sums
 
   const int2 it = items[blockIdx.x];
   const long long* sl = slabs + static_cast<long long>(kSlabFields) * it.x;
@@ -100,7 +84,7 @@ ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ i
   const TD* data = reinterpret_cast<const TD*>(sl[1]);
   const int L = static_cast<int>(sl[2]);
   const long long R = sl[3];
-  float* obase = out + sl[4] * k;
+  TA* obase = out + sl[4] * k;
   const int chunk = static_cast<int>(sl[5]);  // > 0: one row cut over the groups
 
   const int g = threadIdx.x / TPR;
@@ -129,66 +113,57 @@ ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ i
     const long long u = u0 + lane;
     const bool ucol = u < units;
     const TB* bcol = B + u * VEC;
-    float acc[VEC];
+    TA acc[VEC];
 #pragma unroll
-    for (int q = 0; q < VEC; ++q) acc[q] = 0.f;
+    for (int q = 0; q < VEC; ++q) acc[q] = 0;
 
     for (int e0 = 0; e0 < n_e; e0 += kBatch) {
       int mc[kPairs];
-      float ma[kPairs];
+      TA ma[kPairs];
 #pragma unroll
       for (int p = 0; p < kPairs; ++p) {
         const int e = e_lo + e0 + p * TPR + lane;
         mc[p] = 0;
-        ma[p] = 0.f;
+        ma[p] = 0;
         if (e < e_end) {
           const long long c = rc[e];
           mc[p] = static_cast<int>(c < 0 ? 0 : (c >= n ? n - 1 : c));
-          ma[p] = to_f32(rd[e]);
+          ma[p] = to_acc<TA>(rd[e]);
         }
       }
 #pragma unroll
       for (int j0 = 0; j0 < kBatch; j0 += kUnroll) {
         if (e0 + j0 >= n_e) break;
-        float av[kUnroll];
-        float bv[kUnroll][VEC];
+        TA av[kUnroll];
+        TA bv[kUnroll][VEC];
 #pragma unroll
         for (int jj = 0; jj < kUnroll; ++jj) {
           const int j = j0 + jj;
           int c = mc[j / TPR];
-          float a = ma[j / TPR];
+          TA a = ma[j / TPR];
           if constexpr (TPR > 1) {
             c = __shfl_sync(0xffffffffu, c, j % TPR, TPR);
             a = __shfl_sync(0xffffffffu, a, j % TPR, TPR);
           }
           av[jj] = a;
           if (ucol && e_lo + e0 + j < e_end) {
-            if constexpr (VEC == 4) {
-              ldg4(bcol + static_cast<long long>(c) * k, bv[jj]);
-            } else {
-              bv[jj][0] = ldg1(bcol + static_cast<long long>(c) * k);
-            }
+            ldg_vec<VEC>(bcol + static_cast<long long>(c) * k, bv[jj]);
           } else {
 #pragma unroll
-            for (int q = 0; q < VEC; ++q) bv[jj][q] = 0.f;
+            for (int q = 0; q < VEC; ++q) bv[jj][q] = 0;
           }
         }
 #pragma unroll
         for (int jj = 0; jj < kUnroll; ++jj) {
 #pragma unroll
-          for (int q = 0; q < VEC; ++q) acc[q] = fmaf(av[jj], bv[jj][q], acc[q]);
+          for (int q = 0; q < VEC; ++q) acc[q] = mad(av[jj], bv[jj][q], acc[q]);
         }
       }
     }
 
     if (chunk == 0) {
       if (r < R && ucol) {
-        float* o = obase + r * k + u * VEC;
-        if constexpr (VEC == 4) {
-          __stcs(reinterpret_cast<float4*>(o), make_float4(acc[0], acc[1], acc[2], acc[3]));
-        } else {
-          __stcs(o, acc[0]);
-        }
+        stcs_vec<VEC>(obase + r * k + u * VEC, acc);
       }
     } else {
       // part[g][lane * VEC + q]; the first TPR * VEC threads add the
@@ -200,7 +175,7 @@ ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ i
       const long long col = u0 * VEC + t;
       if (t < TPR * VEC && col < k) {
         const int used = (L + chunk - 1) / chunk;
-        float s = 0.f;
+        TA s = 0;
         for (int gg = 0; gg < used; ++gg) s += part[gg * TPR * VEC + t];
         obase[r * k + col] = s;
       }
@@ -209,12 +184,14 @@ ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ i
   }
 }
 
-template <typename TD, typename TB>
+// VECW: the wide lane layout of the type (4 columns, 2 in fp64); vec is it or 1
+template <typename TD, typename TB, typename TA, int VECW>
 cudaError_t launch(const long long* slabs, const int2* items, unsigned n_items, const void* B,
-                   float* out, long long n, long long k, int vec, int tpr_log2, cudaStream_t s) {
+                   void* out, long long n, long long k, int vec, int tpr_log2, cudaStream_t s) {
   const TB* b = static_cast<const TB*>(B);
+  TA* o = static_cast<TA*>(out);
 #define SPMM_TPU_TORCH_K2(V, T) \
-  ell_slabs_kernel<TD, TB, V, T><<<n_items, kThreads, 0, s>>>(slabs, items, b, out, n, k)
+  ell_slabs_kernel<TD, TB, TA, V, T><<<n_items, kThreads, 0, s>>>(slabs, items, b, o, n, k)
 #define SPMM_TPU_TORCH_K2_TPR(V)                  \
   switch (tpr_log2) {                             \
     case 0: SPMM_TPU_TORCH_K2(V, 1); break;       \
@@ -225,10 +202,12 @@ cudaError_t launch(const long long* slabs, const int2* items, unsigned n_items, 
     case 5: SPMM_TPU_TORCH_K2(V, 32); break;      \
     default: return cudaErrorInvalidValue;        \
   }
-  if (vec == 4) {
-    SPMM_TPU_TORCH_K2_TPR(4)
-  } else {
+  if (vec == VECW) {
+    SPMM_TPU_TORCH_K2_TPR(VECW)
+  } else if (vec == 1) {
     SPMM_TPU_TORCH_K2_TPR(1)
+  } else {
+    return cudaErrorInvalidValue;
   }
 #undef SPMM_TPU_TORCH_K2_TPR
 #undef SPMM_TPU_TORCH_K2
@@ -238,36 +217,38 @@ cudaError_t launch(const long long* slabs, const int2* items, unsigned n_items, 
 }  // namespace
 }  // namespace spmm_tpu_torch
 
-// slabs: (S, 8) int64 device table; items: (n_items, 2) int32 device table
+// slabs: (S, 6) int64 device table; items: (n_items, 2) int32 device table
 // (ops/ell_kernel.py: work_table).  vec and tpr_log2 are the lane layout the
-// table was cut for.
+// table was cut for.  out is fp32 for fp32 / bf16 operands and fp64 for fp64
+// data times fp64 B; no other mix is built.
 extern "C" int ell_slabs_spmm_launch(const void* slabs, const void* items, long long n_items,
                                      int data_dtype, const void* B, int b_dtype, void* out,
                                      long long n, long long k, int vec, int tpr_log2,
                                      void* stream) {
   using namespace spmm_tpu_torch;
   if (n_items <= 0 || k <= 0) return 0;
-  if (n < 1 || n_items > 0x7fffffff || (vec != 1 && vec != 4)) {
+  if (n < 1 || n_items > 0x7fffffff || vec < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (vec == 4 && (k % 4 != 0 || reinterpret_cast<uintptr_t>(B) % 16 != 0 ||
-                   reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
+  if (vec > 1 && (k % vec != 0 || reinterpret_cast<uintptr_t>(B) % 16 != 0 ||
+                  reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long* sl = static_cast<const long long*>(slabs);
   const int2* it = static_cast<const int2*>(items);
   const unsigned ni = static_cast<unsigned>(n_items);
-  float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (data_dtype == kF32 && b_dtype == kF32)
-    err = launch<float, float>(sl, it, ni, B, o, n, k, vec, tpr_log2, s);
+    err = launch<float, float, float, 4>(sl, it, ni, B, out, n, k, vec, tpr_log2, s);
   else if (data_dtype == kF32 && b_dtype == kBF16)
-    err = launch<float, __nv_bfloat16>(sl, it, ni, B, o, n, k, vec, tpr_log2, s);
+    err = launch<float, __nv_bfloat16, float, 4>(sl, it, ni, B, out, n, k, vec, tpr_log2, s);
   else if (data_dtype == kBF16 && b_dtype == kF32)
-    err = launch<__nv_bfloat16, float>(sl, it, ni, B, o, n, k, vec, tpr_log2, s);
+    err = launch<__nv_bfloat16, float, float, 4>(sl, it, ni, B, out, n, k, vec, tpr_log2, s);
   else if (data_dtype == kBF16 && b_dtype == kBF16)
-    err = launch<__nv_bfloat16, __nv_bfloat16>(sl, it, ni, B, o, n, k, vec, tpr_log2, s);
+    err = launch<__nv_bfloat16, __nv_bfloat16, float, 4>(sl, it, ni, B, out, n, k, vec, tpr_log2, s);
+  else if (data_dtype == kF64 && b_dtype == kF64)
+    err = launch<double, double, double, 2>(sl, it, ni, B, out, n, k, vec, tpr_log2, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

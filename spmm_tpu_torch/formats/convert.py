@@ -7,7 +7,10 @@ name and field names, so this package never imports ``spmm_tpu`` (which would
 import JAX).  ``to_numpy`` is the inverse: it builds the containers of a given
 namespace (for example the ``spmm_tpu.formats`` module, which the caller
 imports) with numpy leaves, or this package's own containers when no namespace
-is given.
+is given.  Every leaf keeps its dtype both ways -- fp64 values stay fp64 (with
+``jax.enable_x64`` on the JAX side), there is no down-cast to fp32 -- so the
+parity tests feed both packages the same ``CSR``, ``ELL``, ``BSR`` and
+``BlockedCSR``.
 """
 
 from __future__ import annotations

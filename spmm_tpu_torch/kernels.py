@@ -29,7 +29,7 @@ NVCC_FLAGS = [
 ]
 
 # dtype codes of the C entries
-F32, BF16 = 0, 1
+F32, BF16, F64 = 0, 1, 2
 
 _lib: ctypes.CDLL | None = None
 
@@ -62,6 +62,8 @@ def load(path: str) -> ctypes.CDLL:
     so.bsr_spmm_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, LL, I, P]
     so.ell_slabs_spmm_launch.restype = I
     so.ell_slabs_spmm_launch.argtypes = [P, P, LL, I, P, I, P, LL, LL, I, I, P]
+    so.ell_slabs_sddmm_launch.restype = I
+    so.ell_slabs_sddmm_launch.argtypes = [P, P, LL, P, P, P, I, P, LL, LL, I, I, P]
     so.cuda_error_string.restype = ctypes.c_char_p
     so.cuda_error_string.argtypes = [I]
     return so

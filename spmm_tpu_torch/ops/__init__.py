@@ -13,10 +13,23 @@ from spmm_tpu_torch.ops.ell_spmm import ell_spmm, ell_spmv
 from spmm_tpu_torch.ops.ell_kernel import (
     ell_slab_spmm,
     ell_slab_spmm_reference,
+    ell_slabs_sddmm,
+    ell_slabs_sddmm_reference,
     ell_slabs_spmm,
     ell_slabs_spmm_reference,
+    ell_slabs_spmm_transposed,
+    ell_slabs_spmm_transposed_reference,
+    transposed_slabs,
 )
-from spmm_tpu_torch.ops.bsr_kernel import bsr_spmm, bsr_spmm_reference, bsr_spmv
+from spmm_tpu_torch.ops.bsr_kernel import (
+    bsr_data_grad,
+    bsr_spmm,
+    bsr_spmm_reference,
+    bsr_spmm_transposed,
+    bsr_spmm_transposed_reference,
+    bsr_spmv,
+    transposed_bsr,
+)
 from spmm_tpu_torch.ops.blocked import (
     blocked_chain_spmv,
     blocked_exec_view,
@@ -68,6 +81,15 @@ __all__ = [
     "ell_slab_spmm_reference",
     "ell_slabs_spmm",
     "ell_slabs_spmm_reference",
+    "ell_slabs_spmm_transposed",
+    "ell_slabs_spmm_transposed_reference",
+    "ell_slabs_sddmm",
+    "ell_slabs_sddmm_reference",
+    "transposed_slabs",
+    "bsr_spmm_transposed",
+    "bsr_spmm_transposed_reference",
+    "bsr_data_grad",
+    "transposed_bsr",
     "bsr_spmm",
     "bsr_spmm_reference",
     "bsr_spmm_xla",

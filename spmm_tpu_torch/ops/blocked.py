@@ -18,8 +18,11 @@ rows un-permuted with ``row_inv`` at the end.
   ``gather_rows`` map (the reference's ``seq_input`` contract).
 
 Every view lies on the device of P's leaves (the CPU for numpy leaves) and is
-built once for many multiplies.  Results are fp32 (fp64 is a later slice: K2
-raises on it).
+built once for many multiplies.  Every product sums and returns in
+``accum_dtype`` (fp32 by default, as in the JAX package; ``torch.float64``
+runs on K2 on the card when the packed values and B are fp64).  Gradients
+flow to B through every formulation, and to the view's bucket values through
+the slab path (``ops/ell_kernel.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,11 @@ import numpy as np
 import torch
 
 from spmm_tpu_torch.formats.containers import BlockedCSR, as_numpy, as_tensor, device_of
-from spmm_tpu_torch.ops.ell_kernel import ell_slabs_spmm, ell_slabs_spmm_reference, table_memo
+from spmm_tpu_torch.ops.ell_kernel import (
+    ell_slabs_spmm_into,
+    ell_slabs_spmm_reference,
+    table_memo,
+)
 from spmm_tpu_torch.ops.segments import boundary_segments
 
 
@@ -71,24 +78,25 @@ def blocked_exec_view(P: BlockedCSR):
     return _final_out_rows(P, dev), _global_cols(P, dev)
 
 
-def _segment_product(P: BlockedCSR, src: torch.Tensor, cols, out_rows, permute_back: bool):
+def _segment_product(P: BlockedCSR, src: torch.Tensor, cols, out_rows, permute_back: bool, acc):
     dev = src.device
-    contrib = src.index_select(0, cols.to(dev)).float() * as_tensor(P.data, dev).float()[:, None]
-    y = torch.zeros((P.nrow, src.shape[1]), dtype=torch.float32, device=dev)
+    contrib = src.index_select(0, cols.to(dev)).to(acc) * as_tensor(P.data, dev).to(acc)[:, None]
+    y = torch.zeros((P.nrow, src.shape[1]), dtype=acc, device=dev)
     y.index_add_(0, out_rows.to(dev), contrib)  # padding: data == 0 contributes nothing
     if not permute_back:
         return y
     return y.index_select(0, as_tensor(P.row_inv, dev).long())
 
 
-def blocked_spmm_xla(P: BlockedCSR, B: torch.Tensor, *, permute_back: bool = True, view=None):
-    """Y = unpack(P) @ B in fp32 via the packed stream: one gather from B per
+def blocked_spmm_xla(P: BlockedCSR, B: torch.Tensor, *, permute_back: bool = True, view=None,
+                     accum_dtype=torch.float32):
+    """Y = unpack(P) @ B in ``accum_dtype`` via the packed stream: one gather from B per
     packed nonzero and an ``index_add_`` into final-order rows (validates the
     whole format: interleave, relabel, permutations).  Pass
     ``view=blocked_exec_view(P)`` to pack once and multiply many times."""
     dev = B.device
     out_rows, gcols = view if view is not None else (_final_out_rows(P, dev), _global_cols(P, dev))
-    return _segment_product(P, B, gcols, out_rows, permute_back)
+    return _segment_product(P, B, gcols, out_rows, permute_back, accum_dtype)
 
 
 def blocked_panel_view(P: BlockedCSR):
@@ -99,7 +107,8 @@ def blocked_panel_view(P: BlockedCSR):
     return _final_out_rows(P, dev), _panel_slots(P, dev), as_tensor(P.gather_cols, dev)
 
 
-def blocked_spmm_panel(P: BlockedCSR, B: torch.Tensor, *, permute_back: bool = True, view=None):
+def blocked_spmm_panel(P: BlockedCSR, B: torch.Tensor, *, permute_back: bool = True, view=None,
+                       accum_dtype=torch.float32):
     """Y = unpack(P) @ B via the two-stage region-panel gather: stage 1
     compacts the referenced B rows once (``B[gather_cols]``), stage 2 gathers
     each packed nonzero's row from the compacted panel by relabeled slot."""
@@ -109,7 +118,7 @@ def blocked_spmm_panel(P: BlockedCSR, B: torch.Tensor, *, permute_back: bool = T
         else (_final_out_rows(P, dev), _panel_slots(P, dev), as_tensor(P.gather_cols, dev))
     )
     panel = B.index_select(0, gcols.to(dev))  # stage 1
-    return _segment_product(P, panel, slots, out_rows, permute_back)
+    return _segment_product(P, panel, slots, out_rows, permute_back, accum_dtype)
 
 
 def blocked_slab_view(P: BlockedCSR, *, panel: bool = False):
@@ -185,7 +194,7 @@ class SlabView(tuple):
     memo of K2's work table over its buckets."""
 
 
-def _slab_product(B: torch.Tensor, view, plain: bool) -> torch.Tensor:
+def _slab_product(B: torch.Tensor, view, plain: bool, acc) -> torch.Tensor:
     """The slab view times B: every bucket through K2 in one call (its plain
     version when ``plain``), the leftover stream through ``index_add_``."""
     if len(view) == 4:
@@ -193,63 +202,67 @@ def _slab_product(B: torch.Tensor, view, plain: bool) -> torch.Tensor:
         B = B.index_select(0, gcols)  # stage 1: compacted panel
     else:
         buckets, rem, order_map = view
-    y = torch.empty((order_map.shape[0], B.shape[1]), dtype=torch.float32, device=B.device)
+    y = torch.empty((order_map.shape[0], B.shape[1]), dtype=acc, device=B.device)
     data = tuple(d for d, _ in buckets)
     cols = tuple(c for _, c in buckets)
     off = sum(int(c.shape[0]) for c in cols)
     if plain:
-        ell_slabs_spmm_reference(cols, data, B, y[:off])
+        ell_slabs_spmm_reference(cols, data, B, y[:off], accum_dtype=acc)
     elif buckets:
-        ell_slabs_spmm(cols, data, B, y[:off], memo=table_memo(view),
-                       row_keys=getattr(view, "row_keys", None))
+        ell_slabs_spmm_into(y, 0, cols, data, B, memo=table_memo(view),
+                            row_keys=getattr(view, "row_keys", None), accum_dtype=acc)
     cols, vals, seg = rem
-    contrib = B.index_select(0, cols).float() * vals.float()[:, None]
+    contrib = B.index_select(0, cols).to(acc) * vals.to(acc)[:, None]
     y[off:].zero_().index_add_(0, seg, contrib)
     return y.index_select(0, order_map)
 
 
-def blocked_spmm_slab(P: BlockedCSR, B: torch.Tensor, view) -> torch.Tensor:
-    """Y = unpack(P) @ B in fp32 via the v8-slab view (pack once, multiply
-    many): one K2 launch over all buckets (its plain version for CPU
+def blocked_spmm_slab(P: BlockedCSR, B: torch.Tensor, view, *,
+                      accum_dtype=torch.float32) -> torch.Tensor:
+    """Y = unpack(P) @ B in ``accum_dtype`` via the v8-slab view (pack once,
+    multiply many): one K2 launch over all buckets (its plain version for CPU
     tensors), the leftover stream through ``index_add_``.  Rows return in
     ORIGINAL order.  A 4-element (panel) view stages the compacted RHS panel
     once and every bucket reads it by relabeled slot."""
-    return _slab_product(B, view, plain=False)
+    return _slab_product(B, view, plain=False, acc=accum_dtype)
 
 
-def blocked_spmm_slab_reference(P: BlockedCSR, B: torch.Tensor, view) -> torch.Tensor:
+def blocked_spmm_slab_reference(P: BlockedCSR, B: torch.Tensor, view, *,
+                                accum_dtype=torch.float32) -> torch.Tensor:
     """:func:`blocked_spmm_slab` with K2's plain version on every bucket, on
     any device: what the kernel path is held against on the card."""
-    return _slab_product(B, view, plain=True)
+    return _slab_product(B, view, plain=True, acc=accum_dtype)
 
 
-def blocked_chain_spmv(P: BlockedCSR, x: torch.Tensor, iters: int) -> torch.Tensor:
+def blocked_chain_spmv(P: BlockedCSR, x: torch.Tensor, iters: int, *,
+                       accum_dtype=torch.float32) -> torch.Tensor:
     """y = A^iters @ x on a SQUARE matrix through the self-referential gather
     map, the runtime contract the reference's ``seq_input`` exists for
     (reference wbsort.h:81-95, SURVEY.md §2.8/§3.3): relabeled column ``j``
     of region ``r`` reads the iterate at FINAL position
     ``gather_rows[region_gather[r] + j]``, so chained products never leave
     the permuted order; the permutations apply once at entry (``row_perm``)
-    and once at exit (``row_inv``).  fp32."""
+    and once at exit (``row_inv``).  Sums and returns in ``accum_dtype``."""
     if P.shape[0] != P.shape[1]:
         raise ValueError("seq_input chaining is defined for square matrices only")
     dev = x.device
     out_rows = _final_out_rows(P, dev)
     # the per-region panel gather composed with the slot gather: one index
     src = as_tensor(P.gather_rows, dev).long()[_panel_slots(P, dev)]
-    vals = as_tensor(P.data, dev).float()
-    y = x.float().index_select(0, as_tensor(P.row_perm, dev).long())  # to final order
+    vals = as_tensor(P.data, dev).to(accum_dtype)
+    y = x.to(accum_dtype).index_select(0, as_tensor(P.row_perm, dev).long())  # to final order
     for _ in range(iters):
-        y = torch.zeros(P.nrow, dtype=torch.float32, device=dev).index_add_(
+        y = torch.zeros(P.nrow, dtype=accum_dtype, device=dev).index_add_(
             0, out_rows, vals * y.index_select(0, src)
         )
     return y.index_select(0, as_tensor(P.row_inv, dev).long())  # back to original order
 
 
-def blocked_spmm(P: BlockedCSR, B: torch.Tensor, *, view=None) -> torch.Tensor:
+def blocked_spmm(P: BlockedCSR, B: torch.Tensor, *, view=None,
+                 accum_dtype=torch.float32) -> torch.Tensor:
     """Dispatcher for the packed-format SpMM: the v8-slab path.  ``view``: a
     :func:`blocked_slab_view` built once for repeated multiplies; one-shot
     calls build it here, on B's device."""
     if view is None:
         view = blocked_slab_view(P.to(B.device))
-    return blocked_spmm_slab(P, B, view)
+    return blocked_spmm_slab(P, B, view, accum_dtype=accum_dtype)

@@ -7,8 +7,13 @@
   (kernel K1), BlockedCSR (``ops/blocked.py``, K2 per v8-group bucket), CSR
   (large CSRs pack to ELL once, memoized per instance).
 
-Results are fp32; values may be stored bf16 or fp32 (fp64 parity is a later
-slice).
+Every entry point sums and returns in ``accum_dtype``: fp32 by default, as
+in the JAX package, whatever the stored type (bf16, fp32, fp64);
+``torch.float64`` for fp64 parity, which on the card runs on the kernels
+when values and B are fp64.  Gradients flow to the dense operand and to the
+sparse values through every path (the kernels' through their
+``torch.autograd.Function``).  ``spmm_xla`` and ``ell_spmm`` take a stack
+(b, n, k) of right-hand sides, the batched form.
 Containers holding numpy arrays are moved to the device of the dense operand.
 """
 
@@ -23,7 +28,7 @@ from spmm_tpu_torch.formats.containers import CSR, BlockedCSR, as_tensor
 from spmm_tpu_torch.formats.ell import ELL, ell_pack, ell_pack_device
 from spmm_tpu_torch.ops.blocked import blocked_spmm
 from spmm_tpu_torch.ops.bsr_kernel import bsr_spmm
-from spmm_tpu_torch.ops.ell_spmm import ell_spmm, ell_spmv
+from spmm_tpu_torch.ops.ell_spmm import ell_spmm, ell_spmv, fold_batch, unfold_batch
 from spmm_tpu_torch.ops.segments import boundary_segments
 
 
@@ -31,20 +36,23 @@ def _row_ids(A: CSR, device) -> torch.Tensor:
     return boundary_segments(A.indptr, A.nnz_pad, dtype=torch.int64, device=device)
 
 
-def spmm_xla(A: CSR, B: torch.Tensor) -> torch.Tensor:
-    """Y[m, k] = A[m, n] @ B[n, k] in fp32 via row gather + ``index_add_``.
-    Padded nonzeros (data == 0) contribute nothing, so no masking is needed."""
+def spmm_xla(A: CSR, B: torch.Tensor, *, accum_dtype=torch.float32) -> torch.Tensor:
+    """Y[m, k] = A[m, n] @ B[n, k] via row gather + ``index_add_``, summed and
+    returned in ``accum_dtype``.  Padded nonzeros (data == 0) contribute
+    nothing, so no masking is needed.  B may be a stack (b, n, k), returned
+    as (b, m, k): the batched form (``vmap`` over B in the JAX package)."""
+    B, batch = fold_batch(B)
     dev = B.device
     rows = _row_ids(A, dev)
-    gathered = B.index_select(0, as_tensor(A.indices, dev).long()).float()
-    contrib = gathered * as_tensor(A.data, dev).float()[:, None]
-    y = torch.zeros((A.shape[0], B.shape[1]), dtype=torch.float32, device=dev)
-    return y.index_add_(0, rows, contrib)
+    gathered = B.index_select(0, as_tensor(A.indices, dev).long()).to(accum_dtype)
+    contrib = gathered * as_tensor(A.data, dev).to(accum_dtype)[:, None]
+    y = torch.zeros((A.shape[0], B.shape[1]), dtype=accum_dtype, device=dev)
+    return unfold_batch(y.index_add_(0, rows, contrib), batch)
 
 
-def spmv_xla(A: CSR, x: torch.Tensor) -> torch.Tensor:
-    """y[m] = A[m, n] @ x[n] in fp32."""
-    return spmm_xla(A, x[:, None])[:, 0]
+def spmv_xla(A: CSR, x: torch.Tensor, *, accum_dtype=torch.float32) -> torch.Tensor:
+    """y[m] = A[m, n] @ x[n], summed and returned in ``accum_dtype``."""
+    return spmm_xla(A, x[:, None], accum_dtype=accum_dtype)[:, 0]
 
 
 #: above this nnz the CSR dispatchers pack to ELL (once, memoized per CSR
@@ -80,7 +88,9 @@ def spmm(A, B: torch.Tensor, **kw) -> torch.Tensor:
     """Dispatch SpMM on the input format: ELL (K2), BSR (K1), BlockedCSR (the
     v8-slab path, K2 per bucket), CSR (gather + ``index_add_``; CSRs with
     nnz >= AUTO_ELL_THRESHOLD pack to ELL once and reuse the pack across
-    calls)."""
+    calls).  Keywords (``accum_dtype``, ...) pass on to the format's entry
+    point; the BSR product sums in the promotion of its block dtype with fp32
+    and takes none."""
     if isinstance(A, ELL):
         return ell_spmm(A, B, **kw)
     if isinstance(A, BSR):

@@ -8,7 +8,10 @@ This file imports no JAX, so it also runs on a GPU machine without it:
 
 (``--noconftest`` skips tests/conftest.py, which sets JAX up for the JAX
 package's tests).  Tolerance: max |kernel - plain| <= 1e-5 * max |plain|, the
-fp32 sums being taken in another order; bf16 inputs are widened to fp32 in both.
+fp32 sums being taken in another order (1e-12 in fp64); bf16 inputs are widened
+to fp32 in both.  Gradients: against the plain versions' autograd gradient and
+the analytic scipy value at 1e-4 of its max, ``torch.autograd.gradcheck`` in
+fp64 at a tiny size, and bit-identical repeats (no atomics in K2, K3 or K1).
 """
 
 import dataclasses
@@ -149,14 +152,27 @@ def test_k1_ragged_groups_and_empty_block_rows(cuda, dtype, block_shape):
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_they_do_not_take(cuda):
     A = csr_to_bsr(tsyn.banded_random(256, 32, 0.5, seed=2)).to(cuda)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="float16"):
+        ops.bsr_spmm(A, torch.zeros(256, 128, dtype=torch.float16, device=cuda))
+    with pytest.raises(TypeError, match="float64"):  # fp32 blocks against an fp64 B
         ops.bsr_spmm(A, torch.zeros(256, 128, dtype=torch.float64, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         ops.bsr_spmm(A, torch.zeros(128, 256, device=cuda).t())
     cols = torch.zeros(4, 2, dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError):
+    with pytest.raises(TypeError, match="float64"):  # fp64 values against an fp32 B
         ops.ell_slab_spmm(cols, torch.zeros(4, 2, dtype=torch.float64, device=cuda),
                           torch.zeros(3, 8, device=cuda))
+    with pytest.raises(TypeError, match="float16"):
+        ops.ell_slab_spmm(cols, torch.zeros(4, 2, dtype=torch.float16, device=cuda),
+                          torch.zeros(3, 8, dtype=torch.float16, device=cuda))
+    with pytest.raises(TypeError, match="float32"):  # an fp32 accumulate of fp64 operands
+        ops.ell_slab_spmm(cols, torch.zeros(4, 2, dtype=torch.float64, device=cuda),
+                          torch.zeros(3, 8, dtype=torch.float64, device=cuda),
+                          accum_dtype=torch.float32)
+    with pytest.raises(ValueError, match="autograd"):  # out= cannot carry a gradient
+        ops.ell_slab_spmm(cols, torch.zeros(4, 2, device=cuda),
+                          torch.zeros(3, 8, device=cuda, requires_grad=True),
+                          out=torch.zeros(4, 8, device=cuda))
     with pytest.raises(TypeError):
         ops.ell_slab_spmm(cols.long(), torch.zeros(4, 2, device=cuda), torch.zeros(3, 8, device=cuda))
     with pytest.raises(ValueError):
@@ -279,3 +295,306 @@ def test_bitmap_perm_device_on_card(cuda, section):
     perm = bitmap_perm_device(A.to(cuda), section)
     assert perm.is_cuda
     np.testing.assert_array_equal(perm.cpu().numpy(), bitmap_reorder(A, section, materialize=False)[1])
+
+
+# ---- fp64 on the kernels, K3, and the backward routes --------------------------
+
+
+def _rel(y, ref):
+    return float((y - ref).abs().max()) / max(float(ref.abs().max()), 1e-300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 32, 128, 130, 256])
+def test_k2_fp64_matches_plain(cuda, k):
+    """fp64 values times an fp64 B on K2 (2 doubles a lane, or 1), split rows
+    included, against the plain version at 1e-12; the output is fp64."""
+    cols, data = _k2_slabs(cuda, torch.float64, 4000, k)
+    B = torch.randn(4000, k, generator=torch.Generator().manual_seed(k), dtype=torch.float64).to(cuda)
+    n0 = ell_kernel.launches
+    Y = ops.ell_slabs_spmm(cols, data, B)
+    assert ell_kernel.launches == n0 + 1 and Y.dtype == torch.float64
+    ref = ops.ell_slabs_spmm_reference(cols, data, B, torch.empty_like(Y))
+    torch.cuda.synchronize()
+    assert _rel(Y, ref) <= 1e-12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_shape", [(8, 128), (16, 64), (3, 32)])
+def test_k1_fp64_matches_plain(cuda, block_shape):
+    A = tsyn.banded_random(1000, 300, 0.3, seed=1, dtype=np.float64)
+    Ab = csr_to_bsr(A, block_shape).to(cuda)
+    B = torch.from_numpy(rhs(1000, 256, 0).astype(np.float64)).to(cuda)
+    n0 = bsr_kernel.launches
+    Y = ops.spmm(Ab, B)
+    assert bsr_kernel.launches == n0 + 1 and Y.dtype == torch.float64
+    ref = bsr_kernel.bsr_spmm_reference(Ab, B)
+    torch.cuda.synchronize()
+    assert _rel(Y, ref) <= 1e-12
+    want = A.to_scipy() @ B.cpu().numpy()
+    assert np.abs(Y.cpu().numpy() - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 32, 128, 130, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_k3_kernel_matches_plain(cuda, k, dtype):
+    """K3 (the slab values' gradient) in one launch over mixed slabs against
+    its plain version; a second run is bit-identical."""
+    cols, _ = _k2_slabs(cuda, torch.float32, 4000, k)
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    g = torch.Generator().manual_seed(k + 7)
+    B = torch.randn(4000, k, generator=g, dtype=acc).to(cuda, dtype)
+    rows = sum(c.shape[0] for c in cols)
+    dY = torch.randn(rows, k, generator=g, dtype=acc).to(cuda)
+    n0 = ell_kernel.sddmm_launches
+    out = ops.ell_slabs_sddmm(cols, dY, B)
+    out2 = ops.ell_slabs_sddmm(cols, dY, B)
+    assert ell_kernel.sddmm_launches == n0 + 2
+    ref = ops.ell_slabs_sddmm_reference(cols, dY, B)
+    torch.cuda.synchronize()
+    tol = 1e-12 if acc == torch.float64 else 1e-5
+    scale = max(float(r.abs().max()) for r in ref if r.numel())
+    for o, o2, r in zip(out, out2, ref, strict=True):
+        assert o.shape == r.shape and o.dtype == acc
+        if r.numel():
+            assert float((o - r).abs().max()) <= tol * scale
+        assert torch.equal(o, o2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_on_transposed_pack(cuda, k, dtype):
+    """Aᵀ · dY as one K2 launch over the transposed pack, rows cut into
+    pieces included, against its plain version and against the dense Aᵀ."""
+    A = tsyn.webgraph_like(20000, 150000, seed=6)
+    E = ell_pack(A).to(cuda)
+    data = [d.to(dtype) for d in E.data]
+    rows = sum(c.shape[0] for c in E.cols)
+    dY = torch.randn(rows, k, generator=torch.Generator().manual_seed(k), dtype=dtype).to(cuda)
+    # cut at 128, so that the hubs of this small graph get cut
+    memo = {("transposed", dY.device, A.shape[1]): ops.transposed_slabs(E.cols, A.shape[1], dY.device, cut=128)}
+    n0, t0 = ell_kernel.launches, ell_kernel.transposed_launches
+    g = ops.ell_slabs_spmm_transposed(E.cols, data, dY, A.shape[1], memo=memo)
+    g2 = ops.ell_slabs_spmm_transposed(E.cols, data, dY, A.shape[1], memo=memo)
+    assert ell_kernel.launches == n0 + 2 and ell_kernel.transposed_launches == t0 + 2
+    T = memo[("transposed", dY.device, A.shape[1])]
+    assert T.hub_rows.numel() > 0
+    ref = ops.ell_slabs_spmm_transposed_reference(E.cols, data, dY, A.shape[1], memo=memo)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(g, ref) <= tol and torch.equal(g, g2)
+    # the slab rows are A's rows in length-sorted order
+    perm = E.perm.cpu().numpy()[E.n_empty : A.shape[0] - E.n_rest_rows]
+    want = A.to_scipy()[perm].T.astype(np.float64) @ dY.double().cpu().numpy()
+    assert np.abs(g.cpu().numpy() - want).max() <= max(tol, 1e-5 if dtype == torch.float32 else 0) * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_shape", [(8, 128), (16, 64), (3, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k1_on_transposed_bsr(cuda, block_shape, dtype):
+    A = tsyn.banded_random(1003, 300, 0.3, seed=2, dtype=np.float64)
+    Ab = csr_to_bsr(A, block_shape).to(cuda)
+    Ab = dataclasses.replace(Ab, data=Ab.data.to(dtype))
+    dY = torch.from_numpy(rhs(1003, 128, 3)).to(cuda, dtype)
+    n0, t0 = bsr_kernel.launches, bsr_kernel.transposed_launches
+    g = ops.bsr_spmm_transposed(Ab, dY)
+    assert bsr_kernel.launches == n0 + 1 and bsr_kernel.transposed_launches == t0 + 1
+    ref = ops.bsr_spmm_transposed_reference(Ab, dY)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(g, ref) <= tol
+    want = A.to_scipy().T @ dY.double().cpu().numpy()
+    assert np.abs(g.cpu().numpy() - want).max() <= (tol if dtype == torch.float64 else 1e-4) * np.abs(want).max()
+
+
+def _analytic(A, B0):
+    S = A.to_scipy().astype(np.float64)
+    return 2.0 * (S.T @ (S @ B0.astype(np.float64)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["ell", "ell_rest", "bsr", "blocked", "csr_large", "csr_small"])
+def test_backward_through_ops_spmm_on_card(cuda, form, monkeypatch):
+    """d/dB sum((A B)^2) = 2 Aᵀ A B through every format of ``ops.spmm`` with
+    CUDA tensors: the full gradient, none of it dropped."""
+    from spmm_tpu_torch.preprocess import preprocess
+
+    spmm_mod = importlib.import_module("spmm_tpu_torch.ops.spmm")
+    k = 128
+    if form == "bsr":
+        A = tsyn.banded_random(2048, 200, 0.3, seed=5)
+        M = csr_to_bsr(A).to(cuda)
+    else:
+        A = tsyn.webgraph_like(20000, 150000, seed=7)
+        if form == "ell":
+            M = ell_pack(A).to(cuda)
+        elif form == "ell_rest":
+            M = ell_pack(A, max_len=256).to(cuda)
+            assert M.n_rest_rows > 0
+        elif form == "blocked":
+            M = preprocess(A, Config(region_budget=2048, panel_rows=512)).to(cuda)
+        else:
+            monkeypatch.setattr(spmm_mod, "AUTO_ELL_THRESHOLD", 1 if form == "csr_large" else 1 << 30)
+            M = A
+    B0 = rhs(A.shape[1], k, 8)
+    B = torch.from_numpy(B0).to(cuda).requires_grad_()
+    n2, n1 = ell_kernel.transposed_launches, bsr_kernel.transposed_launches
+    (ops.spmm(M, B) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    if form == "bsr":
+        assert bsr_kernel.transposed_launches == n1 + 1
+    elif form != "csr_small":
+        assert ell_kernel.transposed_launches == n2 + 1
+    ref = _analytic(A, B0)
+    assert np.abs(B.grad.cpu().numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ell_spmm_backward_launches_and_values_grad(cuda, dtype):
+    """One K2 forward launch, one K2 launch on the transposed pack and one K3
+    launch per backward; both gradients against the analytic values; a second
+    backward is bit-identical; without grad the forward is one launch into
+    the output itself."""
+    A = tsyn.webgraph_like(20000, 150000, seed=9)
+    if dtype == torch.float64:
+        A = dataclasses.replace(A, data=A.data.astype(np.float64))
+    E = ell_pack(A).to(cuda)
+    E = dataclasses.replace(E, data=tuple(d.requires_grad_() for d in E.data))
+    B0 = rhs(20000, 32, 4)
+    B = torch.from_numpy(B0).to(cuda, dtype).requires_grad_()
+    grads = []
+    for _ in range(2):
+        c0 = (ell_kernel.launches, ell_kernel.transposed_launches, ell_kernel.sddmm_launches)
+        Y = ops.ell_spmm(E, B, accum_dtype=dtype)
+        assert ell_kernel.launches == c0[0] + 1 and Y.dtype == dtype
+        gB, *gD = torch.autograd.grad((Y ** 2).sum(), [B, *E.data])
+        c1 = (ell_kernel.launches, ell_kernel.transposed_launches, ell_kernel.sddmm_launches)
+        assert tuple(b - a for a, b in zip(c0, c1)) == (2, 1, 1)
+        grads.append((gB, gD))
+    torch.cuda.synchronize()
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(grads[0][1], grads[1][1]))
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    ref = _analytic(A, B0)
+    assert np.abs(grads[0][0].cpu().numpy() - ref).max() <= tol * np.abs(ref).max()
+    # d/dv_e = 2 Y[row_e] . B[col_e], slot by slot of each slab
+    S = A.to_scipy().astype(np.float64)
+    Yh = S @ B0.astype(np.float64)
+    perm = E.perm.cpu().numpy()
+    row = E.n_empty
+    for c, g in zip(E.cols, grads[0][1]):
+        R = c.shape[0]
+        want = 2.0 * np.einsum("rk,rlk->rl", Yh[perm[row : row + R]], B0.astype(np.float64)[c.cpu().numpy()])
+        assert np.abs(g.cpu().numpy() - want).max() <= tol * max(np.abs(want).max(), 1.0)
+        row += R
+    with torch.no_grad():
+        n0 = ell_kernel.launches
+        ops.ell_spmm(E, B, accum_dtype=dtype)
+        assert ell_kernel.launches == n0 + 1
+
+
+@pytest.mark.cuda
+def test_bsr_spmm_backward_on_card(cuda):
+    A = tsyn.banded_random(2048, 200, 0.3, seed=11)
+    Ab = csr_to_bsr(A).to(cuda)
+    data = Ab.data.clone().requires_grad_()
+    Ab = dataclasses.replace(Ab, data=data)
+    B0 = rhs(2048, 128, 12)
+    B = torch.from_numpy(B0).to(cuda).requires_grad_()
+    gB, gD = torch.autograd.grad((ops.bsr_spmm(Ab, B) ** 2).sum(), [B, data])
+    gB2, gD2 = torch.autograd.grad((ops.bsr_spmm(Ab, B) ** 2).sum(), [B, data])
+    Bc = B.detach().clone().requires_grad_()
+    dc = data.detach().clone().requires_grad_()
+    rB, rD = torch.autograd.grad(
+        (bsr_kernel.bsr_spmm_reference(dataclasses.replace(Ab, data=dc), Bc) ** 2).sum(), [Bc, dc])
+    torch.cuda.synchronize()
+    assert torch.equal(gB, gB2) and torch.equal(gD, gD2)
+    assert _rel(gB, rB) <= 1e-4 and _rel(gD, rD) <= 1e-4
+    ref = _analytic(A, B0)
+    assert np.abs(gB.cpu().numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_gradcheck_fp64_on_card(cuda):
+    """``torch.autograd.gradcheck`` of the kernels' Functions in fp64 at a
+    tiny size: K2 w.r.t. B and the slab values, K1 w.r.t. B and the blocks."""
+    g = torch.Generator().manual_seed(0)
+    shapes = [(5, 3), (2, 70), (4, 1)]
+    cols = [torch.randint(0, 12, s, generator=g, dtype=torch.int32).to(cuda) for s in shapes]
+    data = [torch.randn(s, generator=g, dtype=torch.float64).to(cuda).requires_grad_() for s in shapes]
+    B = torch.randn(12, 6, generator=g, dtype=torch.float64).to(cuda).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda B, *d: ops.ell_slabs_spmm(cols, d, B), (B, *data), eps=1e-6, atol=1e-8)
+    A = tsyn.banded_random(40, 12, 0.5, seed=3, dtype=np.float64)
+    Ab = csr_to_bsr(A, (8, 16)).to(cuda)
+    blocks = Ab.data.clone().requires_grad_()
+    Bk = torch.randn(40, 128, generator=g, dtype=torch.float64).to(cuda).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda B, d: ops.bsr_spmm(dataclasses.replace(Ab, data=d), B), (Bk, blocks),
+        eps=1e-6, atol=1e-8)
+
+
+@pytest.mark.cuda
+def test_blocked_spmm_slab_backward_on_card(cuda):
+    """The packed format's gradient w.r.t. B on the card against its plain
+    version's and the analytic value; two runs bit-identical in the K2 part
+    (the leftover stream's ``index_add_`` is atomic in PyTorch)."""
+    from spmm_tpu_torch.preprocess import preprocess
+
+    A = tsyn.webgraph_like(20000, 150000, seed=3)
+    P = preprocess(A, Config(region_budget=2048, panel_rows=512)).to(cuda)
+    view = ops.blocked_slab_view(P)
+    B0 = rhs(20000, 128, 1)
+    B = torch.from_numpy(B0).to(cuda).requires_grad_()
+    t0 = ell_kernel.transposed_launches
+    (g,) = torch.autograd.grad((ops.blocked_spmm_slab(P, B, view) ** 2).sum(), [B])
+    assert ell_kernel.transposed_launches == t0 + 1
+    (r,) = torch.autograd.grad((ops.blocked_spmm_slab_reference(P, B, view) ** 2).sum(), [B])
+    torch.cuda.synchronize()
+    assert _rel(g, r) <= 1e-4
+    ref = _analytic(A, B0)
+    assert np.abs(g.cpu().numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["ell", "bsr"])
+def test_backward_bf16_on_card(cuda, form):
+    """bf16 values and B: the forward sums in fp32, the gradients come back in
+    bf16 (K2 / K1 on the transposed structure with bf16 values, K3 with a
+    bf16 B), against the fp32 plain versions' autograd gradient at the bf16
+    bound."""
+    k = 128
+    if form == "ell":
+        A = tsyn.webgraph_like(20000, 150000, seed=13)
+        E = ell_pack(A).to(cuda)
+        data = tuple(d.bfloat16().requires_grad_() for d in E.data)
+        M = dataclasses.replace(E, data=data)
+        fn = lambda M, B: ops.ell_spmm(M, B)
+        plain = lambda d, B: ops.ell_slabs_spmm_reference(E.cols, d, B, torch.empty(
+            (sum(c.shape[0] for c in E.cols), k), device=cuda))
+    else:
+        A = tsyn.banded_random(2048, 200, 0.3, seed=14)
+        Ab = csr_to_bsr(A).to(cuda)
+        data = (Ab.data.bfloat16().requires_grad_(),)
+        M = dataclasses.replace(Ab, data=data[0])
+        fn = lambda M, B: ops.bsr_spmm(M, B)
+        plain = lambda d, B: bsr_kernel.bsr_spmm_reference(dataclasses.replace(Ab, data=d[0]), B)
+    B = torch.from_numpy(rhs(A.shape[1], k, 15)).to(cuda).bfloat16().requires_grad_()
+    Y = fn(M, B)
+    assert Y.dtype == torch.float32
+    gB, *gD = torch.autograd.grad((Y ** 2).sum(), [B, *data])
+    assert gB.dtype == torch.bfloat16 and all(g.dtype == torch.bfloat16 for g in gD)
+    # the reference: the same bf16 values widened to fp32 first (autograd of
+    # the bf16 plain version would add the hub columns' shares up in bf16)
+    Bp = B.detach().float().requires_grad_()
+    dp = tuple(d.detach().float().requires_grad_() for d in data)
+    rB, *rD = torch.autograd.grad((plain(dp, Bp) ** 2).sum(), [Bp, *dp])
+    torch.cuda.synchronize()
+    assert _rel(gB.float(), rB) <= 2e-2
+    scale = max(float(r.abs().max()) for r in rD)
+    for g, r in zip(gD, rD, strict=True):
+        assert float((g.float() - r).abs().max()) <= 2e-2 * scale

@@ -205,7 +205,20 @@ def test_csr_to_bsr_matches_jax(block_shape, gen):
 def test_port_imports_no_jax():
     code = (
         "import sys, spmm_tpu_torch, spmm_tpu_torch.cli, spmm_tpu_torch.formats.convert\n"
-        "import spmm_tpu_torch.entry\n"
+        "import spmm_tpu_torch.entry, spmm_tpu_torch.utils.timing, spmm_tpu_torch.utils.profiling\n"
+        "import spmm_tpu_torch.ops.roofline, importlib.util\n"
+        "import numpy as np\n"
+        "from spmm_tpu_torch.formats.synthetic import webgraph_like\n"
+        "A = webgraph_like(60, 300, seed=0)\n"
+        "runs = {'pagerank': lambda m: m.pagerank(A, iters=2, device='cpu'),\n"
+        "        'cg_solver': lambda m: m.cg(m.laplacian_system(A), np.ones(60), iters=2, device='cpu'),\n"
+        "        'bfs': lambda m: m.bfs(A, 0, device='cpu'),\n"
+        "        'triangle_count': lambda m: m.count_triangles(m.symmetrize(A), device='cpu')}\n"
+        "for name, run in runs.items():  # the examples import inside their functions: run each\n"
+        "    spec = importlib.util.spec_from_file_location(name + '_torch', f'examples/{name}_torch.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    run(mod)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'spmm_tpu.'))"
         " or m == 'spmm_tpu']\n"
         "assert not bad, bad\n"
@@ -247,4 +260,4 @@ def test_kernel_build_needs_nvcc():
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build(force=True)
     assert [os.path.basename(s) for s in kernels.sources()] == [
-        "bsr_spmm.cu", "ell_slab_spmm.cu", "errors.cu"]
+        "bsr_spmm.cu", "ell_slab_sddmm.cu", "ell_slab_spmm.cu", "errors.cu"]
