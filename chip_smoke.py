@@ -10,19 +10,26 @@ Phases, each printing one line with its times (CUDA events for kernels,
 3. kernels  — each hand-written kernel against its plain PyTorch version on
               the card: K1 (BSR) through ``ops.spmm(BSR, B)`` on
               ``banded_random(65536, 512, 0.25, seed=3)`` at k=128 in fp32,
-              bf16 and fp64, and on the transposed BSR (the gradient with
-              respect to B), beside the ``torch.bmm`` value gradient; K2 over
-              all 78 slabs of the ELL pack of ``webgraph_like(916_428,
-              5_105_039, seed=0)`` (web-Google size) in one launch at k=128
-              and k=32, in fp64 at k=128, and over the transposed pack; K3
-              (the slab values' gradient) at k=128.  Per kernel and shape:
+              bf16 and fp64, and its transposed kernel (the gradient with
+              respect to B, A's blocks read in place), beside the
+              ``torch.bmm`` value gradient; K2 over all 78 slabs of the ELL
+              pack of ``webgraph_like(916_428, 5_105_039, seed=0)``
+              (web-Google size) in one launch at k=128 and k=32, in fp64 at
+              k=128, and over the transposed pack with ``ell_spmm``'s row
+              map and the value index (grad B); K3 (the slab values'
+              gradient) at k=128; the ordered segment sum on PageRank's
+              leftover rows (Pᵀ's 75 hub rows at k=1), beside the atomic
+              ``index_add_`` it replaced and ``torch.segment_reduce`` (its
+              bits over three runs printed).  Per kernel and shape:
               max error, kernel / plain / library ms (CUDA events, mean of
               10; the package's ``utils.timing.measure``), the bound computed
               from these matrices (``ops.roofline``: bytes at 3.35 TB/s or
               operations at the type's peak, whichever is larger; for K1
               fp32 also the fp32-FMA and the 3xTF32 tensor-core bounds), the
               share of it reached, and the time before the kernel's redesign
-              (from PERF.md, printed only).
+              (from PERF.md, printed only; for the two grad-B routes the
+              routes they replaced: a re-blocked Aᵀ with a value gather, and
+              the value and row gathers around K2).
 4. main     — the port's main path with every launch counter at 0: the CLI
               (.mtx ingest → preprocess → ELL SpMM k=128 → exact A×A through
               the slab SpGEMM, --check against scipy) on the web-Google-sized
@@ -56,9 +63,11 @@ Phases, each printing one line with its times (CUDA events for kernels,
               profile; (b) fp64 ``ell_spmm`` and a value-mode
               ``ops.spgemm(accum_dtype=float64)`` against scipy; (c) the four
               ``examples/*_torch.py`` programs through their functions:
-              PageRank (50 iterations), CG (200) and BFS at web-Google size,
-              triangle counting at 16,384 nodes (the symmetrised web-Google
-              graph's hubs make its A×A 1.8e11 partial products).
+              PageRank (50 iterations), CG (200, run twice: the two residual
+              histories must be equal in their bits) and BFS at web-Google
+              size, triangle counting at ``TRI_N`` = 49,152 nodes (the
+              symmetrised web-Google graph's hubs make its A×A 1.8e11
+              partial products).
 8. report   — one JSON line of per-kernel results (launches of phases 4, 6 and
               7, the entry points that launched each kernel, phase 3's times,
               bound and library time at the main-path shape), the card's name
@@ -98,7 +107,8 @@ TRI_N = 49_152
 #: each kernel's time at the phase 3 shapes before its redesign for Hopper,
 #: printed beside the new one (PERF.md's kernel table; not a measurement of
 #: this run, so not in the kernels line)
-PRIOR_MS = {"K2 k=128": 2.8529, "K2 k=32": 2.6395, "K1 fp32": 0.8087}
+PRIOR_MS = {"K2 k=128": 2.8529, "K2 k=32": 2.6395, "K1 fp32": 0.8087,
+            "K1 on Aᵀ": "0.7702 / 0.7821", "K2 on Aᵀ": "1.5371-1.5782", "K2 on Aᵀ k=32": "0.9919-1.0138"}
 
 
 def fail(msg: str) -> None:
@@ -164,19 +174,21 @@ def held_against(C, ref, what: str, rtol=None) -> float:
 
 def counters() -> dict:
     """Every launch counter of the port, by the name it has in the report."""
-    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
+    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel, segments
 
     return {"ell_slab_spmm": ell_kernel.launches, "bsr_spmm": bsr_kernel.launches,
             "ell_slab_spmm_transposed": ell_kernel.transposed_launches,
             "ell_slab_sddmm": ell_kernel.sddmm_launches,
-            "bsr_spmm_transposed": bsr_kernel.transposed_launches}
+            "bsr_spmm_transposed": bsr_kernel.transposed_launches,
+            "segment_sum": segments.launches}
 
 
 def reset_counters() -> None:
-    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
+    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel, segments
 
     ell_kernel.launches = ell_kernel.transposed_launches = ell_kernel.sddmm_launches = 0
     bsr_kernel.launches = bsr_kernel.transposed_launches = 0
+    segments.launches = 0
 
 
 def traced(paths: dict, name: str, fn, tally: dict | None = None):
@@ -609,7 +621,7 @@ def grad_phase(torch, A, E, Ab, A_band, P, view, dev, rng, paths, root) -> dict:
     def bsr_fb():
         return torch.autograd.grad((ops.spmm(Abg, Bk) ** 2).sum(), [Bk, blocks])
 
-    want1 = {"bsr_spmm": 2, "bsr_spmm_transposed": 1, "ell_slab_spmm": 0}
+    want1 = {"bsr_spmm": 1, "bsr_spmm_transposed": 1, "ell_slab_spmm": 0}
     k1a = on_path("ops.spmm(BSR) + backward (B and blocks)", bsr_fb, want1)
     k1b = on_path("ops.spmm(BSR) + backward (B and blocks)", bsr_fb, want1)
     same_bits(k1a, k1b, "ops.spmm(BSR)")
@@ -620,8 +632,8 @@ def grad_phase(torch, A, E, Ab, A_band, P, view, dev, rng, paths, root) -> dict:
     err_k_d = within(k1a[1], pD, 1e-4, "ops.spmm(BSR) grad blocks vs the plain version's gradient")
     ms["bsr fwd+bwd"] = cuda_ms(torch, bsr_fb, iters=5)
     say(f"phase 7a ops.spmm(BSR) k={k}: grad B vs scipy {err_k_sp:.3e}, vs the plain gradient {err_k_pl:.3e}; "
-        f"grad blocks (torch.bmm) vs the plain gradient {err_k_d:.3e} | two backward runs bit-identical | K1 2 "
-        f"launches (1 on the transposed BSR) | forward + backward {ms['bsr fwd+bwd']:.4f} ms")
+        f"grad blocks (torch.bmm) vs the plain gradient {err_k_d:.3e} | two backward runs bit-identical | K1 1 "
+        f"launch, its transposed kernel 1 | forward + backward {ms['bsr fwd+bwd']:.4f} ms")
     del k1a, k1b, pB, pD, Bkp, dp, blocks, Abg
 
     # ---- (b) fp64 on the kernels -------------------------------------------
@@ -678,6 +690,11 @@ def grad_phase(torch, A, E, Ab, A_band, P, view, dev, rng, paths, root) -> dict:
     st = {}
     xs, hist = on_path("examples/cg_solver_torch.cg (ell_spmv, K2 at k=1)",
                       lambda: cg_mod.cg(L, b, iters=200, stats=st))
+    # F6: no atomic sum is left in the product, so a second run gives the same bits
+    xs2, hist2 = on_path("examples/cg_solver_torch.cg (ell_spmv, K2 at k=1)",
+                         lambda: cg_mod.cg(L, b, iters=200))
+    require(np.array_equal(hist, hist2) and np.array_equal(xs, xs2),
+            "cg: two runs give residual histories that differ in their bits")
     bn = float(np.linalg.norm(b))
     res = float(np.linalg.norm(L.to_scipy().astype(np.float64) @ xs.astype(np.float64) - b)) / bn
     rec, first = float(hist[-1]) / bn, float(hist[0]) / bn
@@ -692,7 +709,8 @@ def grad_phase(torch, A, E, Ab, A_band, P, view, dev, rng, paths, root) -> dict:
             f"cg: the recurrence's residual {rec:.3e} and scipy's {res:.3e} part")
     say(f"phase 7c cg: Laplacian system {L.nnz} nnz ({t_L:.1f} ms host), {len(hist)} iterations, residual "
         f"{rec:.3e} of |b| by the recurrence, {res:.3e} by scipy from x (peak {peak:.3e}, after one step "
-        f"{first:.3e}: fell {first / rec:.1f}-fold, at least 10 required) | {st['loop_ms'] / 200:.4f} ms per iteration")
+        f"{first:.3e}: fell {first / rec:.1f}-fold, at least 10 required) | a second run's residual history "
+        f"and x equal in their bits | {st['loop_ms'] / 200:.4f} ms per iteration")
 
     from scipy.sparse.csgraph import shortest_path
 
@@ -744,8 +762,10 @@ def main() -> int:
     from spmm_tpu_torch.native.build import build as build_native
     from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
     from spmm_tpu_torch.ops.ell_spmm import slab_row_keys
+    from spmm_tpu_torch.ops import segments
     from spmm_tpu_torch.ops.roofline import Roofline, detect_chip
-    from spmm_tpu_torch.ops.transform import transpose
+    from spmm_tpu_torch.ops.transform import row_sums, scale_rows, transpose
+    from spmm_tpu_torch.utils.profiling import profile_fn
 
     # the plain versions use batched matmuls: full fp32, as the kernels
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -814,6 +834,10 @@ def main() -> int:
     for name, A_, B_, rtol in (
         ("fp32", Ab, B_band, RTOL_F32),
         ("bf16", dataclasses.replace(Ab, data=Ab.data.bfloat16()), B_band.bfloat16(), RTOL_BF16),
+        # the mixes the reference takes, with no cast of the blocks (the bf16
+        # values are widened alike in the plain version)
+        ("fp32 blocks × bf16 B", Ab, B_band.bfloat16(), RTOL_F32),
+        ("bf16 blocks × fp32 B", dataclasses.replace(Ab, data=Ab.data.bfloat16()), B_band, RTOL_F32),
     ):
         y = ops.spmm(A_, B_)
         ref = bsr_kernel.bsr_spmm_reference(A_, B_)
@@ -824,7 +848,7 @@ def main() -> int:
         plain = cuda_ms(torch, lambda: bsr_kernel.bsr_spmm_reference(A_, B_))
         flops = 2 * Ab.nblocks * bm * bn * 128
         nbytes = A_.data.numel() * A_.data.element_size() + B_.numel() * B_.element_size() + y.numel() * 4
-        b_ms, b_by = bound(nbytes, flops, FP32_FLOPS if name == "fp32" else BF16_FLOPS)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if name == "bf16" else FP32_FLOPS)
         fma_ms = flops / FP32_FLOPS * 1e3  # the kernel's unit: fp32 FMA on the CUDA cores
         line = (f"phase 3 K1 bsr_spmm {name} k=128: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
                 f"(tol {rtol:g}) | kernel {ms:.4f} ms | plain {plain:.4f} ms | bound {b_ms:.4f} ms "
@@ -867,29 +891,35 @@ def main() -> int:
         f"{fma64_ms:.4f} ms, share {fma64_ms / ms:.1%} | library torch.sparse.mm fp64 on the CSR {lib:.4f} ms")
     del Ab64, B64, S_band64, y, ref
 
-    # K1 on the transposed BSR: grad B = Aᵀ · dY, re-blocked at (8, 128)
+    # K1's transposed kernel: grad B = Aᵀ · dY from A's own blocks, read in place
     dY_band = torch.from_numpy(rng.standard_normal((A_band.shape[0], 128)).astype(np.float32)).to(dev)
-    (T_band, _), t_T = host_timed(torch, lambda: bsr_kernel.transposed_bsr(Ab, dev))
+    _, t_T = host_timed(torch, lambda: bsr_kernel._device_transposed_plan(Ab, dev))
     S_band_T = csr_tensor(transpose(A_band))
     g = bsr_kernel.bsr_spmm_transposed(Ab, dY_band)
     ref = bsr_kernel.bsr_spmm_transposed_reference(Ab, dY_band)
     torch.cuda.synchronize()
     err, rel = max_errs(g, ref)
-    require(rel <= RTOL_F32, f"K1 on the transposed BSR differs from its plain version: rel {rel:.3e}")
+    require(rel <= RTOL_F32, f"K1's transposed kernel differs from its plain version: rel {rel:.3e}")
     _, rel_lib = max_errs(g, torch.sparse.mm(S_band_T, dY_band))
-    require(rel_lib <= 1e-4, f"K1 on the transposed BSR differs from cuSPARSE on Aᵀ: {rel_lib:.3e}")
-    ms = cuda_ms(torch, lambda: bsr_kernel.bsr_spmm_transposed(Ab, dY_band))
+    require(rel_lib <= 1e-4, f"K1's transposed kernel differs from cuSPARSE on Aᵀ: {rel_lib:.3e}")
+    ms_t = {}
+    for turn in ("library", "kernel", "kernel", "library"):  # in turns, one card
+        fn = ((lambda: torch.sparse.mm(S_band_T, dY_band)) if turn == "library"
+              else (lambda: bsr_kernel.bsr_spmm_transposed(Ab, dY_band)))
+        ms_t.setdefault(turn, []).append(cuda_ms(torch, fn))
+    ms, lib = min(ms_t["kernel"]), min(ms_t["library"])
     plain = cuda_ms(torch, lambda: bsr_kernel.bsr_spmm_transposed_reference(Ab, dY_band), iters=3)
-    lib = cuda_ms(torch, lambda: torch.sparse.mm(S_band_T, dY_band))
-    flops_T = 2 * T_band.nblocks * bm * bn * 128
-    bT = bound(4 * (T_band.nblocks * bm * bn + dY_band.numel() + g.numel()), flops_T, FP32_FLOPS)
+    flops_T = 2 * Ab.nblocks * bm * bn * 128
+    bT = bound(4 * (Ab.nblocks * bm * bn + dY_band.numel() + g.numel()), flops_T, FP32_FLOPS)
     results["bsr_spmm_transposed"] = entry(err, rel, ms, plain, bT, lib,
                                            "torch.sparse.mm on the transposed CSR (cuSPARSE)")
-    say(f"phase 3 K1 on the transposed BSR fp32 k=128 ({T_band.nblocks} blocks of Aᵀ for {Ab.nblocks} of A; "
-        f"structure built once in {t_T:.1f} ms host; timed: value gather + K1): max_rel_err {rel:.3e} "
-        f"(tol {RTOL_F32:g}), vs cuSPARSE {rel_lib:.3e} | kernel {ms:.4f} ms | plain {plain:.4f} ms | bound "
-        f"{bT[0]:.4f} ms ({bT[1]}; {flops_T / 1e9:.2f} GFLOP), share {bT[0] / ms:.1%} | library "
-        f"torch.sparse.mm on the transposed CSR {lib:.4f} ms")
+    say(f"phase 3 K1 transposed kernel fp32 k=128 (grad B; A's {Ab.nblocks} blocks read in place, "
+        f"plan built once in {t_T:.1f} ms host): max_rel_err {rel:.3e} (tol {RTOL_F32:g}), vs cuSPARSE "
+        f"{rel_lib:.3e} | kernel {ms:.4f} ms (turns {', '.join(f'{t:.4f}' for t in ms_t['kernel'])}) | plain "
+        f"{plain:.4f} ms | bound {bT[0]:.4f} ms ({bT[1]}; {flops_T / 1e9:.2f} GFLOP), share {bT[0] / ms:.1%} | "
+        f"library torch.sparse.mm on the transposed CSR {lib:.4f} ms (turns "
+        f"{', '.join(f'{t:.4f}' for t in ms_t['library'])}): kernel / library {ms / lib:.3f} | the route it "
+        f"replaced (re-blocked Aᵀ, value gather + K1) {PRIOR_MS['K1 on Aᵀ']} ms (PERF.md)")
     # K1's value gradient: one torch.bmm over gathered tiles (a library product, by design)
     gd = bsr_kernel.bsr_data_grad(Ab, dY_band, B_band)
     blocks = rng.choice(Ab.nblocks, 64, replace=False)
@@ -904,7 +934,7 @@ def main() -> int:
     say(f"phase 3 K1 value gradient (torch.bmm over gathered tiles, a library product) k=128: max_abs_err "
         f"{err_gd:.3e} on 64 blocks vs numpy fp64 | {ms_gd:.4f} ms | bound {b_gd[0]:.4f} ms ({b_gd[1]}), "
         f"share {b_gd[0] / ms_gd:.1%}")
-    del S_band_T, g, ref, gd, dY_band
+    del S_band_T, g, ref, gd, dY_band, ms_t
 
     t0 = time.perf_counter()
     A_web = webgraph_like(WEB_N, WEB_NNZ, seed=0)
@@ -971,38 +1001,69 @@ def main() -> int:
         f"| library torch.sparse.mm fp64 on the CSR {lib:.4f} ms")
     del E64d, B64, S_web64, memo64, y, ref
 
+    # grad B of ell_spmm: K2 over the transposed pack with the forward's row
+    # map (dY read at the original rows) and the value index (A's values read
+    # where they are stored), each row of Aᵀ written at its row of the result
     memo = {}
-    T_web, t_T = host_timed(torch, lambda: ell_kernel.transposed_slabs(E.cols, WEB_N, dev))
-    memo[("transposed", dev, WEB_N)] = T_web
+    out_rows_w = perm_slab.to(torch.int32)
+    T_web, t_T = host_timed(torch, lambda: ell_kernel.transposed_slabs(E.cols, WEB_N, dev, out_rows=out_rows_w))
+    memo[("transposed", dev, WEB_N, "rows")] = T_web
     t_slots = sum(int(c.numel()) for c in T_web.cols)
     S_web_T = csr_tensor(transpose(A_web))
     say(f"phase 3 setup: transposed pack built in {t_T:.1f} ms (device sort + host slab plan): "
         f"{len(T_web.cols)} slabs, {T_web.rows} slab rows for {WEB_N} rows of Aᵀ, {t_slots} padded slots, "
         f"{int(T_web.hub_rows.numel())} rows cut into up to {T_web.hub_idx.shape[1]} pieces of "
-        f"{ell_kernel.T_CUT}")
+        f"{ell_kernel.T_CUT} ({T_web.scratch} scratch rows), {int(T_web.empty_rows.numel())} empty rows")
     for k in (128, 32):
         dY = torch.from_numpy(rng.standard_normal((slab_rows, k)).astype(np.float32)).to(dev)
+        # ell_spmm's output gradient: rows in the original order, zero where no slab row lies
         dY_full = torch.zeros((WEB_N, k), device=dev).index_copy_(0, perm_slab, dY)
-        g = ell_kernel.ell_slabs_spmm_transposed(E.cols, E.data, dY, WEB_N, memo=memo)
-        ref = ell_kernel.ell_slabs_spmm_transposed_reference(E.cols, E.data, dY, WEB_N, memo=memo)
+
+        def route():
+            return ell_kernel.ell_slabs_spmm_transposed(E.cols, E.data, dY_full, WEB_N, memo=memo,
+                                                        out_rows=out_rows_w)
+
+        before = counters()
+        g = route()
+        require(counters()["ell_slab_spmm_transposed"] - before["ell_slab_spmm_transposed"] == 1,
+                f"the grad-B route k={k} is not one K2 launch")
+        g2 = route()
+        ref = ell_kernel.ell_slabs_spmm_transposed_reference(E.cols, E.data, dY_full, WEB_N, memo=memo,
+                                                             out_rows=out_rows_w)
         g_lib = torch.sparse.mm(S_web_T, dY_full)
         torch.cuda.synchronize()
+        require(torch.equal(g, g2), f"the grad-B route k={k}: two runs differ in their bits")
         err, rel = max_errs(g, ref)
         require(rel <= RTOL_F32, f"K2 on the transposed pack k={k} differs from its plain version: rel {rel:.3e}")
         _, rel_lib = max_errs(g, g_lib)
         require(rel_lib <= 1e-4, f"K2 on the transposed pack k={k} differs from cuSPARSE on Aᵀ: {rel_lib:.3e}")
-        ms = cuda_ms(torch, lambda: ell_kernel.ell_slabs_spmm_transposed(E.cols, E.data, dY, WEB_N, memo=memo))
+        ms_t = {}
+        for turn in ("library", "kernel", "kernel", "library"):  # in turns, one card
+            fn = (lambda: torch.sparse.mm(S_web_T, dY_full)) if turn == "library" else route
+            ms_t.setdefault(turn, []).append(cuda_ms(torch, fn))
+        ms, lib = min(ms_t["kernel"]), min(ms_t["library"])
         plain = cuda_ms(torch, lambda: ell_kernel.ell_slabs_spmm_transposed_reference(
-            E.cols, E.data, dY, WEB_N, memo=memo), iters=3)
-        lib = cuda_ms(torch, lambda: torch.sparse.mm(S_web_T, dY_full))
-        bT = bound(t_slots * 8 + slab_rows * k * 4 + WEB_N * k * 4, 2 * t_slots * k, FP32_FLOPS)
-        say(f"phase 3 K2 on the transposed pack fp32 k={k} (one launch; timed: value gather + K2 + row "
-            f"gather + the cut rows' sum): max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {RTOL_F32:g}), vs "
-            f"cuSPARSE on Aᵀ {rel_lib:.3e} | kernel {ms:.4f} ms | plain {plain:.4f} ms | bound {bT[0]:.4f} ms "
-            f"({bT[1]}), share {bT[0] / ms:.1%} | library torch.sparse.mm on the transposed CSR {lib:.4f} ms")
+            E.cols, E.data, dY_full, WEB_N, memo=memo, out_rows=out_rows_w), iters=3)
+        # each input once: the pack (cols, value index), A's values, the dY rows; the output
+        nbytes_T = t_slots * 8 + slots * E.data[0].element_size() + slab_rows * k * 4 + WEB_N * k * 4
+        bT = bound(nbytes_T, 2 * t_slots * k, FP32_FLOPS)
+        prior = PRIOR_MS["K2 on Aᵀ" if k == 128 else "K2 on Aᵀ k=32"]
+        say(f"phase 3 K2 on the transposed pack fp32 k={k} (one launch with the row map and the value "
+            f"index; timed: value concatenation + K2 + empty-row fill + the cut rows' join): max_abs_err "
+            f"{err:.3e} max_rel_err {rel:.3e} (tol {RTOL_F32:g}), vs cuSPARSE on Aᵀ {rel_lib:.3e}, two runs "
+            f"bit-identical | route {ms:.4f} ms (turns {', '.join(f'{t:.4f}' for t in ms_t['kernel'])}) | "
+            f"plain {plain:.4f} ms | bound {bT[0]:.4f} ms ({bT[1]}; {nbytes_T / 1e6:.1f} MB), share "
+            f"{bT[0] / ms:.1%} | library torch.sparse.mm on the transposed CSR {lib:.4f} ms (turns "
+            f"{', '.join(f'{t:.4f}' for t in ms_t['library'])}): route / library {ms / lib:.3f} | the "
+            f"route it replaced (value gather + K2 + row gather + join) {prior} ms (PERF.md)")
+        if k == 128:
+            p = profile_fn(route, repeats=3, warm=False)
+            say(f"phase 3 profile, grad-B route k=128 (device ms per call, busy {p.total_device_ms:.4f}): "
+                + profile_line(p, 8))
         if k == 128:
             results["ell_slab_spmm_transposed"] = entry(err, rel, ms, plain, bT, lib,
                                                         "torch.sparse.mm on the transposed CSR (cuSPARSE)")
+            del ms_t
             # K3 on the same dY, against the forward's B
             Bw = torch.from_numpy(rng.standard_normal((WEB_N, k)).astype(np.float32)).to(dev)
             memo3 = {}
@@ -1024,8 +1085,46 @@ def main() -> int:
                 f"bound {b3[0]:.4f} ms ({b3[1]}), share {b3[0] / ms3:.1%} | library torch.sparse.sampled_addmm "
                 f"{lib3:.4f} ms")
             del Bw, out, ref3, Bt
-        del dY, dY_full, g, ref, g_lib
+        del dY, dY_full, g, g2, ref, g_lib
     del S_web, S_web_T, T_web, memo
+
+    # the ordered segment sum (F6) on PageRank's leftover rows: Pᵀ's rows longer
+    # than the pack's max_len, a few hubs holding a quarter of the entries, k = 1
+    d = row_sums(A_web)
+    P = scale_rows(A_web, np.where(d == 0, 0.0, 1.0 / np.maximum(d, 1e-30)))
+    E_pt = ell_pack(transpose(P)).to(dev)
+    rest = E_pt.rest
+    x_pt = torch.from_numpy(rng.random(WEB_N).astype(np.float32)).to(dev)
+    contrib = (x_pt[rest.indices.long()] * rest.data)[:, None].contiguous()
+    seg_plan = importlib.import_module("spmm_tpu_torch.ops.spmm")._rows_plan(rest, dev)
+    seg_ids = segments.boundary_segments(rest.indptr, rest.nnz_pad, dtype=torch.int64)
+    nrest = E_pt.n_rest_rows
+    runs = [segments.segment_sum(contrib, plan=seg_plan) for _ in range(3)]
+    ref = segments.segment_sum_reference(contrib, seg_plan)
+    lib_runs = [torch.zeros((rest.shape[0], 1), device=dev).index_add_(0, seg_ids, contrib) for _ in range(3)]
+    red_runs = [ref] + [segments.segment_sum_reference(contrib, seg_plan) for _ in range(2)]
+    torch.cuda.synchronize()
+    require(all(torch.equal(runs[0], r) for r in runs[1:]), "the ordered sum: three runs differ in their bits")
+    err, rel = max_errs(runs[0], ref)
+    require(rel <= RTOL_F32, f"the ordered-sum kernel differs from its plain version: rel {rel:.3e}")
+    same = lambda rs: all(torch.equal(rs[0], r) for r in rs[1:])
+    ms = cuda_ms(torch, lambda: segments.segment_sum(contrib, plan=seg_plan))
+    plain = cuda_ms(torch, lambda: segments.segment_sum_reference(contrib, seg_plan))
+    lib = cuda_ms(torch, lambda: torch.zeros((rest.shape[0], 1), device=dev).index_add_(0, seg_ids, contrib))
+    spmv_ms = cuda_ms(torch, lambda: ops.ell_spmv(E_pt, x_pt))
+    b_seg = bound(contrib.numel() * 4 + seg_plan.offsets.numel() * 8 + rest.shape[0] * 4, contrib.numel(),
+                  FP32_FLOPS)
+    results["segment_sum"] = entry(err, rel, ms, plain, b_seg, lib,
+                                   "Tensor.index_add_ (the atomic scatter it replaces)")
+    say(f"phase 3 ordered segment sum fp32 k=1 on PageRank's leftover rows ({nrest} rows of Pᵀ, "
+        f"{rest.nnz} entries, the longest {int(np.diff(np.asarray(rest.host().indptr)).max())}): "
+        f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {RTOL_F32:g}), three runs bit-identical | "
+        f"kernel {ms:.4f} ms | plain (torch.segment_reduce) {plain:.4f} ms, three runs "
+        f"{'bit-identical' if same(red_runs) else 'DIFFER in their bits'} | bound {b_seg[0]:.4f} ms "
+        f"({b_seg[1]}), share {b_seg[0] / ms:.1%} | library index_add_ (atomic) {lib:.4f} ms, three runs "
+        f"{'bit-identical' if same(lib_runs) else 'differ in their bits'} | ell_spmv over Pᵀ (one PageRank "
+        f"product, K2 + this sum) {spmv_ms:.4f} ms (with index_add_: 2.5418, PERF.md)")
+    del E_pt, contrib, runs, ref, lib_runs, red_runs, P
 
     # ---- 4. main path ------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1106,7 +1205,11 @@ def main() -> int:
         "ell_slab_spmm_transposed": ("spmm_tpu_torch/csrc/ell_slab_spmm.cu",
                                      f"{k2} (no TPU counterpart: backward of K2, B; K2 on the transposed pack)"),
         "bsr_spmm_transposed": ("spmm_tpu_torch/csrc/bsr_spmm.cu",
-                                f"{k1} (no TPU counterpart: backward of K1, B; K1 on the transposed BSR)"),
+                                f"{k1} (no TPU counterpart: backward of K1, B; bsr_t_kernel, A's blocks read "
+                                "in place)"),
+        "segment_sum": ("spmm_tpu_torch/csrc/segment_sum.cu",
+                        "spmm_tpu/ops/spmm.py:41 (no TPU kernel: the XLA segment_sum of the gather paths, "
+                        "jax.ops.segment_sum; the ordered sum in place of atomic index_add_)"),
     }
     report = [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

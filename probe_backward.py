@@ -6,11 +6,12 @@ on one NVIDIA GPU (CUDA events, mean of 10, through the package's
 route whole, this script times the pieces, at web-Google size
 (``webgraph_like(916_428, 5_105_039, seed=0)``):
 
-1. grad B of the ELL SpMM, ``ops.ell_slabs_spmm_transposed``, at k = 128 and
-   32 and at three cut lengths of the transposed pack's long rows: the whole
-   route, the host's enqueue time, the value gather, K2 alone (in the pack's
-   row-key order and slab by slab), the row gather and the cut rows' sum;
-   then a profile of the route at the shipped cut.
+1. grad B of ``ell_spmm``, ``ops.ell_slabs_spmm_transposed`` with the
+   forward's row map, at k = 128 and 32 and at three cut lengths of the
+   transposed pack's long rows: the whole route, the host's enqueue time,
+   the values' concatenation, K2 alone (with its row map and value index, in
+   the pack's row-key order and slab by slab), the empty rows' fill and the
+   cut rows' join; then a profile of the route at the shipped cut.
 2. one ``ell_spmv`` with PageRank's operator (Pᵀ packed by ``ell_pack``,
    whose rows longer than 2,048 are leftover rows) beside one with A's pack
    (no leftover rows), and a profile of the first.
@@ -112,29 +113,34 @@ def main() -> int:
     n = 916_428
     A = webgraph_like(n, 5_105_039, seed=0)
     E = ell_pack(A).to(dev)
-    rows = sum(c.shape[0] for c in E.cols)
     rng = np.random.default_rng(0)
     shipped = ek.T_CUT
+    out_rows = torch.from_numpy(np.asarray(E.perm)[E.n_empty : n - E.n_rest_rows]).to(dev, torch.int32)
+    key = ("transposed", dev, n, "rows")
     for k in (128, 32) if "grad" in parts else ():
-        dY = torch.from_numpy(rng.standard_normal((rows, k)).astype(np.float32)).to(dev)
+        dY = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(dev)  # ell_spmm's dY
         for cut in (512, shipped, 8192):
-            T = ek.transposed_slabs(E.cols, n, dev, cut=cut)
-            memo = {("transposed", dev, n): T}
-            route = lambda: ek.ell_slabs_spmm_transposed(E.cols, E.data, dY, n, memo=memo)
-            vals, t_memo = T.values(E.data)
-            V = T.rows
-            y = torch.empty((V + 1, k), device=dev)
-            y[V].zero_()
-            print(f"grad B k={k} cut={cut}: {len(T.cols)} slabs, {V} slab rows, {T.hub_rows.numel()} rows "
-                  f"cut into up to {T.hub_idx.shape[1]} pieces | whole route {ms(route):.4f} ms | host "
-                  f"enqueue {host_ms(route):.4f} | value gather {ms(lambda: T.values(E.data)):.4f} | K2 "
-                  f"alone {ms(lambda: ek.ell_slabs_spmm(T.cols, vals, dY, y[:V], memo=t_memo, row_keys=T.row_keys)):.4f} | "
-                  f"K2 alone, slab by slab {ms(lambda: ek.ell_slabs_spmm(T.cols, vals, dY, y[:V]), 3):.4f}"
-                  f" | row gather {ms(lambda: y.index_select(0, T.first)):.4f} | cut rows' sum "
+            T = ek.transposed_slabs(E.cols, n, dev, cut=cut, out_rows=out_rows)
+            memo = {key: T}
+            route = lambda: ek.ell_slabs_spmm_transposed(E.cols, E.data, dY, n, memo=memo, out_rows=out_rows)
+            vals = ek.flat_values(E.data, T.bufs)
+            y = torch.empty((T.out_size, k), device=dev)
+
+            def k2(order=True):
+                ek._k2_launch(T.cols, T.vidx, dY, y, T.memo if order else {}, T.row_keys if order else None,
+                              out_rows=T.out_rows, values=vals)
+
+            print(f"grad B k={k} cut={cut}: {len(T.cols)} slabs, {T.rows} slab rows, {T.hub_rows.numel()} rows "
+                  f"cut into up to {T.hub_idx.shape[1]} pieces ({T.scratch} scratch rows) | whole route "
+                  f"{ms(route):.4f} ms | host enqueue {host_ms(route):.4f} | values' concatenation "
+                  f"{ms(lambda: ek.flat_values(E.data, T.bufs)):.4f} | K2 alone {ms(k2):.4f} | K2 alone, slab by slab "
+                  f"{ms(lambda: k2(False), 3):.4f} | empty rows' fill "
+                  f"{ms(lambda: y[:n].index_fill_(0, T.empty_rows, 0)):.4f} | cut rows' join "
                   f"{ms(lambda: y[T.hub_idx].sum(1)):.4f}", flush=True)
-        T = ek.transposed_slabs(E.cols, n, dev)
-        memo = {("transposed", dev, n): T}
-        print(profile_fn(lambda: ek.ell_slabs_spmm_transposed(E.cols, E.data, dY, n, memo=memo),
+        T = ek.transposed_slabs(E.cols, n, dev, out_rows=out_rows)
+        memo = {key: T}
+        print(profile_fn(lambda: ek.ell_slabs_spmm_transposed(E.cols, E.data, dY, n, memo=memo,
+                                                              out_rows=out_rows),
                          repeats=3).top(8), flush=True)
 
     if "triangles" in parts:

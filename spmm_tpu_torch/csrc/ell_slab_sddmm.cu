@@ -28,6 +28,9 @@
 //   multiplies, and the group adds its lanes by __shfl_xor_sync in a fixed
 //   order -- no atomics, the same bits on every run.  Lane j of the group
 //   writes the batch's entry j.
+// - With K2's optional row map (ROWMAP, a template parameter), the dY row of
+//   slab row r is out_rows[row0_s + r]: ell_spmm's forward writes each slab
+//   row at its original row, so its gradient is read there.
 
 #include "common.cuh"
 
@@ -38,17 +41,17 @@ constexpr int kThreads = 256;
 constexpr int kSlabFields = 6;  // int64 per slab: cols, data, L, R, row0, chunk
 constexpr int kUnroll = 4;      // B-row loads in flight per lane
 
-template <typename TB, typename TA, int VEC, int TPR>
+template <typename TB, typename TA, int VEC, int TPR, bool ROWMAP>
 __global__ void __launch_bounds__(kThreads)
 ell_slabs_sddmm_kernel(const long long* __restrict__ slabs, const int2* __restrict__ items,
                        const long long* __restrict__ slot0, const TA* __restrict__ dY,
-                       const TB* __restrict__ B, TA* __restrict__ out, long long n, long long k) {
+                       const TB* __restrict__ B, TA* __restrict__ out, long long n, long long k,
+                       const int* __restrict__ out_rows) {
   const int2 it = items[blockIdx.x];
   const long long* sl = slabs + static_cast<long long>(kSlabFields) * it.x;
   const int* cols = reinterpret_cast<const int*>(sl[0]);
   const int L = static_cast<int>(sl[2]);
   const long long R = sl[3];
-  const TA* ybase = dY + sl[4] * k;
   const int chunk = static_cast<int>(sl[5]);  // > 0: one row cut over the groups
   TA* obase = out + slot0[it.x];
 
@@ -73,7 +76,9 @@ ell_slabs_sddmm_kernel(const long long* __restrict__ slabs, const int2* __restri
   }
   const bool live = e_end > e_lo;
   const int* rc = cols + r * L;  // dereferenced only for e < e_end
-  const TA* yrow = ybase + r * k;
+  long long yr = sl[4] + r;  // the dY row, read only for a row of the slab
+  if constexpr (ROWMAP) yr = r < R ? out_rows[sl[4] + r] : 0;
+  const TA* yrow = dY + yr * k;
   TA* orow = obase + r * L;
 
   TA y0[VEC];  // the dY row's columns lane * VEC .. + VEC
@@ -133,16 +138,17 @@ ell_slabs_sddmm_kernel(const long long* __restrict__ slabs, const int2* __restri
 }
 
 // VECW: the wide lane layout of the type (4 columns, 2 in fp64); vec is it or 1
-template <typename TB, typename TA, int VECW>
-cudaError_t launch(const long long* slabs, const int2* items, unsigned n_items,
-                   const long long* slot0, const void* dY, const void* B, void* out, long long n,
-                   long long k, int vec, int tpr_log2, cudaStream_t s) {
+template <typename TB, typename TA, int VECW, bool ROWMAP>
+cudaError_t launch_map(const long long* slabs, const int2* items, unsigned n_items,
+                       const long long* slot0, const void* dY, const void* B, void* out,
+                       long long n, long long k, int vec, int tpr_log2, const int* out_rows,
+                       cudaStream_t s) {
   const TA* y = static_cast<const TA*>(dY);
   const TB* b = static_cast<const TB*>(B);
   TA* o = static_cast<TA*>(out);
-#define SPMM_TPU_TORCH_K3(V, T)                                                              \
-  ell_slabs_sddmm_kernel<TB, TA, V, T><<<n_items, kThreads, 0, s>>>(slabs, items, slot0, y, b, \
-                                                                    o, n, k)
+#define SPMM_TPU_TORCH_K3(V, T)                                                   \
+  ell_slabs_sddmm_kernel<TB, TA, V, T, ROWMAP><<<n_items, kThreads, 0, s>>>(        \
+      slabs, items, slot0, y, b, o, n, k, out_rows)
 #define SPMM_TPU_TORCH_K3_TPR(V)                  \
   switch (tpr_log2) {                             \
     case 0: SPMM_TPU_TORCH_K3(V, 1); break;       \
@@ -165,16 +171,28 @@ cudaError_t launch(const long long* slabs, const int2* items, unsigned n_items,
   return cudaGetLastError();
 }
 
+template <typename TB, typename TA, int VECW>
+cudaError_t launch(const long long* slabs, const int2* items, unsigned n_items,
+                   const long long* slot0, const void* dY, const void* B, void* out, long long n,
+                   long long k, int vec, int tpr_log2, const int* out_rows, cudaStream_t s) {
+  if (out_rows)
+    return launch_map<TB, TA, VECW, true>(slabs, items, n_items, slot0, dY, B, out, n, k, vec,
+                                          tpr_log2, out_rows, s);
+  return launch_map<TB, TA, VECW, false>(slabs, items, n_items, slot0, dY, B, out, n, k, vec,
+                                         tpr_log2, out_rows, s);
+}
+
 }  // namespace
 }  // namespace spmm_tpu_torch
 
 // slabs, items: K2's device tables (ops/ell_kernel.py: work_table); slot0
 // (S,) int64: the offset of slab s in the flat output.  dY (rows, k) and out
-// are fp32 for an fp32 or bf16 B and fp64 for an fp64 B.
+// are fp32 for an fp32 or bf16 B and fp64 for an fp64 B.  out_rows (int32,
+// one per slab row, or null): the dY row of each slab row (K2's row map).
 extern "C" int ell_slabs_sddmm_launch(const void* slabs, const void* items, long long n_items,
                                       const void* slot0, const void* dY, const void* B,
                                       int b_dtype, void* out, long long n, long long k, int vec,
-                                      int tpr_log2, void* stream) {
+                                      int tpr_log2, const void* out_rows, void* stream) {
   using namespace spmm_tpu_torch;
   if (n_items <= 0) return 0;
   if (n < 1 || k < 1 || n_items > 0x7fffffff || vec < 1) {
@@ -188,14 +206,15 @@ extern "C" int ell_slabs_sddmm_launch(const void* slabs, const void* items, long
   const int2* it = static_cast<const int2*>(items);
   const long long* s0 = static_cast<const long long*>(slot0);
   const unsigned ni = static_cast<unsigned>(n_items);
+  const int* rows = static_cast<const int*>(out_rows);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (b_dtype == kF32)
-    err = launch<float, float, 4>(sl, it, ni, s0, dY, B, out, n, k, vec, tpr_log2, s);
+    err = launch<float, float, 4>(sl, it, ni, s0, dY, B, out, n, k, vec, tpr_log2, rows, s);
   else if (b_dtype == kBF16)
-    err = launch<__nv_bfloat16, float, 4>(sl, it, ni, s0, dY, B, out, n, k, vec, tpr_log2, s);
+    err = launch<__nv_bfloat16, float, 4>(sl, it, ni, s0, dY, B, out, n, k, vec, tpr_log2, rows, s);
   else if (b_dtype == kF64)
-    err = launch<double, double, 2>(sl, it, ni, s0, dY, B, out, n, k, vec, tpr_log2, s);
+    err = launch<double, double, 2>(sl, it, ni, s0, dY, B, out, n, k, vec, tpr_log2, rows, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

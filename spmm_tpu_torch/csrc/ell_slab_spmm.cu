@@ -51,6 +51,17 @@
 //   L entries cut into chunks over the CTA's groups; the partial sums meet in
 //   shared memory and are added in group order -- no atomics, the same
 //   result on every run.
+// - Two optional maps, a template parameter (MAP) so that the product
+//   without them is the kernel above, load for load:
+//   - out_rows[slab row] (MAP >= 1): the output row the slab row is written
+//     to, in place of row0_s + r.  ell_spmm writes each row of A at its
+//     original row with it (no un-permute gather after the launch, and none
+//     of its atomic backward), and the transposed product writes each row
+//     of A^T at its own row, the pieces of cut rows at scratch rows;
+//   - vidx[slot] (MAP == 2): the slab's value pointer in the table points at
+//     int32 indices into one flat value array (vals), -1 reading zero.  The
+//     transposed pack reads A's values through it where they are stored,
+//     instead of a gather of every value into its own layout per call.
 
 #include "common.cuh"
 
@@ -60,10 +71,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSlabFields = 6;  // int64 per slab: cols, data, L, R, row0, chunk
 
-template <typename TD, typename TB, typename TA, int VEC, int TPR>
+template <typename TD, typename TB, typename TA, int VEC, int TPR, int MAP>
 __global__ void __launch_bounds__(kThreads)
 ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ items,
-                 const TB* __restrict__ B, TA* __restrict__ out, long long n, long long k) {
+                 const TB* __restrict__ B, TA* __restrict__ out, long long n, long long k,
+                 const int* __restrict__ out_rows, const TD* __restrict__ vals) {
   // independent B-row loads in flight per lane: 4 at 16-32 lanes a row (2-4
   // KB of B rows per warp) and at one lane a row (k = 1), 8 at 2-8 lanes --
   // the fastest of 2, 4, 8 and 16 at each lane layout in the repo's
@@ -81,10 +93,9 @@ ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ i
   const int2 it = items[blockIdx.x];
   const long long* sl = slabs + static_cast<long long>(kSlabFields) * it.x;
   const int* cols = reinterpret_cast<const int*>(sl[0]);
-  const TD* data = reinterpret_cast<const TD*>(sl[1]);
+  const TD* data = reinterpret_cast<const TD*>(sl[1]);  // MAP == 2: int32 indices into vals
   const int L = static_cast<int>(sl[2]);
   const long long R = sl[3];
-  TA* obase = out + sl[4] * k;
   const int chunk = static_cast<int>(sl[5]);  // > 0: one row cut over the groups
 
   const int g = threadIdx.x / TPR;
@@ -108,6 +119,11 @@ ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ i
   }
   const int* rc = cols + r * L;  // dereferenced only for e < e_end
   const TD* rd = data + r * L;
+  const int* rv = reinterpret_cast<const int*>(sl[1]) + r * L;
+  // the row this group writes (read only for a row of the slab)
+  long long orow = sl[4] + r;
+  if constexpr (MAP >= 1) orow = r < R ? out_rows[sl[4] + r] : 0;
+  TA* orow_p = out + orow * k;
 
   for (long long u0 = 0; u0 < units; u0 += TPR) {
     const long long u = u0 + lane;
@@ -128,7 +144,12 @@ ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ i
         if (e < e_end) {
           const long long c = rc[e];
           mc[p] = static_cast<int>(c < 0 ? 0 : (c >= n ? n - 1 : c));
-          ma[p] = to_acc<TA>(rd[e]);
+          if constexpr (MAP == 2) {
+            const int vi = rv[e];
+            ma[p] = vi >= 0 ? to_acc<TA>(vals[vi]) : TA(0);
+          } else {
+            ma[p] = to_acc<TA>(rd[e]);
+          }
         }
       }
 #pragma unroll
@@ -163,7 +184,7 @@ ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ i
 
     if (chunk == 0) {
       if (r < R && ucol) {
-        stcs_vec<VEC>(obase + r * k + u * VEC, acc);
+        stcs_vec<VEC>(orow_p + u * VEC, acc);
       }
     } else {
       // part[g][lane * VEC + q]; the first TPR * VEC threads add the
@@ -177,21 +198,20 @@ ell_slabs_kernel(const long long* __restrict__ slabs, const int2* __restrict__ i
         const int used = (L + chunk - 1) / chunk;
         TA s = 0;
         for (int gg = 0; gg < used; ++gg) s += part[gg * TPR * VEC + t];
-        obase[r * k + col] = s;
+        orow_p[col] = s;
       }
       __syncthreads();
     }
   }
 }
 
-// VECW: the wide lane layout of the type (4 columns, 2 in fp64); vec is it or 1
-template <typename TD, typename TB, typename TA, int VECW>
-cudaError_t launch(const long long* slabs, const int2* items, unsigned n_items, const void* B,
-                   void* out, long long n, long long k, int vec, int tpr_log2, cudaStream_t s) {
-  const TB* b = static_cast<const TB*>(B);
-  TA* o = static_cast<TA*>(out);
-#define SPMM_TPU_TORCH_K2(V, T) \
-  ell_slabs_kernel<TD, TB, TA, V, T><<<n_items, kThreads, 0, s>>>(slabs, items, b, o, n, k)
+template <typename TD, typename TB, typename TA, int VECW, int MAP>
+cudaError_t launch_map(const long long* slabs, const int2* items, unsigned n_items, const TB* b,
+                       TA* o, long long n, long long k, int vec, int tpr_log2, const int* out_rows,
+                       const TD* v, cudaStream_t s) {
+#define SPMM_TPU_TORCH_K2(V, T)                                                            \
+  ell_slabs_kernel<TD, TB, TA, V, T, MAP><<<n_items, kThreads, 0, s>>>(slabs, items, b, o, n, k, \
+                                                                      out_rows, v)
 #define SPMM_TPU_TORCH_K2_TPR(V)                  \
   switch (tpr_log2) {                             \
     case 0: SPMM_TPU_TORCH_K2(V, 1); break;       \
@@ -214,20 +234,45 @@ cudaError_t launch(const long long* slabs, const int2* items, unsigned n_items, 
   return cudaGetLastError();
 }
 
+// VECW: the wide lane layout of the type (4 columns, 2 in fp64); vec is it or
+// 1.  MAXMAP: the largest map this type pair is built with (2 only for the
+// transposed product's pairs, whose B is the fp32 / fp64 gradient)
+template <typename TD, typename TB, typename TA, int VECW, int MAXMAP>
+cudaError_t launch(const long long* slabs, const int2* items, unsigned n_items, const void* B,
+                   void* out, long long n, long long k, int vec, int tpr_log2, int map,
+                   const int* out_rows, const void* vals, cudaStream_t s) {
+  const TB* b = static_cast<const TB*>(B);
+  TA* o = static_cast<TA*>(out);
+  const TD* v = static_cast<const TD*>(vals);
+#define SPMM_TPU_TORCH_K2_MAP(M) \
+  launch_map<TD, TB, TA, VECW, M>(slabs, items, n_items, b, o, n, k, vec, tpr_log2, out_rows, v, s)
+  if (map == 0) return SPMM_TPU_TORCH_K2_MAP(0);
+  if (map == 1) return SPMM_TPU_TORCH_K2_MAP(1);
+  if constexpr (MAXMAP == 2) {
+    if (map == 2) return SPMM_TPU_TORCH_K2_MAP(2);
+  }
+#undef SPMM_TPU_TORCH_K2_MAP
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace spmm_tpu_torch
 
 // slabs: (S, 6) int64 device table; items: (n_items, 2) int32 device table
 // (ops/ell_kernel.py: work_table).  vec and tpr_log2 are the lane layout the
 // table was cut for.  out is fp32 for fp32 / bf16 operands and fp64 for fp64
-// data times fp64 B; no other mix is built.
+// data times fp64 B; no other mix is built.  out_rows (int32, one per slab
+// row, or null): the output row of each slab row.  vals (or null; needs
+// out_rows): the flat values the table's value pointers index (int32, -1
+// for zero), of data_dtype; built for fp32 or bf16 values with an fp32 B and
+// for fp64 with fp64.
 extern "C" int ell_slabs_spmm_launch(const void* slabs, const void* items, long long n_items,
                                      int data_dtype, const void* B, int b_dtype, void* out,
                                      long long n, long long k, int vec, int tpr_log2,
-                                     void* stream) {
+                                     const void* out_rows, const void* vals, void* stream) {
   using namespace spmm_tpu_torch;
   if (n_items <= 0 || k <= 0) return 0;
-  if (n < 1 || n_items > 0x7fffffff || vec < 1) {
+  if (n < 1 || n_items > 0x7fffffff || vec < 1 || (vals && !out_rows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (vec > 1 && (k % vec != 0 || reinterpret_cast<uintptr_t>(B) % 16 != 0 ||
@@ -237,19 +282,24 @@ extern "C" int ell_slabs_spmm_launch(const void* slabs, const void* items, long 
   const long long* sl = static_cast<const long long*>(slabs);
   const int2* it = static_cast<const int2*>(items);
   const unsigned ni = static_cast<unsigned>(n_items);
+  const int* rows = static_cast<const int*>(out_rows);
+  const int map = vals ? 2 : (out_rows ? 1 : 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+#define SPMM_TPU_TORCH_K2_CALL(TD, TB, TA, VECW, MAXMAP) \
+  launch<TD, TB, TA, VECW, MAXMAP>(sl, it, ni, B, out, n, k, vec, tpr_log2, map, rows, vals, s)
   if (data_dtype == kF32 && b_dtype == kF32)
-    err = launch<float, float, float, 4>(sl, it, ni, B, out, n, k, vec, tpr_log2, s);
+    err = SPMM_TPU_TORCH_K2_CALL(float, float, float, 4, 2);
   else if (data_dtype == kF32 && b_dtype == kBF16)
-    err = launch<float, __nv_bfloat16, float, 4>(sl, it, ni, B, out, n, k, vec, tpr_log2, s);
+    err = SPMM_TPU_TORCH_K2_CALL(float, __nv_bfloat16, float, 4, 1);
   else if (data_dtype == kBF16 && b_dtype == kF32)
-    err = launch<__nv_bfloat16, float, float, 4>(sl, it, ni, B, out, n, k, vec, tpr_log2, s);
+    err = SPMM_TPU_TORCH_K2_CALL(__nv_bfloat16, float, float, 4, 2);
   else if (data_dtype == kBF16 && b_dtype == kBF16)
-    err = launch<__nv_bfloat16, __nv_bfloat16, float, 4>(sl, it, ni, B, out, n, k, vec, tpr_log2, s);
+    err = SPMM_TPU_TORCH_K2_CALL(__nv_bfloat16, __nv_bfloat16, float, 4, 1);
   else if (data_dtype == kF64 && b_dtype == kF64)
-    err = launch<double, double, double, 2>(sl, it, ni, B, out, n, k, vec, tpr_log2, s);
+    err = SPMM_TPU_TORCH_K2_CALL(double, double, double, 2, 2);
   else
     err = cudaErrorInvalidValue;
+#undef SPMM_TPU_TORCH_K2_CALL
   return static_cast<int>(err);
 }

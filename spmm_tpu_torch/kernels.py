@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 ``nvcc`` compiles every source into one shared library with a plain C
-interface, ``_build/libspmm_tpu_torch_kernels.so``, at the first CUDA launch;
-it is rebuilt only when a source is newer than the library.  The library is
+interface, ``_build/libspmm_tpu_torch_kernels.so``, at the first CUDA launch:
+one ``nvcc -c`` per source, all started together, then one link.  It is
+rebuilt only when a source is newer than the library.  The library is
 loaded with ctypes: every pointer and the stream pass as ``c_void_p``, and
 every C entry returns ``cudaGetLastError()``, on which ``check`` raises.
 
@@ -15,6 +16,8 @@ import ctypes
 import glob
 import os
 import shutil
+import subprocess
+import tempfile
 
 import torch
 
@@ -29,7 +32,7 @@ NVCC_FLAGS = [
 ]
 
 # dtype codes of the C entries
-F32, BF16, F64 = 0, 1, 2
+F32, BF16, F64, I32, I64 = 0, 1, 2, 3, 4
 
 _lib: ctypes.CDLL | None = None
 
@@ -47,11 +50,32 @@ def nvcc() -> str:
     return path
 
 
-def build(force: bool = False) -> str:
-    """Compile ``csrc/*.cu`` into ``LIB`` unless it is newer than every
-    source and header.  Raises with nvcc's output when the compile fails."""
+def build(force: bool = False, *, lib: str = LIB, defines: tuple = ()) -> str:
+    """Compile ``csrc/*.cu`` into ``lib`` unless it is newer than every
+    source and header: each source to an object by its own ``nvcc -c``, all
+    in parallel, then one link.  ``defines``: extra ``-D`` flags (variants
+    built side by side, as ``sweep_k2.py`` does).  Raises with nvcc's output
+    when a compile fails."""
+    srcs = sources()
     headers = glob.glob(os.path.join(CSRC, "*.cuh"))
-    return compile_if_stale(sources(), LIB, [nvcc(), *NVCC_FLAGS], headers=headers, force=force)
+    if os.path.exists(lib) and not force:
+        if os.path.getmtime(lib) >= max(os.path.getmtime(s) for s in [*srcs, *headers]):
+            return lib
+    nv = nvcc()
+    flags = [f for f in NVCC_FLAGS if f != "-shared"] + list(defines)
+    os.makedirs(os.path.dirname(lib), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(lib)) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+        procs = [subprocess.Popen([nv, *flags, "-c", "-o", o, s], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for s, o in zip(srcs, objs)]
+        failed = []
+        for s, p in zip(srcs, procs):
+            out, _ = p.communicate(timeout=900)
+            if p.returncode != 0:
+                failed.append(f"{s}:\n{out}")
+        if failed:
+            raise RuntimeError("build failed: " + "\n".join(failed))
+        return compile_if_stale(objs, lib, [nv, *NVCC_FLAGS], force=True)
 
 
 def load(path: str) -> ctypes.CDLL:
@@ -59,11 +83,15 @@ def load(path: str) -> ctypes.CDLL:
     so = ctypes.CDLL(path)
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     so.bsr_spmm_launch.restype = I
-    so.bsr_spmm_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, LL, I, P]
+    so.bsr_spmm_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, LL, I, P]
+    so.bsr_spmm_t_launch.restype = I
+    so.bsr_spmm_t_launch.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, LL, I, I, I, P]
     so.ell_slabs_spmm_launch.restype = I
-    so.ell_slabs_spmm_launch.argtypes = [P, P, LL, I, P, I, P, LL, LL, I, I, P]
+    so.ell_slabs_spmm_launch.argtypes = [P, P, LL, I, P, I, P, LL, LL, I, I, P, P, P]
     so.ell_slabs_sddmm_launch.restype = I
-    so.ell_slabs_sddmm_launch.argtypes = [P, P, LL, P, P, P, I, P, LL, LL, I, I, P]
+    so.ell_slabs_sddmm_launch.argtypes = [P, P, LL, P, P, P, I, P, LL, LL, I, I, P, P]
+    so.segment_sum_launch.restype = I
+    so.segment_sum_launch.argtypes = [P, P, P, P, I, LL, LL, I, I, P]
     so.cuda_error_string.restype = ctypes.c_char_p
     so.cuda_error_string.argtypes = [I]
     return so

@@ -1,7 +1,7 @@
 """Native (C++) host components, loaded via ctypes.
 
-The same C++ as the JAX package (``spmm_tpu/native/*.cpp``, compiled by path
-into this package's ``_build/`` by ``native/build.py``): the .mtx coordinate
+The same C++ as the JAX package (this package's copies of
+``spmm_tpu/native/*.cpp``, compiled into ``_build/`` by ``native/build.py``): the .mtx coordinate
 parser (reference analog: serial_newblock_clock.cpp:47-124) and the
 preprocessing passes.  Host-only; no device is involved.  Every function
 returns None when the library is unavailable (no sources or no g++) and its

@@ -1,10 +1,10 @@
 """Build the native host library (g++ → ``_build/libspmm_native.so``).
 
-The C++ sources are the JAX package's own (``spmm_tpu/native/mtxparse.cpp``
-and ``preprocess.cpp``: plain C interfaces, no JAX), so both packages share
-one definition of the .mtx parser and the packed format.  They are found
-through ``importlib.util.find_spec``, which locates the ``spmm_tpu`` package
-without executing its ``__init__`` (that would import JAX).  The library is
+The C++ sources, ``mtxparse.cpp`` and ``preprocess.cpp`` beside this file
+(plain C interfaces), are this package's own copies of the JAX package's
+``spmm_tpu/native/`` sources, byte for byte, so both packages read .mtx
+files and build the packed format with one definition
+(``tests/test_torch_formats.py`` holds the copies equal).  The library is
 built into this package's ``_build/`` directory, never beside the sources.
 
 Lazy build on first use; rebuilt only when a source is newer than the
@@ -13,13 +13,14 @@ library.  Concurrent builders write to a temp file and rename atomically.
 
 from __future__ import annotations
 
-import importlib.util
 import os
 import shutil
 import subprocess
 import tempfile
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_HERE)
+SOURCES = tuple(os.path.join(_HERE, f) for f in ("mtxparse.cpp", "preprocess.cpp"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB = os.path.join(BUILD_DIR, "libspmm_native.so")
 
@@ -49,14 +50,8 @@ def compile_if_stale(
 
 
 def sources() -> list[str] | None:
-    """Paths of the shared C++ sources, or None when the JAX package's
-    sources are not on this installation."""
-    spec = importlib.util.find_spec("spmm_tpu")
-    if spec is None or not spec.submodule_search_locations:
-        return None
-    native_dir = os.path.join(list(spec.submodule_search_locations)[0], "native")
-    srcs = [os.path.join(native_dir, f) for f in ("mtxparse.cpp", "preprocess.cpp")]
-    return srcs if all(os.path.exists(s) for s in srcs) else None
+    """Paths of the C++ sources, or None when an installation lacks them."""
+    return list(SOURCES) if all(os.path.exists(s) for s in SOURCES) else None
 
 
 def build(force: bool = False) -> str | None:

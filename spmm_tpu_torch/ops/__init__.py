@@ -28,7 +28,6 @@ from spmm_tpu_torch.ops.bsr_kernel import (
     bsr_spmm_transposed,
     bsr_spmm_transposed_reference,
     bsr_spmv,
-    transposed_bsr,
 )
 from spmm_tpu_torch.ops.blocked import (
     blocked_chain_spmv,
@@ -89,7 +88,6 @@ __all__ = [
     "bsr_spmm_transposed",
     "bsr_spmm_transposed_reference",
     "bsr_data_grad",
-    "transposed_bsr",
     "bsr_spmm",
     "bsr_spmm_reference",
     "bsr_spmm_xla",

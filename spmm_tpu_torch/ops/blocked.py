@@ -10,10 +10,14 @@ rows un-permuted with ``row_inv`` at the end.
   forward (``entry.py``).  Each bucket of equal-length v8 groups is one
   (8G, L) slab, and kernel K2 (``ops/ell_kernel.py``) takes all of them in
   one launch, each into its row range of one output; the leftover rows are
-  a gather + ``index_add_`` stream; one ``index_select`` un-permutes.
+  a gather + ordered segment sum stream; one ``index_select`` un-permutes.
 - ``blocked_spmm_xla`` / ``blocked_spmm_panel`` — per-nonzero gather +
-  ``index_add_`` formulations (single gather from B; two-stage gather through
-  the compacted panel).
+  ordered segment sum formulations (single gather from B; two-stage gather
+  through the compacted panel).
+
+Every sum over rows is the ordered segment sum of ``ops/segments.py`` (its
+order and offsets built once per view and kept on it): the same bits on
+every run, as the JAX package's ``segment_sum``.
 - ``blocked_chain_spmv`` — y = A^iters x through the self-referential
   ``gather_rows`` map (the reference's ``seq_input`` contract).
 
@@ -30,13 +34,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spmm_tpu_torch.formats.containers import BlockedCSR, as_numpy, as_tensor, device_of
+from spmm_tpu_torch.formats.containers import BlockedCSR, as_numpy, as_tensor, device_of, memo_of
 from spmm_tpu_torch.ops.ell_kernel import (
     ell_slabs_spmm_into,
     ell_slabs_spmm_reference,
     table_memo,
 )
-from spmm_tpu_torch.ops.segments import boundary_segments
+from spmm_tpu_torch.ops.segments import (
+    boundary_segments,
+    segment_plan,
+    segment_sum,
+    segment_sum_reference,
+)
 
 
 def _final_out_rows(P: BlockedCSR, device) -> torch.Tensor:
@@ -75,14 +84,29 @@ def blocked_exec_view(P: BlockedCSR):
     """Pack-once execution view ``(out_rows, global_cols)`` per packed
     nonzero, on P's device, reused across multiplies."""
     dev = device_of(P.data)
-    return _final_out_rows(P, dev), _global_cols(P, dev)
+    return SlabView((_final_out_rows(P, dev), _global_cols(P, dev)))
 
 
-def _segment_product(P: BlockedCSR, src: torch.Tensor, cols, out_rows, permute_back: bool, acc):
+def _view_plan(view, ids: torch.Tensor, nseg: int, sorted_ids: bool = False):
+    """The segment plan of ``ids`` over ``nseg`` segments: memoized on
+    ``view`` when it can carry one (a :class:`SlabView`), else built for this
+    call."""
+    memo = memo_of(view, "_segments") if view is not None else None
+    key = (ids.device, nseg, sorted_ids)
+    if memo is not None and key in memo:
+        return memo[key]
+    plan = segment_plan(ids, nseg, indices_are_sorted=sorted_ids)
+    if memo is not None:
+        memo[key] = plan
+    return plan
+
+
+def _segment_product(P: BlockedCSR, src: torch.Tensor, cols, out_rows, permute_back: bool, acc,
+                     view=None):
     dev = src.device
     contrib = src.index_select(0, cols.to(dev)).to(acc) * as_tensor(P.data, dev).to(acc)[:, None]
-    y = torch.zeros((P.nrow, src.shape[1]), dtype=acc, device=dev)
-    y.index_add_(0, out_rows.to(dev), contrib)  # padding: data == 0 contributes nothing
+    # padding: data == 0 contributes nothing
+    y = segment_sum(contrib, plan=_view_plan(view, out_rows.to(dev), P.nrow))
     if not permute_back:
         return y
     return y.index_select(0, as_tensor(P.row_inv, dev).long())
@@ -91,12 +115,12 @@ def _segment_product(P: BlockedCSR, src: torch.Tensor, cols, out_rows, permute_b
 def blocked_spmm_xla(P: BlockedCSR, B: torch.Tensor, *, permute_back: bool = True, view=None,
                      accum_dtype=torch.float32):
     """Y = unpack(P) @ B in ``accum_dtype`` via the packed stream: one gather from B per
-    packed nonzero and an ``index_add_`` into final-order rows (validates the
+    packed nonzero and an ordered segment sum into final-order rows (validates the
     whole format: interleave, relabel, permutations).  Pass
     ``view=blocked_exec_view(P)`` to pack once and multiply many times."""
     dev = B.device
     out_rows, gcols = view if view is not None else (_final_out_rows(P, dev), _global_cols(P, dev))
-    return _segment_product(P, B, gcols, out_rows, permute_back, accum_dtype)
+    return _segment_product(P, B, gcols, out_rows, permute_back, accum_dtype, view)
 
 
 def blocked_panel_view(P: BlockedCSR):
@@ -104,7 +128,7 @@ def blocked_panel_view(P: BlockedCSR):
     gather_cols)``; ``slots`` index the region-concatenated compacted panel
     instead of the full B (reference serial_newblock_clock.cpp:187-204)."""
     dev = device_of(P.data)
-    return _final_out_rows(P, dev), _panel_slots(P, dev), as_tensor(P.gather_cols, dev)
+    return SlabView((_final_out_rows(P, dev), _panel_slots(P, dev), as_tensor(P.gather_cols, dev)))
 
 
 def blocked_spmm_panel(P: BlockedCSR, B: torch.Tensor, *, permute_back: bool = True, view=None,
@@ -118,7 +142,7 @@ def blocked_spmm_panel(P: BlockedCSR, B: torch.Tensor, *, permute_back: bool = T
         else (_final_out_rows(P, dev), _panel_slots(P, dev), as_tensor(P.gather_cols, dev))
     )
     panel = B.index_select(0, gcols.to(dev))  # stage 1
-    return _segment_product(P, panel, slots, out_rows, permute_back, accum_dtype)
+    return _segment_product(P, panel, slots, out_rows, permute_back, accum_dtype, view)
 
 
 def blocked_slab_view(P: BlockedCSR, *, panel: bool = False):
@@ -126,8 +150,8 @@ def blocked_slab_view(P: BlockedCSR, *, panel: bool = False):
     (slot ``base + 8e + r`` holds element e of group-row r) makes each group
     a dense (8, L) tile, so the G groups of one length L form one (8G, L)
     slab in K2's layout: row ``8g + r`` is group g's row r.  Leftover rows
-    (not in a group, empty ones included) become a sorted gather +
-    ``index_add_`` stream; one precomputed gather un-permutes the
+    (not in a group, empty ones included) become a sorted gather + ordered
+    segment sum stream; one precomputed gather un-permutes the
     concatenated parts to original row order.
 
     Returns a :class:`SlabView` ``(buckets, rem, order_map)``:
@@ -196,7 +220,8 @@ class SlabView(tuple):
 
 def _slab_product(B: torch.Tensor, view, plain: bool, acc) -> torch.Tensor:
     """The slab view times B: every bucket through K2 in one call (its plain
-    version when ``plain``), the leftover stream through ``index_add_``."""
+    version when ``plain``), the leftover stream through the ordered segment
+    sum (its plain version when ``plain``)."""
     if len(view) == 4:
         buckets, rem, order_map, gcols = view
         B = B.index_select(0, gcols)  # stage 1: compacted panel
@@ -213,7 +238,8 @@ def _slab_product(B: torch.Tensor, view, plain: bool, acc) -> torch.Tensor:
                             row_keys=getattr(view, "row_keys", None), accum_dtype=acc)
     cols, vals, seg = rem
     contrib = B.index_select(0, cols).to(acc) * vals.to(acc)[:, None]
-    y[off:].zero_().index_add_(0, seg, contrib)
+    plan = _view_plan(view, seg, y.shape[0] - off, sorted_ids=True)
+    y[off:] = segment_sum_reference(contrib, plan) if plain else segment_sum(contrib, plan=plan)
     return y.index_select(0, order_map)
 
 
@@ -221,7 +247,7 @@ def blocked_spmm_slab(P: BlockedCSR, B: torch.Tensor, view, *,
                       accum_dtype=torch.float32) -> torch.Tensor:
     """Y = unpack(P) @ B in ``accum_dtype`` via the v8-slab view (pack once,
     multiply many): one K2 launch over all buckets (its plain version for CPU
-    tensors), the leftover stream through ``index_add_``.  Rows return in
+    tensors), the leftover stream through the ordered segment sum.  Rows return in
     ORIGINAL order.  A 4-element (panel) view stages the compacted RHS panel
     once and every bucket reads it by relabeled slot."""
     return _slab_product(B, view, plain=False, acc=accum_dtype)
@@ -250,11 +276,10 @@ def blocked_chain_spmv(P: BlockedCSR, x: torch.Tensor, iters: int, *,
     # the per-region panel gather composed with the slot gather: one index
     src = as_tensor(P.gather_rows, dev).long()[_panel_slots(P, dev)]
     vals = as_tensor(P.data, dev).to(accum_dtype)
+    plan = segment_plan(out_rows, P.nrow)
     y = x.to(accum_dtype).index_select(0, as_tensor(P.row_perm, dev).long())  # to final order
     for _ in range(iters):
-        y = torch.zeros(P.nrow, dtype=accum_dtype, device=dev).index_add_(
-            0, out_rows, vals * y.index_select(0, src)
-        )
+        y = segment_sum(vals * y.index_select(0, src), plan=plan)
     return y.index_select(0, as_tensor(P.row_inv, dev).long())  # back to original order
 
 

@@ -11,17 +11,24 @@ one-slab call of the same kernel.  The launch follows a work table
 (:func:`work_table`) built on the host once per pack and lane layout, and
 memoized on the container that holds the slabs (:func:`table_memo`).
 
+Two optional maps read inside K2: an output row per slab row
+(:func:`ell_slabs_spmm_mapped`: ``ell_spmm`` writes every row of A at its
+original row, with no un-permute after the launch) and a value index per
+slot into one flat value array (the transposed pack reads A's values where
+they are stored).
+
 Gradients.  The kernels launch through ctypes, which autograd cannot see, so
 on CUDA tensors a product whose B or slab values require grad goes through a
 ``torch.autograd.Function``:
 
 - grad B = Aᵀ · dY is K2 itself over the transposed slabs
   (:func:`transposed_slabs`, built once per pack at the first backward and
-  memoized beside the work table; the values are carried into it per call by
-  one gather, so learnable values stay current).  Rows of Aᵀ longer than
-  ``T_CUT`` are cut into pieces (a web graph's in-degree hubs hold a quarter
-  of its entries) that K2 sums apart and one gather + sum joins -- no
-  atomics, so two backward runs give the same bits;
+  memoized beside the work table).  It reads A's values through the value
+  index (learnable values stay current) and writes each row of Aᵀ at its
+  row of the gradient; rows of Aᵀ longer than ``T_CUT`` are cut into pieces
+  (a web graph's in-degree hubs hold a quarter of its entries) that K2 sums
+  apart into scratch rows and one gather + sum joins -- no atomics, so two
+  backward runs give the same bits;
 - grad data is K3, one launch over the same slab table and work items.
 
 The JAX package has no backward kernel (its gradients are XLA's transposes
@@ -187,12 +194,14 @@ def table_memo(owner) -> dict | None:
 
 
 def _slab_table(cols, data, device, tpr_log2: int, row_keys=None, split_l: int = SPLIT_L) -> SlabTable:
-    """``data`` None: a table without value pointers (K3 reads no value)."""
+    """``data`` None: a table without value pointers (K3 reads no value).
+    ``data`` int32 slabs: value indices into a flat array that K2 is given
+    at launch (its value dtype then comes with the launch)."""
     cols = [as_tensor(c, device) for c in cols]
     if data is not None:
         data = [as_tensor(d, device) for d in data]
         dtypes = {d.dtype for d in data}
-        if len(dtypes) > 1 or not dtypes <= set(_DTYPES):
+        if len(dtypes) > 1 or not dtypes <= {*_DTYPES, torch.int32}:
             raise TypeError(f"ell_slabs_spmm: slab data {sorted(map(str, dtypes))} not one dtype of "
                             "float32, bfloat16, float64")
     for i, c in enumerate(cols):
@@ -220,7 +229,7 @@ def _slab_table(cols, data, device, tpr_log2: int, row_keys=None, split_l: int =
         slabs=torch.from_numpy(host).to(device),
         items=torch.from_numpy(items).to(device),
         slot0=torch.from_numpy(np.cumsum(slots) - slots).to(device),
-        data_code=_DTYPES[data[0].dtype] if data else kernels.F32,
+        data_code=_DTYPES.get(data[0].dtype, kernels.F32) if data else kernels.F32,
         keep=(cols, data),
     )
 
@@ -238,13 +247,24 @@ def _table(cols, data, device, tpr_log2: int, memo, row_keys) -> SlabTable:
 
 
 def ell_slabs_spmm_reference(cols, data, B: torch.Tensor, out: torch.Tensor, *,
-                             accum_dtype=None) -> torch.Tensor:
+                             accum_dtype=None, out_rows=None, values=None) -> torch.Tensor:
     """The plain version of :func:`ell_slabs_spmm`: each slab's
-    :func:`ell_slab_spmm_reference` into its rows of ``out``."""
+    :func:`ell_slab_spmm_reference` into its rows of ``out``.  With K2's
+    maps: ``out_rows`` (one per slab row) the row of ``out`` each slab row
+    goes to, and ``values`` a flat array that ``data`` (int32 slabs) index,
+    -1 reading zero."""
     row = 0
+    if values is not None:
+        flat = torch.cat([values.reshape(-1), values.new_zeros(1)])
     for c, d in zip(cols, data):
         c, d = as_tensor(c, B.device), as_tensor(d, B.device)
-        out[row : row + c.shape[0]] = ell_slab_spmm_reference(c, d, B, accum_dtype=accum_dtype)
+        if values is not None:
+            d = flat[torch.where(d >= 0, d.long(), flat.shape[0] - 1)]
+        y = ell_slab_spmm_reference(c, d, B, accum_dtype=accum_dtype)
+        if out_rows is None:
+            out[row : row + c.shape[0]] = y
+        else:
+            out[out_rows[row : row + c.shape[0]].long()] = y
         row += c.shape[0]
     return out
 
@@ -269,8 +289,11 @@ def _check_cuda_operands(name: str, data_dtype, B: torch.Tensor, acc) -> None:
         raise ValueError(f"{name}: needs n >= 1")
 
 
-def _k2_launch(cols, data, B: torch.Tensor, out: torch.Tensor, memo, row_keys) -> torch.Tensor:
-    """One launch of K2 into ``out`` (validated by the callers)."""
+def _k2_launch(cols, data, B: torch.Tensor, out: torch.Tensor, memo, row_keys, *,
+               out_rows=None, values=None) -> torch.Tensor:
+    """One launch of K2 into ``out`` (validated by the callers); with
+    ``out_rows`` each slab row to its row of ``out``, with ``values`` the
+    int32 ``data`` slabs index that flat array."""
     global launches
     dev, k = B.device, B.shape[1]
     vec, tpr_log2 = lane_layout(k, B.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0,
@@ -280,9 +303,11 @@ def _k2_launch(cols, data, B: torch.Tensor, out: torch.Tensor, memo, row_keys) -
         return out
     launches += 1
     err = kernels.lib().ell_slabs_spmm_launch(
-        table.slabs.data_ptr(), table.items.data_ptr(), table.items.shape[0], table.data_code,
-        B.data_ptr(), _DTYPES[B.dtype], out.data_ptr(), B.shape[0], k, vec, tpr_log2,
-        kernels.stream_ptr(dev),
+        table.slabs.data_ptr(), table.items.data_ptr(), table.items.shape[0],
+        table.data_code if values is None else _DTYPES[values.dtype], B.data_ptr(),
+        _DTYPES[B.dtype], out.data_ptr(), B.shape[0], k, vec, tpr_log2,
+        None if out_rows is None else out_rows.data_ptr(),
+        None if values is None else values.data_ptr(), kernels.stream_ptr(dev),
     )
     kernels.check(err, "ell_slabs_spmm")
     return out
@@ -326,8 +351,8 @@ def ell_slabs_spmm(cols, data, B: torch.Tensor, out: torch.Tensor | None = None,
         if out is not None:
             raise ValueError("ell_slabs_spmm: a product that is recorded for autograd returns its "
                              "own tensor; leave out= out and place the result")
-        call = types.SimpleNamespace(cols=cols, memo=memo, row_keys=row_keys, acc=acc)
-        return _EllSlabsSpmm.apply(B, call, *(as_tensor(d, dev) for d in data))
+        call = types.SimpleNamespace(cols=cols, memo=memo, row_keys=row_keys, acc=acc, out_rows=None)
+        return _EllSlabsSpmm.apply(B, call, None, *(as_tensor(d, dev) for d in data))
     if out is None:
         out = torch.empty((rows, k), dtype=acc, device=dev)
     elif out.device != dev or out.dtype != acc or not out.is_contiguous():
@@ -346,16 +371,64 @@ def ell_slabs_spmm_into(y: torch.Tensor, row0: int, cols, data, B: torch.Tensor,
         ell_slabs_spmm(cols, data, B, y[row0 : row0 + rows], **kw)
 
 
+def ell_slabs_spmm_mapped(cols, data, B: torch.Tensor, out_rows: torch.Tensor, m: int, *,
+                          rest: torch.Tensor | None = None, rest_rows=None, zero_rows=None,
+                          memo: dict | None = None, row_keys=None, accum_dtype=None) -> torch.Tensor:
+    """(m, k): the slabs times B with K2's row map, slab row i written at
+    row ``out_rows[i]`` (int32), the rows ``rest_rows`` taken from ``rest``
+    and the rows ``zero_rows`` zero; together they cover every row once.
+    CUDA tensors: ONE launch of K2 writing straight into the result, an
+    ``index_copy_`` and an ``index_fill_`` (recorded for autograd when B, a
+    slab's values or ``rest`` require grad: grad B then reads dY by these
+    rows, with no gather).  CPU tensors take the plain version."""
+    if B.dim() != 2:
+        raise ValueError("ell_slabs_spmm_mapped: B must be (n, k)")
+    dev, k = B.device, B.shape[1]
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"ell_slabs_spmm_mapped: unsupported device {dev}")
+    data = [as_tensor(d, dev) for d in data]
+    acc = accum_of(data[0].dtype if data else B.dtype, accum_dtype)
+    rows = sum(int(c.shape[0]) for c in cols)
+    if out_rows.shape != (rows,) or out_rows.dtype != torch.int32 or out_rows.device != dev:
+        raise ValueError(f"ell_slabs_spmm_mapped: out_rows must be ({rows},) int32 on {dev}")
+    if dev.type == "cpu":
+        ys = ell_slabs_spmm_reference(cols, data, B, torch.empty((rows, k), dtype=acc), accum_dtype=acc)
+        y = torch.zeros((m, k), dtype=acc).index_copy(0, out_rows.long(), ys)
+        return y if rest is None else y.index_copy(0, rest_rows, rest.to(acc))
+    if data:
+        _check_cuda_operands("ell_slabs_spmm_mapped", data[0].dtype, B, acc)
+    call = types.SimpleNamespace(cols=cols, memo=memo, row_keys=row_keys, acc=acc, out_rows=out_rows,
+                                 m=m, rest_rows=rest_rows, zero_rows=zero_rows)
+    if grad_needed(B, rest, *data):
+        return _EllSlabsSpmm.apply(B, call, rest, *data)
+    return _mapped_forward(call, B, rest, data)
+
+
+def _mapped_forward(call, B, rest, data) -> torch.Tensor:
+    y = torch.empty((call.m, B.shape[1]), dtype=call.acc, device=B.device)
+    if call.zero_rows is not None and call.zero_rows.numel():
+        y.index_fill_(0, call.zero_rows, 0)
+    if rest is not None:
+        y.index_copy_(0, call.rest_rows, rest.to(call.acc))
+    if call.cols:
+        _k2_launch(call.cols, data, B, y, call.memo, call.row_keys, out_rows=call.out_rows)
+    return y
+
+
 class _EllSlabsSpmm(torch.autograd.Function):
     """K2 with its backward: grad B through K2 on the transposed slabs, grad
-    data through K3; only what ``needs_input_grad`` asks for is computed."""
+    data through K3; only what ``needs_input_grad`` asks for is computed.
+    With a row map (``call.out_rows``) the product is the whole (m, k)
+    result of :func:`ell_slabs_spmm_mapped`, ``rest`` its leftover rows."""
 
     @staticmethod
-    def forward(ctx, B, call, *data):
-        rows = sum(int(c.shape[0]) for c in call.cols)
-        out = torch.empty((rows, B.shape[1]), dtype=call.acc, device=B.device)
+    def forward(ctx, B, call, rest, *data):
         ctx.call = call
         ctx.save_for_backward(B, *data)
+        if call.out_rows is not None:
+            return _mapped_forward(call, B, rest, data)
+        rows = sum(int(c.shape[0]) for c in call.cols)
+        out = torch.empty((rows, B.shape[1]), dtype=call.acc, device=B.device)
         return _k2_launch(call.cols, data, B, out, call.memo, call.row_keys)
 
     @staticmethod
@@ -363,17 +436,21 @@ class _EllSlabsSpmm(torch.autograd.Function):
     def backward(ctx, dY):
         B, *data = ctx.saved_tensors
         call = ctx.call
-        dY = dY.contiguous()  # an un-permute's backward hands over strided rows
-        gB = None
+        dY = dY.contiguous()  # a slice's or an un-permute's backward hands over strided rows
+        gB = grest = None
         if ctx.needs_input_grad[0]:
-            gB = ell_slabs_spmm_transposed(call.cols, data, dY, B.shape[0], memo=call.memo)
+            gB = ell_slabs_spmm_transposed(call.cols, data, dY, B.shape[0], memo=call.memo,
+                                           out_rows=call.out_rows)
             gB = gB.to(B.dtype)
+        if ctx.needs_input_grad[2]:
+            grest = dY.index_select(0, call.rest_rows)
         gdata = [None] * len(data)
-        if any(ctx.needs_input_grad[2:]):
-            g = ell_slabs_sddmm(call.cols, dY, B, data=data, memo=call.memo, row_keys=call.row_keys)
+        if any(ctx.needs_input_grad[3:]):
+            g = ell_slabs_sddmm(call.cols, dY, B, data=data, memo=call.memo, row_keys=call.row_keys,
+                                out_rows=call.out_rows)
             gdata = [gi.to(d.dtype) if need else None
-                     for gi, d, need in zip(g, data, ctx.needs_input_grad[2:])]
-        return (gB, None, *gdata)
+                     for gi, d, need in zip(g, data, ctx.needs_input_grad[3:])]
+        return (gB, None, grest, *gdata)
 
 
 # ---- the transposed pack: grad B = Aᵀ · dY as one more K2 launch -------------
@@ -382,27 +459,35 @@ class _EllSlabsSpmm(torch.autograd.Function):
 @dataclasses.dataclass
 class TransposedSlabs:
     """The slabs of Aᵀ for a list of slabs A (rows: A's clipped columns 0 ..
-    n; columns: the rows of the concatenated slabs), structure only.
+    n; columns: the rows of the concatenated slabs, or with the forward's row
+    map the rows it wrote them to), structure only.
 
-    ``cols[t]`` (R_t, L_t) int32 and ``gather`` (Σ R_t·L_t,) int64 -- the
+    ``cols[t]`` (R_t, L_t) int32 and ``vidx[t]`` (R_t, L_t) int32 -- the
     slot of A (in the slabs' concatenated, flattened order) whose value each
-    slot of Aᵀ carries, or ``nslots`` (a zero) for padding -- are all the
-    structure; the values are gathered per call (:meth:`values`).  A row of
-    Aᵀ with more than ``T_CUT`` entries is cut into pieces, each a slab row
-    of its own: the product has one row per piece plus a last zero row, and
-    ``first`` (n,), ``hub_rows`` (H,), ``hub_idx`` (H, J) join them
-    (:func:`ell_slabs_spmm_transposed`).  ``row_keys``: the row of Aᵀ of each
-    slab row, the order K2 runs them in."""
+    slot of Aᵀ carries, or -1 for padding -- are all the structure: K2 reads
+    the values of A's slabs through ``vidx`` on every call.  A row of Aᵀ
+    with more than ``T_CUT`` entries is cut into pieces, each a slab row of
+    its own.  ``out_rows`` (one per slab row, int32) is where K2 writes
+    each: an uncut row of Aᵀ at its own row of the (n, k) result, a piece at
+    a scratch row ``n + j``; ``hub_rows`` (H,) and ``hub_idx`` (H, J, rows
+    of the scratch, padded with the zero row ``n + P``) join the pieces,
+    ``empty_rows`` are the rows of Aᵀ with no entry.  ``row_keys``: the row
+    of Aᵀ of each slab row, the order K2 runs them in; ``memo`` keeps K2's
+    work table over these slabs."""
 
     cols: tuple
-    gather: torch.Tensor
-    nslots: int
-    first: torch.Tensor
+    vidx: tuple
+    out_rows: torch.Tensor
+    n: int
+    scratch: int
+    empty_rows: torch.Tensor
     hub_rows: torch.Tensor
     hub_idx: torch.Tensor
     row_keys: np.ndarray
-    #: per value dtype: the persistent value buffer K2's table points into,
-    #: and the dict that memoizes that table
+    memo: dict = dataclasses.field(default_factory=dict)
+    #: per value dtype, the flat buffer A's values are copied into when they
+    #: are held in more than one tensor, with the copy's sources and targets
+    #: (:func:`flat_values`)
     bufs: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -410,29 +495,20 @@ class TransposedSlabs:
         """Slab rows (pieces) of the pack."""
         return sum(int(c.shape[0]) for c in self.cols)
 
-    def values(self, data) -> tuple:
-        """The values of ``data`` (A's slabs) in this pack's slots, one
-        gather into a buffer kept per dtype (K2's table holds its address),
-        as a tuple of (R_t, L_t) views of it; and that dtype's table memo."""
-        flat = torch.cat([d.reshape(-1) for d in data] + [data[0].new_zeros(1)])
-        if flat.dtype not in self.bufs:
-            buf = torch.empty_like(self.gather, dtype=flat.dtype)
-            views, off = [], 0
-            for c in self.cols:
-                views.append(buf[off : off + c.numel()].view(c.shape))
-                off += c.numel()
-            self.bufs[flat.dtype] = (buf, tuple(views), {})
-        buf, views, memo = self.bufs[flat.dtype]
-        torch.index_select(flat, 0, self.gather, out=buf)
-        return views, memo
+    @property
+    def out_size(self) -> int:
+        """Rows K2 writes into: the n rows of Aᵀ, the scratch rows of the
+        pieces and, when there are pieces, a zero row."""
+        return self.n + self.scratch + (1 if self.scratch else 0)
 
 
-def transposed_slabs(cols, n: int, device, cut: int = T_CUT) -> TransposedSlabs:
+def transposed_slabs(cols, n: int, device, cut: int = T_CUT, out_rows=None) -> TransposedSlabs:
     """The transposed pack of the slabs with columns ``cols`` over n columns,
     on ``device``: the slots' (column, row) pairs are sorted by column there
     (every nnz-scale pass is a torch op), the n-scale slab plan is numpy on
     the host, as in ``ell_pack_device``.  Rows of Aᵀ longer than ``cut`` are
-    cut into pieces of it."""
+    cut into pieces of it.  ``out_rows``: the forward's row map (one row per
+    slab row), which the pack's columns then name instead of slab rows."""
     cols = [as_tensor(c, device) for c in cols]
     row0 = np.cumsum([0] + [int(c.shape[0]) for c in cols])
     rows_all = torch.cat([
@@ -440,9 +516,11 @@ def transposed_slabs(cols, n: int, device, cut: int = T_CUT) -> TransposedSlabs:
         for r0, c in zip(row0, cols)] or [torch.zeros(0, dtype=torch.int64, device=device)])
     cols_all = torch.cat([c.reshape(-1).long().clamp(0, n - 1) for c in cols]
                          or [torch.zeros(0, dtype=torch.int64, device=device)])
-    nslots = int(cols_all.numel())
     order = torch.argsort(cols_all, stable=True)  # slots by row of Aᵀ, then by row of A
-    t_cols = rows_all[order].to(torch.int32)
+    t_cols = rows_all[order]
+    if out_rows is not None:
+        t_cols = as_tensor(out_rows, device).long()[t_cols]
+    t_cols = t_cols.to(torch.int32)
     lens = torch.bincount(cols_all, minlength=n).cpu().numpy().astype(np.int64)
     indptr = np.concatenate([[0], np.cumsum(lens)])
 
@@ -453,125 +531,162 @@ def transposed_slabs(cols, n: int, device, cut: int = T_CUT) -> TransposedSlabs:
     v_j = np.arange(len(v_row), dtype=np.int64) - piece0[v_row]
     v_start = indptr[v_row] + v_j * cut
     v_len = np.minimum(cut, lens[v_row] - v_j * cut)
-    V = len(v_row)
     perm, _, slabs, _ = _slab_plan(v_len, 64, 32, cut)
-    inv = np.empty(V, np.int64)
-    inv[perm] = np.arange(V)
 
     ptr_s = torch.from_numpy(v_start[perm]).to(device)
     len_s = torch.from_numpy(v_len[perm]).to(device)
-    t_slabs, gathers = [], []
+    t_slabs, vidx = [], []
     for L, lo, hi in slabs:
         pos = torch.arange(L, device=device)
         mask = pos[None, :] < len_s[lo:hi, None]
         src = torch.where(mask, ptr_s[lo:hi, None] + pos[None, :], 0)
         t_slabs.append(torch.where(mask, t_cols[src], 0).contiguous())
-        gathers.append(torch.where(mask, order[src], nslots).reshape(-1))
+        vidx.append(torch.where(mask, order[src], -1).to(torch.int32).contiguous())
 
-    first = np.full(n, V, np.int64)  # an empty row reads the zero row
-    live = pieces > 0
-    first[live] = inv[piece0[live]]
-    hub_rows = np.nonzero(pieces > 1)[0]
-    hub_idx = np.full((len(hub_rows), int(pieces.max()) if n else 0), V, np.int64)
-    for h, i in enumerate(hub_rows):  # a few rows: the hubs
-        hub_idx[h, : pieces[i]] = inv[piece0[i] : piece0[i] + pieces[i]]
-    to_dev = lambda a: torch.from_numpy(a).to(device)
+    # where each virtual row lands: an uncut row of Aᵀ at its own row, the
+    # pieces of a cut row at scratch rows n, n + 1, ... in piece order
+    hub = pieces > 1
+    hub_rows = np.nonzero(hub)[0]
+    cut_v = hub[v_row]
+    dest = v_row.copy()
+    P = int(cut_v.sum())
+    dest[cut_v] = n + np.arange(P)
+    hub_idx = np.full((len(hub_rows), int(pieces.max()) if n else 0), n + P, np.int64)
+    scr0 = np.cumsum(pieces[hub_rows]) - pieces[hub_rows]
+    for h, (i, s0) in enumerate(zip(hub_rows, scr0)):  # a few rows: the hubs
+        hub_idx[h, : pieces[i]] = n + s0 + np.arange(pieces[i])
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return TransposedSlabs(
-        cols=tuple(t_slabs),
-        gather=torch.cat(gathers) if gathers else torch.zeros(0, dtype=torch.int64, device=device),
-        nslots=nslots, first=to_dev(first), hub_rows=to_dev(hub_rows), hub_idx=to_dev(hub_idx),
-        row_keys=v_row[perm],
+        cols=tuple(t_slabs), vidx=tuple(vidx), out_rows=to_dev(dest[perm].astype(np.int32)),
+        n=n, scratch=P, empty_rows=to_dev(np.nonzero(pieces == 0)[0]),
+        hub_rows=to_dev(hub_rows), hub_idx=to_dev(hub_idx), row_keys=v_row[perm],
     )
 
 
-def _transposed_of(cols, n: int, device, memo) -> TransposedSlabs:
-    key = ("transposed", device, n)
+def _transposed_of(cols, n: int, device, memo, out_rows=None) -> TransposedSlabs:
+    key = ("transposed", device, n) if out_rows is None else ("transposed", device, n, "rows")
     T = memo.get(key) if memo is not None else None
     if T is None:
-        T = transposed_slabs(cols, n, device)
+        T = transposed_slabs(cols, n, device, out_rows=out_rows)
         if memo is not None:
             memo[key] = T
     return T
 
 
-def _transposed_product(cols, data, dY: torch.Tensor, n: int, memo, product) -> torch.Tensor:
-    """Aᵀ · dY over the transposed pack: ``product(T, vals, t_memo, y)``
-    fills one row of ``y`` per piece; a gather puts the rows in order and a
-    gather + sum joins the pieces of the cut rows, in a fixed order."""
+def flat_values(data, bufs: dict | None = None) -> torch.Tensor:
+    """The values of A's slabs in their concatenated, flattened slot order:
+    what a transposed pack's ``vidx`` indexes.  One slab is its own flat
+    view; several are copied into a buffer by one multi-tensor copy (a
+    ``torch.cat`` of ~100 slabs of unequal sizes ran at a tenth of the
+    card's copy rate).  ``bufs`` keeps, per dtype, the buffer and the
+    copy's sources and targets while the same slab tensors come back (the
+    values of a backward), so that a call costs the host one copy call, not
+    one slice per slab."""
+    if len(data) == 1:
+        return data[0].reshape(-1)
+    ent = (bufs or {}).get(data[0].dtype)
+    if ent is None or len(ent[1]) != len(data) or any(a is not b for a, b in zip(ent[1], data)):
+        flats = [d.detach().reshape(-1) for d in data]
+        buf = flats[0].new_empty(sum(f.numel() for f in flats))
+        ent = (buf, tuple(data), list(torch.split(buf, [f.numel() for f in flats])), flats)
+        if bufs is not None:
+            bufs[data[0].dtype] = ent
+    buf, _, targets, sources = ent
+    torch._foreach_copy_(targets, sources)
+    return buf
+
+
+def _transposed_product(cols, data, dY: torch.Tensor, n: int, memo, product, out_rows=None) -> torch.Tensor:
+    """Aᵀ · dY over the transposed pack: ``product(T, values, y)`` writes
+    each slab row of the pack to its row ``T.out_rows`` of ``y``; the rows
+    of Aᵀ with no entry are filled with zeros and a gather + sum joins the
+    pieces of the cut rows, in a fixed order."""
     dev = dY.device
-    data = [as_tensor(d, dev) for d in data]
+    data = [d if isinstance(d, torch.Tensor) and d.device == dev else as_tensor(d, dev) for d in data]
     if not data or n == 0:
         return torch.zeros((n, dY.shape[1]), dtype=dY.dtype, device=dev)
-    T = _transposed_of(cols, n, dev, memo)
-    vals, t_memo = T.values(data)
-    V = T.rows
-    y = torch.empty((V + 1, dY.shape[1]), dtype=dY.dtype, device=dev)
-    y[V].zero_()
-    product(T, vals, t_memo, y[:V])
-    g = y.index_select(0, T.first)
+    T = _transposed_of(cols, n, dev, memo, out_rows)
+    y = torch.empty((T.out_size, dY.shape[1]), dtype=dY.dtype, device=dev)
+    if T.scratch:
+        y[-1].zero_()
+    product(T, flat_values(data, T.bufs), y)
+    g = y[:n]
+    if T.empty_rows.numel():
+        g.index_fill_(0, T.empty_rows, 0)
     if T.hub_rows.numel():
         g[T.hub_rows] = y[T.hub_idx].sum(1)
     return g
 
 
 def ell_slabs_spmm_transposed_reference(cols, data, dY: torch.Tensor, n: int, *,
-                                        memo: dict | None = None) -> torch.Tensor:
-    """Plain PyTorch (n, k) = Aᵀ · dY: K2's plain version over the same
-    transposed pack as :func:`ell_slabs_spmm_transposed`, on every device."""
+                                        memo: dict | None = None, out_rows=None) -> torch.Tensor:
+    """Plain PyTorch (n, k) = Aᵀ · dY: K2's plain version, with its maps, over
+    the same transposed pack as :func:`ell_slabs_spmm_transposed`, on every
+    device."""
     return _transposed_product(
         cols, data, dY, n, memo,
-        lambda T, vals, _, y: ell_slabs_spmm_reference(T.cols, vals, dY, y, accum_dtype=dY.dtype))
+        lambda T, vals, y: ell_slabs_spmm_reference(T.cols, T.vidx, dY, y, accum_dtype=dY.dtype,
+                                                    out_rows=T.out_rows, values=vals),
+        out_rows)
 
 
 def ell_slabs_spmm_transposed(cols, data, dY: torch.Tensor, n: int, *,
-                              memo: dict | None = None) -> torch.Tensor:
-    """(n, k) = Aᵀ · dY for the slabs A = ``(cols, data)`` over n columns and
-    dY (ΣR, k): the gradient of :func:`ell_slabs_spmm` with respect to B.  On
-    CUDA tensors ONE launch of K2 over the transposed pack (``memo`` keeps
-    its structure; the values are gathered from ``data`` on every call), then
-    a gather that puts the rows in order and a gather + sum that joins the
-    pieces of the cut rows -- no atomics.  CPU tensors take the plain
-    version."""
+                              memo: dict | None = None, out_rows=None) -> torch.Tensor:
+    """(n, k) = Aᵀ · dY for the slabs A = ``(cols, data)`` over n columns:
+    the gradient of :func:`ell_slabs_spmm` with respect to B.  dY is (ΣR, k),
+    or, with the forward's row map ``out_rows``, the (m, k) gradient of
+    :func:`ell_slabs_spmm_mapped`, read at those rows.  On CUDA tensors ONE
+    launch of K2 over the transposed pack (``memo`` keeps its structure),
+    reading A's values through the pack's value index and writing each row
+    of Aᵀ at its row of the result, then an index fill of the empty rows and
+    a gather + sum that joins the pieces of the cut rows -- no atomics.  CPU
+    tensors take the plain version."""
     if dY.device.type == "cpu":
-        return ell_slabs_spmm_transposed_reference(cols, data, dY, n, memo=memo)
+        return ell_slabs_spmm_transposed_reference(cols, data, dY, n, memo=memo, out_rows=out_rows)
 
-    def launch(T, vals, t_memo, y):
+    def launch(T, vals, y):
         global transposed_launches
-        _check_cuda_operands("ell_slabs_spmm_transposed", vals[0].dtype, dY, dY.dtype)
+        _check_cuda_operands("ell_slabs_spmm_transposed", vals.dtype, dY, dY.dtype)
         before = launches
-        _k2_launch(T.cols, vals, dY, y, t_memo, T.row_keys)
+        _k2_launch(T.cols, T.vidx, dY, y, T.memo, T.row_keys, out_rows=T.out_rows, values=vals)
         transposed_launches += launches - before
 
-    return _transposed_product(cols, data, dY, n, memo, launch)
+    return _transposed_product(cols, data, dY, n, memo, launch, out_rows)
 
 
 # ---- K3: grad data, a sampled dense-dense product over the slabs' slots -------
 
 
-def ell_slabs_sddmm_reference(cols, dY: torch.Tensor, B: torch.Tensor) -> tuple:
+def ell_slabs_sddmm_reference(cols, dY: torch.Tensor, B: torch.Tensor, *, out_rows=None) -> tuple:
     """Plain PyTorch ``dData_s[r, e] = Σ_j dY[row0_s + r, j] · B[clip(cols_s[r,
-    e]), j]`` per slab, in dY's dtype."""
+    e]), j]`` per slab, in dY's dtype; with K2's row map the dY row of slab
+    row i is ``out_rows[i]``."""
     out, row = [], 0
     for c in cols:
         c = as_tensor(c, B.device).long().clamp(0, B.shape[0] - 1)
-        y = dY[row : row + c.shape[0]]
+        if out_rows is None:
+            y = dY[row : row + c.shape[0]]
+        else:
+            y = dY[out_rows[row : row + c.shape[0]].long()]
         out.append((y[:, None, :] * B[c].to(dY.dtype)).sum(2))
         row += c.shape[0]
     return tuple(out)
 
 
 def ell_slabs_sddmm(cols, dY: torch.Tensor, B: torch.Tensor, *, data=None,
-                    memo: dict | None = None, row_keys=None) -> tuple:
+                    memo: dict | None = None, row_keys=None, out_rows=None) -> tuple:
     """The gradient of :func:`ell_slabs_spmm` with respect to the slab
     values: per slab an (R_s, L_s) tensor in dY's dtype (views of one flat
     array).  CPU tensors take the plain version; CUDA tensors ONE launch of
     K3 over K2's work table (``memo``, ``row_keys`` and ``data`` as K2's
     wrapper takes them: K3 reads no value, but a table built here is K2's
-    too).  dY is fp32 for an fp32 or bf16 B and fp64 for an fp64 B."""
+    too).  dY is fp32 for an fp32 or bf16 B and fp64 for an fp64 B: (ΣR, k),
+    or with K2's row map ``out_rows`` the (m, k) gradient read at those
+    rows."""
     global sddmm_launches
     dev, k = B.device, B.shape[1]
     if dev.type == "cpu":
-        return ell_slabs_sddmm_reference(cols, dY, B)
+        return ell_slabs_sddmm_reference(cols, dY, B, out_rows=out_rows)
     if dev.type != "cuda":
         raise ValueError(f"ell_slabs_sddmm: unsupported device {dev}")
     want = torch.float64 if B.dtype == torch.float64 else torch.float32
@@ -579,8 +694,11 @@ def ell_slabs_sddmm(cols, dY: torch.Tensor, B: torch.Tensor, *, data=None,
         raise TypeError(f"ell_slabs_sddmm: dY {dY.dtype} with B {B.dtype}: the kernel takes a "
                         "float32 dY with a float32 or bfloat16 B, or float64 for both")
     rows = sum(int(c.shape[0]) for c in cols)
-    if tuple(dY.shape) != (rows, k) or dY.device != dev:
-        raise ValueError(f"ell_slabs_sddmm: dY {tuple(dY.shape)} on {dY.device} != {(rows, k)} on {dev}")
+    want_rows = rows if out_rows is None else dY.shape[0]
+    if tuple(dY.shape) != (want_rows, k) or dY.device != dev:
+        raise ValueError(f"ell_slabs_sddmm: dY {tuple(dY.shape)} on {dY.device} != {(want_rows, k)} on {dev}")
+    if out_rows is not None and (out_rows.shape != (rows,) or out_rows.dtype != torch.int32):
+        raise ValueError(f"ell_slabs_sddmm: out_rows must be ({rows},) int32")
     if not (B.is_contiguous() and dY.is_contiguous()) or B.shape[0] < 1 or k < 1:
         raise ValueError("ell_slabs_sddmm: B and dY must be contiguous, n >= 1 and k >= 1")
     vec, tpr_log2 = lane_layout(k, B.data_ptr() % 16 == 0 and dY.data_ptr() % 16 == 0,
@@ -595,7 +713,8 @@ def ell_slabs_sddmm(cols, dY: torch.Tensor, B: torch.Tensor, *, data=None,
         err = kernels.lib().ell_slabs_sddmm_launch(
             table.slabs.data_ptr(), table.items.data_ptr(), table.items.shape[0],
             table.slot0.data_ptr(), dY.data_ptr(), B.data_ptr(), _DTYPES[B.dtype], flat.data_ptr(),
-            B.shape[0], k, vec, tpr_log2, kernels.stream_ptr(dev),
+            B.shape[0], k, vec, tpr_log2, None if out_rows is None else out_rows.data_ptr(),
+            kernels.stream_ptr(dev),
         )
         kernels.check(err, "ell_slabs_sddmm")
     out, off = [], 0

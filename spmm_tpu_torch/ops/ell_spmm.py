@@ -3,11 +3,14 @@
 
 Kernel K2 (``ops/ell_kernel.py``) takes every length-class slab (R, L) in
 one launch: it gathers the B rows of each slab's columns, weights them by the
-slab values and sums over L, writing straight into the slab's rows of the
-length-sorted output (its work table is memoized on the ELL and walks the
-rows in their original order, for L2 locality); the leftover
-long rows use the gather + ``index_add_`` path (they are few); one gather
-un-permutes to the original row order.
+slab values and sums over L, writing each slab row straight into its row of
+the output in the original row order, through K2's row map (its work table
+is memoized on the ELL and walks the rows in that order, for L2 locality);
+the leftover long rows use the gather + ordered segment sum path (they are
+few) and are placed by one ``index_copy_``, the empty rows by one
+``index_fill_``: no un-permute gather, and so no atomic ``index_add_`` in
+the backward either.  ``permute_back=False`` returns the length-sorted
+order (empty rows, slab rows, leftover rows).
 
 The JAX package's narrow-k widen/fold/select strategies (``PICK_IMPL``) were
 a 128-lane layout device and are not ported: K2 takes any k.
@@ -19,7 +22,7 @@ import torch
 
 from spmm_tpu_torch.formats.containers import as_numpy, as_tensor
 from spmm_tpu_torch.formats.ell import ELL
-from spmm_tpu_torch.ops.ell_kernel import ell_slabs_spmm_into, table_memo
+from spmm_tpu_torch.ops.ell_kernel import ell_slabs_spmm_into, ell_slabs_spmm_mapped, table_memo
 
 
 def slab_row_keys(E: ELL):
@@ -27,6 +30,23 @@ def slab_row_keys(E: ELL):
     since neighbouring rows of a graph share columns and the CTAs in flight
     then share B rows through L2."""
     return as_numpy(E.perm)[E.n_empty : E.shape[0] - E.n_rest_rows]
+
+
+def _row_maps(E: ELL, device):
+    """``(out_rows, rest_rows, zero_rows)`` on ``device``: the original row
+    of each slab row (int32, K2's row map), of each leftover row and of each
+    empty row (int64); memoized beside the ELL's work tables."""
+    memo = table_memo(E)
+    key = ("rows", device)
+    if memo is not None and key in memo:
+        return memo[key]
+    perm = as_tensor(E.perm, device).long()
+    row = E.shape[0] - E.n_rest_rows
+    maps = (perm[E.n_empty : row].to(torch.int32).contiguous(), perm[row:].contiguous(),
+            perm[: E.n_empty].contiguous())
+    if memo is not None:
+        memo[key] = maps
+    return maps
 
 
 def fold_batch(B: torch.Tensor):
@@ -62,16 +82,21 @@ def ell_spmm(E: ELL, B: torch.Tensor, *, accum_dtype=torch.float32,
     B, batch = fold_batch(B)
     dev = B.device
     m = E.shape[0]
+    row = m - E.n_rest_rows
+    rest = spmm_xla(E.rest.to(dev), B, accum_dtype=accum_dtype)[: E.n_rest_rows] if E.n_rest_rows else None
+    if permute_back:
+        out_rows, rest_rows, zero_rows = _row_maps(E, dev)
+        y = ell_slabs_spmm_mapped(E.cols, E.data, B, out_rows, m, rest=rest, rest_rows=rest_rows,
+                                  zero_rows=zero_rows, memo=table_memo(E),
+                                  row_keys=lambda: slab_row_keys(E), accum_dtype=accum_dtype)
+        return unfold_batch(y, batch)
     y = torch.empty((m, B.shape[1]), dtype=accum_dtype, device=dev)
     y[: E.n_empty].zero_()
-    row = m - E.n_rest_rows
     if E.data:
         ell_slabs_spmm_into(y, E.n_empty, E.cols, E.data, B, memo=table_memo(E),
                             row_keys=lambda: slab_row_keys(E), accum_dtype=accum_dtype)
-    if E.n_rest_rows:
-        y[row:] = spmm_xla(E.rest.to(dev), B, accum_dtype=accum_dtype)[: E.n_rest_rows]
-    if permute_back:
-        y = y.index_select(0, as_tensor(E.inv_perm, dev).long())
+    if rest is not None:
+        y[row:] = rest
     return unfold_batch(y, batch)
 
 

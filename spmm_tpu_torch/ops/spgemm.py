@@ -2,7 +2,8 @@
 
 The expand/sort/merge (ESC) algorithm: one gather expands every partial
 product, one stable ``torch.sort`` on a 64-bit ``row * ncol + col`` key orders
-them, and one ``index_add_`` merges duplicates.  The expansion size is
+them, and one ordered segment sum (``ops/segments.py``) merges duplicates,
+the same bits on every run.  The expansion size is
 computed exactly on the host (O(nnz)), and a row-chunked driver bounds the
 device memory of huge products.  ``indptr``/``indices`` of the result are
 exact; data is the sum of the partial products in the values' dtype (integer
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from spmm_tpu_torch.formats.containers import COO, CSR, as_tensor, compute_device, to_csr
-from spmm_tpu_torch.ops.segments import boundary_segments
+from spmm_tpu_torch.ops.segments import SegmentPlan, boundary_segments, segment_sum
 
 _INVALID = torch.iinfo(torch.int64).max
 
@@ -72,7 +73,8 @@ def spgemm_coo_padded(
     first = torch.ones_like(ks, dtype=torch.bool)
     first[1:] = ks[1:] != ks[:-1]
     seg = torch.cumsum(first, 0) - 1
-    vals = torch.zeros(expand_size, dtype=vs.dtype, device=device).index_add_(0, seg, vs)
+    marks = torch.arange(expand_size + 1, device=device)
+    vals = segment_sum(vs, plan=SegmentPlan(torch.searchsorted(seg, marks), None))
     ukey = torch.zeros(expand_size, dtype=torch.int64, device=device).scatter_(0, seg, ks)
     out_nnz = (first & (ks != _INVALID)).sum()
     # scrub the invalid segment (all-invalid keys merge into one slot at out_nnz)

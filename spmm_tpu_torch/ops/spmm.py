@@ -1,8 +1,9 @@
 """SpMM / SpMV — sparse × dense products (port of ``spmm_tpu/ops/spmm.py``).
 
-- ``spmm_xla`` / ``spmv_xla``: plain PyTorch gather + ``index_add_`` (the
-  counterparts of the JAX package's XLA gather + segment-sum paths).  Correct
-  for any CSR, padded or tight.
+- ``spmm_xla`` / ``spmv_xla``: a gather and the ordered segment sum
+  (``ops/segments.py``; the counterparts of the JAX package's XLA gather +
+  segment-sum paths, bit-reproducible as they are).  Correct for any CSR,
+  padded or tight.
 - ``spmm`` / ``spmv``: dispatchers on the input format — ELL (kernel K2), BSR
   (kernel K1), BlockedCSR (``ops/blocked.py``, K2 per v8-group bucket), CSR
   (large CSRs pack to ELL once, memoized per instance).
@@ -29,25 +30,30 @@ from spmm_tpu_torch.formats.ell import ELL, ell_pack, ell_pack_device
 from spmm_tpu_torch.ops.blocked import blocked_spmm
 from spmm_tpu_torch.ops.bsr_kernel import bsr_spmm
 from spmm_tpu_torch.ops.ell_spmm import ell_spmm, ell_spmv, fold_batch, unfold_batch
-from spmm_tpu_torch.ops.segments import boundary_segments
+from spmm_tpu_torch.ops.segments import offsets_plan, segment_sum
 
 
-def _row_ids(A: CSR, device) -> torch.Tensor:
-    return boundary_segments(A.indptr, A.nnz_pad, dtype=torch.int64, device=device)
+def _rows_plan(A: CSR, device):
+    """The segments of A's rows: ``indptr``, the padded nonzeros joining the
+    last row as ``boundary_segments`` puts them (data 0: no change to the
+    sum, the same gradient as the JAX package's)."""
+    off = as_tensor(A.indptr, device).long()
+    if off.numel() > 1:
+        off = torch.cat([off[:-1], off.new_full((1,), A.nnz_pad)])
+    return offsets_plan(off, device)
 
 
 def spmm_xla(A: CSR, B: torch.Tensor, *, accum_dtype=torch.float32) -> torch.Tensor:
-    """Y[m, k] = A[m, n] @ B[n, k] via row gather + ``index_add_``, summed and
-    returned in ``accum_dtype``.  Padded nonzeros (data == 0) contribute
-    nothing, so no masking is needed.  B may be a stack (b, n, k), returned
-    as (b, m, k): the batched form (``vmap`` over B in the JAX package)."""
+    """Y[m, k] = A[m, n] @ B[n, k] via row gather + the ordered segment sum
+    over the rows, summed and returned in ``accum_dtype``, the same bits on
+    every run.  Padded nonzeros (data == 0) contribute nothing, so no masking
+    is needed.  B may be a stack (b, n, k), returned as (b, m, k): the
+    batched form (``vmap`` over B in the JAX package)."""
     B, batch = fold_batch(B)
     dev = B.device
-    rows = _row_ids(A, dev)
     gathered = B.index_select(0, as_tensor(A.indices, dev).long()).to(accum_dtype)
     contrib = gathered * as_tensor(A.data, dev).to(accum_dtype)[:, None]
-    y = torch.zeros((A.shape[0], B.shape[1]), dtype=accum_dtype, device=dev)
-    return unfold_batch(y.index_add_(0, rows, contrib), batch)
+    return unfold_batch(segment_sum(contrib, plan=_rows_plan(A, dev)), batch)
 
 
 def spmv_xla(A: CSR, x: torch.Tensor, *, accum_dtype=torch.float32) -> torch.Tensor:
@@ -86,11 +92,12 @@ def _auto_ell(A) -> bool:
 
 def spmm(A, B: torch.Tensor, **kw) -> torch.Tensor:
     """Dispatch SpMM on the input format: ELL (K2), BSR (K1), BlockedCSR (the
-    v8-slab path, K2 per bucket), CSR (gather + ``index_add_``; CSRs with
-    nnz >= AUTO_ELL_THRESHOLD pack to ELL once and reuse the pack across
-    calls).  Keywords (``accum_dtype``, ...) pass on to the format's entry
-    point; the BSR product sums in the promotion of its block dtype with fp32
-    and takes none."""
+    v8-slab path, K2 per bucket), CSR (gather + ordered segment sum; CSRs
+    with nnz >= AUTO_ELL_THRESHOLD pack to ELL once and reuse the pack
+    across calls).  Keywords pass on to the format's entry point:
+    ``accum_dtype`` and the like; the BSR product takes ``k_tile`` and
+    ``interpret`` (as ``bsr_spmm_pallas``) and sums in fp32, or fp64 for
+    fp64 operands."""
     if isinstance(A, ELL):
         return ell_spmm(A, B, **kw)
     if isinstance(A, BSR):

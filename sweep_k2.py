@@ -31,7 +31,6 @@ import torch
 
 from spmm_tpu_torch import kernels
 from spmm_tpu_torch.formats import ell_pack, webgraph_like
-from spmm_tpu_torch.native.build import compile_if_stale
 from spmm_tpu_torch.ops import ell_kernel
 from spmm_tpu_torch.ops.ell_spmm import slab_row_keys
 
@@ -42,9 +41,7 @@ SPLITS = (32, 64, 128, 1 << 30)
 def _variant(unroll: int) -> str:
     """The kernel library with ``kUnroll`` fixed at ``unroll``."""
     lib = os.path.join(os.path.dirname(kernels.LIB), "sweep", f"unroll{unroll}", "lib.so")
-    return compile_if_stale(kernels.sources(), lib,
-                            [kernels.nvcc(), *kernels.NVCC_FLAGS, f"-DSPMM_K2_UNROLL={unroll}"],
-                            force=True)
+    return kernels.build(force=True, lib=lib, defines=(f"-DSPMM_K2_UNROLL={unroll}",))
 
 
 def heaviest_first_keys(shapes, tpr_log2: int) -> np.ndarray:
@@ -95,7 +92,7 @@ def main() -> int:
             err = so.ell_slabs_spmm_launch(
                 table.slabs.data_ptr(), table.items.data_ptr(), table.items.shape[0],
                 table.data_code, B.data_ptr(), kernels.F32, out.data_ptr(), B.shape[0],
-                B.shape[1], vec, tpr_log2, kernels.stream_ptr(dev))
+                B.shape[1], vec, tpr_log2, None, None, kernels.stream_ptr(dev))
             kernels.check(err, "sweep_k2")
 
         out.fill_(float("nan"))

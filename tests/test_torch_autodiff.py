@@ -329,8 +329,10 @@ def test_transposed_pack_product_matches_dense(cut, k):
 
 @pytest.mark.parametrize("cut", [8, 2048])
 def test_transposed_pack_is_scipys_transpose(cut):
-    """The pack's structure and gathered values, piece by piece, rebuilt as a
-    matrix, equal scipy's ``.T`` of the slab matrix."""
+    """The pack's structure and the values its value index reads, piece by
+    piece, rebuilt as a matrix, equal scipy's ``.T`` of the slab matrix; the
+    row map sends each uncut row to its own row and each piece to a scratch
+    row that the hub join reads."""
     from spmm_tpu_torch.formats import ell_pack
     from spmm_tpu_torch.formats import synthetic as tsyn
 
@@ -338,14 +340,14 @@ def test_transposed_pack_is_scipys_transpose(cut):
     A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 19)[0] * (np.arange(A.nnz_pad) < A.nnz))
     E = ell_pack(A).to("cpu")
     T = ops.transposed_slabs(E.cols, 300, "cpu", cut=cut)
-    vals, _ = T.values(E.data)
+    flat = np.concatenate([np.asarray(d).reshape(-1) for d in E.data] + [[0.0]])
     r, c, v = [], [], []
     row = 0
-    for tc, tv in zip(T.cols, vals):
+    for tc, ti in zip(T.cols, T.vidx):
         R, L = tc.shape
         r.append(np.repeat(T.row_keys[row : row + R], L))
         c.append(tc.numpy().reshape(-1))
-        v.append(tv.numpy().reshape(-1))
+        v.append(flat[ti.numpy().reshape(-1)])  # -1 reads the zero at the end
         row += R
     got = sp.coo_matrix((np.concatenate(v), (np.concatenate(r), np.concatenate(c))),
                         shape=(300, sum(x.shape[0] for x in E.cols))).tocsr()
@@ -355,23 +357,33 @@ def test_transposed_pack_is_scipys_transpose(cut):
     assert (T.hub_rows.numel() > 0) == (cut == 8)
     if cut == 8:
         assert max(int(t.shape[1]) for t in T.cols) <= 8
+    dest, keys = T.out_rows.numpy(), T.row_keys
+    cut_rows = np.isin(keys, T.hub_rows.numpy())
+    np.testing.assert_array_equal(dest[~cut_rows], keys[~cut_rows])
+    assert sorted(dest[cut_rows]) == list(range(300, 300 + T.scratch))
+    assert set(T.hub_idx.numpy().reshape(-1)) <= set(dest[cut_rows]) | {300 + T.scratch}
 
 
 @pytest.mark.parametrize("block_shape", [(8, 128), (16, 64), (3, 32)])
 def test_transposed_bsr_is_scipys_transpose(block_shape):
+    """Aᵀ from A's own blocks: the transposed kernel's plan holds each block
+    of A once, grouped by block column, and the product over it (the plain
+    version here) is scipy's Aᵀ · dY."""
     from spmm_tpu_torch.formats import csr_to_bsr
     from spmm_tpu_torch.formats import synthetic as tsyn
 
     A = tsyn.banded_random(301, 64, 0.4, seed=20)
     Ab = csr_to_bsr(A, block_shape)
-    T, gather = ops.transposed_bsr(Ab)
-    assert T.shape == (301, 301) and T.block_shape == block_shape
-    assert ops.transposed_bsr(Ab)[0] is T  # memoized on the BSR
-    flat = np.concatenate([[0.0], Ab.data.reshape(-1)])
-    Td = dataclasses.replace(T, data=flat[gather.numpy()]).to_dense()
-    np.testing.assert_array_equal(Td, A.to_scipy().T.toarray())
-    # K1's group plan takes it (sorted, distinct block columns per block row)
-    bsr_kernel.group_plan(T.block_indptr.numpy(), T.block_cols.numpy(), block_shape[0])
+    bm, bn = block_shape
+    G, nsub, gptr, ucols, blk = bsr_kernel.transposed_plan(Ab.block_rows, Ab.block_cols,
+                                                           -(-301 // bn), bm, bn)
+    assert sorted(blk[blk >= 0]) == list(range(Ab.nblocks))
+    for g in range(len(gptr) - 1):  # each group's block rows sorted and distinct
+        assert np.all(np.diff(ucols[gptr[g] : gptr[g + 1]]) > 0)
+        for u in range(gptr[g], gptr[g + 1]):
+            for i in np.nonzero(blk[u] >= 0)[0]:
+                b = blk[u, i]
+                assert (Ab.block_rows[b], Ab.block_cols[b]) == (ucols[u], g * G + i)
     dY = rhs(301, 128, 21)
     _close(ops.bsr_spmm_transposed(Ab, torch.from_numpy(dY)).numpy(), A.to_scipy().T @ dY)
 

@@ -392,22 +392,32 @@ def test_k2_on_transposed_pack(cuda, k, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_shape", [(8, 128), (16, 64), (3, 32)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("block_shape", [(8, 128), (16, 64), (3, 32), (4, 256), (8, 6)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, "bf16 blocks", "bf16 dY", torch.bfloat16])
 def test_k1_on_transposed_bsr(cuda, block_shape, dtype):
+    """The transposed kernel, A's own blocks read in place (no re-blocked Aᵀ,
+    no value gather): one launch of it and none of K1, against its plain
+    version (fp32 1e-5, fp64 1e-12, bf16 operands widened alike) and scipy;
+    bn above 128 takes parts of 128 rows, bn = 6 its element-wise staging."""
     A = tsyn.banded_random(1003, 300, 0.3, seed=2, dtype=np.float64)
     Ab = csr_to_bsr(A, block_shape).to(cuda)
-    Ab = dataclasses.replace(Ab, data=Ab.data.to(dtype))
-    dY = torch.from_numpy(rhs(1003, 128, 3)).to(cuda, dtype)
+    ddt = {"bf16 blocks": torch.bfloat16, "bf16 dY": torch.float32}.get(dtype, dtype)
+    ydt = {"bf16 blocks": torch.float32, "bf16 dY": torch.bfloat16}.get(dtype, dtype)
+    Ab = dataclasses.replace(Ab, data=Ab.data.to(ddt))
+    dY = torch.from_numpy(rhs(1003, 256, 3)).to(cuda, ydt)
     n0, t0 = bsr_kernel.launches, bsr_kernel.transposed_launches
     g = ops.bsr_spmm_transposed(Ab, dY)
-    assert bsr_kernel.launches == n0 + 1 and bsr_kernel.transposed_launches == t0 + 1
+    g2 = ops.bsr_spmm_transposed(Ab, dY)
+    assert bsr_kernel.launches == n0 and bsr_kernel.transposed_launches == t0 + 2
+    assert set(Ab.__dict__) & {"_k1_plans", "_k1t_plans"} == {"_k1t_plans"}  # its plan alone, no K1
     ref = ops.bsr_spmm_transposed_reference(Ab, dY)
     torch.cuda.synchronize()
+    assert g.dtype == (torch.float64 if dtype == torch.float64 else torch.float32)
     tol = 1e-12 if dtype == torch.float64 else 1e-5
-    assert _rel(g, ref) <= tol
-    want = A.to_scipy().T @ dY.double().cpu().numpy()
-    assert np.abs(g.cpu().numpy() - want).max() <= (tol if dtype == torch.float64 else 1e-4) * np.abs(want).max()
+    assert _rel(g, ref) <= tol and torch.equal(g, g2)
+    if ddt != torch.bfloat16 and ydt != torch.bfloat16:
+        want = A.to_scipy().T @ dY.double().cpu().numpy()
+        assert np.abs(g.cpu().numpy() - want).max() <= (tol if dtype == torch.float64 else 1e-4) * np.abs(want).max()
 
 
 def _analytic(A, B0):
@@ -598,3 +608,209 @@ def test_backward_bf16_on_card(cuda, form):
     scale = max(float(r.abs().max()) for r in rD)
     for g, r in zip(gD, rD, strict=True):
         assert float((g.float() - r).abs().max()) <= 2e-2 * scale
+
+
+# ---- slice 6: ordered sums (F6), K1's dtype mixes (F7), the maps of K2 / K3 ----
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8, 128, 130, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int64])
+@pytest.mark.parametrize("sort", [True, False])
+def test_segment_sum_kernel_matches_plain(cuda, k, dtype, sort):
+    """The ordered-sum kernel against its plain version (fp32 1e-5, fp64
+    1e-12 of max, integers exact): a segment of 20,000 rows, empty segments,
+    ids out of range; three runs equal in their bits."""
+    from spmm_tpu_torch.ops import segments
+
+    rng = np.random.default_rng(k)
+    ids = rng.integers(-2, 502, 60_000)
+    ids[:20_000] = 7
+    if sort:
+        ids = np.sort(ids)
+    ids_d = torch.from_numpy(ids).to(cuda)
+    data = torch.from_numpy(rng.standard_normal((60_000, k)) * 100).to(cuda, dtype)
+    plan = segments.segment_plan(ids_d, 500, indices_are_sorted=sort)
+    n0 = segments.launches
+    runs = [segments.segment_sum(data, plan=plan) for _ in range(3)]
+    assert segments.launches == n0 + 3
+    ref = segments.segment_sum_reference(data, plan)
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    if dtype == torch.int64:
+        assert torch.equal(runs[0], ref)
+    else:
+        assert _rel(runs[0], ref) <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+def _thrice(fn):
+    """Three runs of ``fn`` on the card, equal in their bits; the first."""
+    runs = [fn() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:]), "runs differ in their bits"
+    return runs[0]
+
+
+@pytest.mark.cuda
+def test_f6_sites_bit_identical_on_card(cuda):
+    """Every product that went through ``index_add_`` (atomic on CUDA): three
+    runs give the same bits, and each is held against scipy (1e-4 of max)."""
+    from spmm_tpu_torch.preprocess import preprocess
+
+    A = tsyn.webgraph_like(20000, 150000, seed=21)
+    S = A.to_scipy().astype(np.float64)
+    B0 = rhs(20000, 64, 22)
+    B = torch.from_numpy(B0).to(cuda)
+    x = B[:, 0].contiguous()
+    close = lambda y, ref: np.abs(y.cpu().numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+    E = ell_pack(A, max_len=128).to(cuda)
+    assert E.n_rest_rows > 0
+    assert close(_thrice(lambda: ops.ell_spmm(E, B)), S @ B0)
+    assert close(_thrice(lambda: ops.ell_spmv(E, x)), S @ B0[:, 0])
+    assert close(_thrice(lambda: ops.spmm_xla(A.pad(8).to(cuda), B)), S @ B0)
+    P = preprocess(A, Config(region_budget=2048, panel_rows=512)).to(cuda)
+    view = ops.blocked_slab_view(P)
+    assert close(_thrice(lambda: ops.blocked_spmm_slab(P, B, view)), S @ B0)
+    assert close(_thrice(lambda: ops.blocked_spmm_xla(P, B, view=ops.blocked_exec_view(P))), S @ B0)
+    assert close(_thrice(lambda: ops.blocked_spmm_panel(P, B)), S @ B0)
+    assert close(_thrice(lambda: ops.blocked_chain_spmv(P, x, 2)), S @ (S @ B0[:, 0]))
+    Ab = tsyn.banded_random(4096, 300, 0.3, seed=23)
+    xb = torch.from_numpy(rhs(1, 4096, 24)[0]).to(cuda)
+    assert close(_thrice(lambda: ops.bsr_spmv(csr_to_bsr(Ab).to(cuda), xb)),
+                 Ab.to_scipy() @ xb.double().cpu().numpy())
+    Av = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 25)[0] * (np.arange(A.nnz_pad) < A.nnz))
+    Cs = [ops.spgemm_sorted(Av, Av, device=cuda) for _ in range(3)]
+    assert all(np.array_equal(np.asarray(Cs[0].data), np.asarray(c.data)) for c in Cs[1:])
+    ref = (Av.to_scipy() @ Av.to_scipy()).tocsr()
+    ref.sort_indices()
+    assert np.abs(np.asarray(Cs[0].data[: Cs[0].nnz]) - ref.data).max() <= 1e-4 * np.abs(ref.data).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_shape", [(8, 128), (16, 64), (3, 32)])
+@pytest.mark.parametrize("mix", [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)])
+def test_k1_dtype_mixes(cuda, block_shape, mix):
+    """fp32 blocks × bf16 B and the reverse, with no cast of the blocks: one
+    launch, fp32 output, against the plain version at 1e-5 (both widen the
+    same bf16 values)."""
+    A = tsyn.banded_random(1000, 300, 0.3, seed=26)
+    Ab = csr_to_bsr(A, block_shape).to(cuda)
+    Ab = dataclasses.replace(Ab, data=Ab.data.to(mix[0]))
+    B = torch.from_numpy(rhs(1000, 256, 27)).to(cuda, mix[1])
+    n0 = bsr_kernel.launches
+    Y = ops.spmm(Ab, B)
+    assert bsr_kernel.launches == n0 + 1 and Y.dtype == torch.float32
+    ref = bsr_kernel.bsr_spmm_reference(Ab, B)
+    torch.cuda.synchronize()
+    assert _rel(Y, ref) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_k1_k_tile(cuda):
+    A = tsyn.banded_random(1000, 300, 0.3, seed=28)
+    Ab = csr_to_bsr(A).to(cuda)
+    B = torch.from_numpy(rhs(1000, 512, 29)).to(cuda)
+    ref = bsr_kernel.bsr_spmm_reference(Ab, B)
+    for tile in (128, 256, 512):
+        assert _rel(ops.spmm(Ab, B, k_tile=tile, interpret=False), ref) <= 1e-5
+    with pytest.raises(ValueError, match="k=384 must be a multiple of k_tile=256"):
+        ops.spmm(Ab, B[:, :384].contiguous(), k_tile=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_k2_k3_row_map_match_plain(cuda, k, dtype):
+    """K2 with its row map (slab rows written at permuted rows) and K3 reading
+    dY through it, against their plain versions; the rows no slab row maps
+    to are left as they were."""
+    cols, data = _k2_slabs(cuda, dtype, 4000, 30 + k)
+    rows = sum(c.shape[0] for c in cols)
+    g = torch.Generator().manual_seed(k)
+    out_rows = (torch.randperm(rows + 50, generator=g)[:rows]).to(torch.int32).to(cuda)
+    bdt = torch.float64 if dtype == torch.float64 else dtype
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    B = torch.randn(4000, k, generator=g, dtype=torch.float64).to(cuda, bdt)
+    n0 = ell_kernel.launches
+    Y = torch.full((rows + 50, k), 7.0, dtype=acc, device=cuda)
+    ell_kernel._k2_launch(cols, data, B, Y, None, None, out_rows=out_rows)
+    assert ell_kernel.launches == n0 + 1
+    ref = torch.full_like(Y, 7.0)
+    ops.ell_slabs_spmm_reference(cols, data, B, ref, accum_dtype=acc, out_rows=out_rows)
+    dY = torch.randn(rows + 50, k, generator=g, dtype=torch.float64).to(cuda, acc)
+    gd = ops.ell_slabs_sddmm(cols, dY, B, data=data, out_rows=out_rows)
+    gr = ell_kernel.ell_slabs_sddmm_reference(cols, dY, B, out_rows=out_rows)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(Y, ref) <= tol
+    scale = max(float(r.abs().max()) for r in gr if r.numel())
+    assert all(float((a - b).abs().max()) <= tol * scale for a, b in zip(gd, gr, strict=True) if b.numel())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_k2_transposed_with_row_map_and_value_index(cuda, k, dtype):
+    """grad B of ``ell_spmm``: one K2 launch over the mapped transposed pack
+    (values read through the value index, dY at the original rows, cut rows'
+    pieces in scratch rows) against its plain version and scipy; repeats
+    bit-identical."""
+    A = tsyn.webgraph_like(20000, 150000, seed=31)
+    E = ell_pack(A, max_len=256).to(cuda)
+    data = [d.to(dtype) for d in E.data]
+    acc = torch.float64 if dtype == torch.float64 else torch.float32
+    dY = torch.randn(20000, k, generator=torch.Generator().manual_seed(k), dtype=torch.float64).to(cuda, acc)
+    perm = E.perm.long()
+    out_rows = perm[E.n_empty : 20000 - E.n_rest_rows].to(torch.int32)
+    T = ops.transposed_slabs(E.cols, 20000, cuda, cut=128, out_rows=out_rows)
+    assert T.scratch > 0 and T.empty_rows.numel() > 0
+    memo = {("transposed", cuda, 20000, "rows"): T}
+    n0, t0 = ell_kernel.launches, ell_kernel.transposed_launches
+    g = ops.ell_slabs_spmm_transposed(E.cols, data, dY, 20000, memo=memo, out_rows=out_rows)
+    g2 = ops.ell_slabs_spmm_transposed(E.cols, data, dY, 20000, memo=memo, out_rows=out_rows)
+    assert ell_kernel.launches == n0 + 2 and ell_kernel.transposed_launches == t0 + 2
+    ref = ops.ell_slabs_spmm_transposed_reference(E.cols, data, dY, 20000, memo=memo, out_rows=out_rows)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert _rel(g, ref) <= tol and torch.equal(g, g2)
+    if dtype != torch.bfloat16:
+        rows = perm.cpu().numpy()[E.n_empty : 20000 - E.n_rest_rows]
+        want = A.to_scipy()[rows].T.astype(np.float64) @ dY.double().cpu().numpy()[rows]
+        assert np.abs(g.double().cpu().numpy() - want).max() <= max(tol, 1e-5) * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_ell_spmm_row_map_on_card(cuda):
+    """``ell_spmm`` writes every row in place: one K2 launch and no gather of
+    the whole output; with grad, one K2 on the transposed pack per backward
+    (none of the forward's gathers in it), the leftover rows' share through
+    the ordered sum; against scipy."""
+    A = tsyn.webgraph_like(20000, 150000, seed=32)
+    E = ell_pack(A, max_len=256).to(cuda)
+    assert E.n_rest_rows > 0 and E.n_empty > 0
+    B0 = rhs(20000, 128, 33)
+    B = torch.from_numpy(B0).to(cuda).requires_grad_()
+    S = A.to_scipy().astype(np.float64)
+    for _ in range(2):
+        c0 = (ell_kernel.launches, ell_kernel.transposed_launches)
+        Y = ops.ell_spmm(E, B)
+        (gB,) = torch.autograd.grad((Y ** 2).sum(), [B])
+        c1 = (ell_kernel.launches, ell_kernel.transposed_launches)
+        assert (c1[0] - c0[0], c1[1] - c0[1]) == (2, 1)
+    ref = S @ B0
+    assert np.abs(Y.detach().cpu().numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    want = 2.0 * (S.T @ ref)
+    assert np.abs(gB.cpu().numpy() - want).max() <= 1e-4 * np.abs(want).max()
+    shapes, real = [], torch.Tensor.index_select
+    def spy(t, *a, **kw):
+        out = real(t, *a, **kw)
+        shapes.append(tuple(out.shape))
+        return out
+
+    torch.Tensor.index_select = spy
+    try:
+        with torch.no_grad():
+            ops.ell_spmm(E, B)
+    finally:
+        torch.Tensor.index_select = real
+    assert (20000, 128) not in shapes  # no un-permute of the output
