@@ -17,12 +17,17 @@ Phases, each printing one line with its times (CUDA events for kernels,
               (web-Google size) in one launch at k=128 and k=32, in fp64 at
               k=128, and over the transposed pack with ``ell_spmm``'s row
               map and the value index (grad B); K3 (the slab values'
-              gradient) at k=128; the ordered segment sum on PageRank's
-              leftover rows (Pᵀ's 75 hub rows at k=1), beside the atomic
-              ``index_add_`` it replaced and ``torch.segment_reduce`` (its
-              bits over three runs printed).  Per kernel and shape:
+              gradient) at k=128 and k=32; the ordered segment sum on
+              PageRank's leftover rows (Pᵀ's 75 hub rows at k=1) and on
+              ``blocked_spmm_slab``'s leftover stream at k=128, beside the
+              atomic ``index_add_`` it replaced and ``torch.segment_reduce``
+              (its bits over three runs printed).  Per kernel and shape:
               max error, kernel / plain / library ms (CUDA events, mean of
-              10; the package's ``utils.timing.measure``), the bound computed
+              10; the package's ``utils.timing.measure``; for K3 and the
+              ordered sum, whose back-to-back calls the host's enqueue can
+              outlast, the kernels line's ``ms`` is the profiler's device
+              time per call, with the events' time and the host's enqueue
+              per call beside it), the bound computed
               from these matrices (``ops.roofline``: bytes at 3.35 TB/s or
               operations at the type's peak, whichever is larger; for K1
               fp32 also the fp32-FMA and the 3xTF32 tensor-core bounds), the
@@ -108,7 +113,9 @@ TRI_N = 49_152
 #: printed beside the new one (PERF.md's kernel table; not a measurement of
 #: this run, so not in the kernels line)
 PRIOR_MS = {"K2 k=128": 2.8529, "K2 k=32": 2.6395, "K1 fp32": 0.8087,
-            "K1 on Aᵀ": "0.7702 / 0.7821", "K2 on Aᵀ": "1.5371-1.5782", "K2 on Aᵀ k=32": "0.9919-1.0138"}
+            "K1 on Aᵀ": "0.7702 / 0.7821", "K2 on Aᵀ": "1.5371-1.5782", "K2 on Aᵀ k=32": "0.9919-1.0138",
+            "K3 k=128": "0.7775 / 0.8962", "K3 k=32": "not measured",
+            "ordered sum Pᵀ": "0.0688 / 0.0826", "ordered sum k=128 stream": "0.21 (profile)"}
 
 
 def fail(msg: str) -> None:
@@ -215,6 +222,74 @@ def launched(paths: dict, name: str, fn, want: dict, tally: dict | None = None):
         got = after[k] - before[k]
         require(got == n, f"{name}: {got} {k} launches, expected {n}")
     return out
+
+
+def device_and_enqueue(torch, fn, repeats: int = 10):
+    """``(device ms, host µs)`` per call of ``fn``: the sum of its kernels'
+    device times under ``torch.profiler`` (``utils.profiling.profile_fn``),
+    and the host's time to enqueue one call, over ``repeats`` calls made
+    back to back with no synchronize.  Back-to-back CUDA events stop
+    measuring a kernel of a few µs once the host's enqueue is slower."""
+    from spmm_tpu_torch.utils.profiling import profile_fn
+
+    prof = profile_fn(fn, repeats=repeats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    enq = (time.perf_counter() - t0) / repeats * 1e6
+    torch.cuda.synchronize()
+    return prof.total_device_ms, enq
+
+
+def ordered_sum_shape(torch, segments, contrib, plan, ids, bound, peak, what: str, prior) -> dict:
+    """The ordered sum on one shape against its plain version taken in fp64
+    (rel 1e-5 of max; the fp32 plain version's distance printed beside),
+    three runs equal in their bits; its CUDA-event time beside the
+    profiler's device time and the host's enqueue per call, the plain
+    version's and ``index_add_``'s (the atomic scatter it replaced), the
+    bound (each input once, the output once).  Prints one line; returns the
+    kernels line's entry."""
+    nseg, k = plan.num_segments, contrib.shape[1]
+    empty = int((plan.offsets[1:] == plan.offsets[:-1]).sum())
+    run = lambda: segments.segment_sum(contrib, plan=plan)
+    lib_run = lambda: torch.zeros((nseg, k), device=contrib.device).index_add_(0, ids, contrib[: ids.numel()])
+    runs = [run() for _ in range(3)]
+    ref = segments.segment_sum_reference(contrib, plan)
+    red_runs = [ref] + [segments.segment_sum_reference(contrib, plan) for _ in range(2)]
+    lib_runs = [lib_run() for _ in range(3)]
+    exact = segments.segment_sum_reference(contrib.double(), plan)  # the plain version in fp64
+    torch.cuda.synchronize()
+    same = lambda rs: all(torch.equal(rs[0], r) for r in rs[1:])
+    require(same(runs), f"the ordered sum {what}: three runs differ in their bits")
+    # held to the plain version in fp64: in fp32, torch.segment_reduce adds a
+    # hub's 345,617 rows one by one and its own rounding reaches ~1e-5 of max
+    err, rel = max_errs(runs[0].double(), exact)
+    require(rel <= RTOL_F32, f"the ordered-sum kernel {what} differs from its plain version in fp64: rel {rel:.3e}")
+    _, rel_ref = max_errs(runs[0], ref)
+    _, rel_ref_exact = max_errs(ref.double(), exact)
+    red_same, lib_same = same(red_runs), same(lib_runs)
+    del runs, red_runs, lib_runs, exact
+    ms = cuda_ms(torch, run)
+    dev_ms, enq = device_and_enqueue(torch, run)
+    plain = cuda_ms(torch, lambda: segments.segment_sum_reference(contrib, plan))
+    lib = cuda_ms(torch, lib_run)
+    nbytes = contrib.numel() * 4 + plan.offsets.numel() * 8 + nseg * k * 4
+    if plan.order is not None:
+        nbytes += plan.order.numel() * 8
+    b = bound(nbytes, contrib.numel(), peak)
+    say(f"phase 3 ordered segment sum {what}, {empty} of its {nseg} segments empty: max_abs_err {err:.3e} "
+        f"max_rel_err {rel:.3e} against the plain "
+        f"version in fp64 (tol {RTOL_F32:g}; the fp32 plain version is {rel_ref_exact:.3e} from it and "
+        f"{rel_ref:.3e} from the kernel), three runs bit-identical | kernel {ms:.4f} ms by CUDA events (profiler: device {dev_ms:.4f} ms per "
+        f"call, host enqueue {enq:.1f} us per call) | plain (torch.segment_reduce) {plain:.4f} ms, three runs "
+        f"{'bit-identical' if red_same else 'DIFFER in their bits'} | bound {b[0]:.4f} ms ({b[1]}; "
+        f"{nbytes / 1e6:.1f} MB), share of the device time {b[0] / dev_ms:.1%} | library index_add_ (atomic) "
+        f"{lib:.4f} ms, three runs {'bit-identical' if lib_same else 'differ in their bits'} | before "
+        f"the redesign {prior} ms (PERF.md)")
+    return dict(max_abs_err=err, max_rel_err=rel, max_rel_err_vs_fp32_plain=rel_ref, ms=dev_ms, plain_ms=plain,
+                bound_ms=b[0], bound_by=b[1], library_ms=lib,
+                library="Tensor.index_add_ (the atomic scatter it replaces)", event_ms=ms, enqueue_us=enq)
 
 
 def profile_line(p, n: int = 6) -> str:
@@ -1063,28 +1138,37 @@ def main() -> int:
         if k == 128:
             results["ell_slab_spmm_transposed"] = entry(err, rel, ms, plain, bT, lib,
                                                         "torch.sparse.mm on the transposed CSR (cuSPARSE)")
-            del ms_t
-            # K3 on the same dY, against the forward's B
-            Bw = torch.from_numpy(rng.standard_normal((WEB_N, k)).astype(np.float32)).to(dev)
-            memo3 = {}
-            out = ell_kernel.ell_slabs_sddmm(E.cols, dY, Bw, data=E.data, memo=memo3, row_keys=keys)
-            ref3 = ell_kernel.ell_slabs_sddmm_reference(E.cols, dY, Bw)
-            torch.cuda.synchronize()
-            scale = max(float(r_.abs().max()) for r_ in ref3)
-            err = max(float((o - r_).abs().max()) for o, r_ in zip(out, ref3))
-            require(err <= RTOL_F32 * scale, f"K3 differs from its plain version: rel {err / scale:.3e}")
-            ms3 = cuda_ms(torch, lambda: ell_kernel.ell_slabs_sddmm(E.cols, dY, Bw, data=E.data, memo=memo3))
-            plain3 = cuda_ms(torch, lambda: ell_kernel.ell_slabs_sddmm_reference(E.cols, dY, Bw), iters=3)
-            Bt = Bw.t()
-            lib3 = cuda_ms(torch, lambda: torch.sparse.sampled_addmm(S_web, dY_full, Bt, beta=0.0))
-            b3 = bound(slots * 8 + distinct * k * 4 + slab_rows * k * 4, 2 * slots * k, FP32_FLOPS)
-            results["ell_slab_sddmm"] = entry(err, err / scale, ms3, plain3, b3, lib3,
-                                              "torch.sparse.sampled_addmm on the CSR pattern (cuSPARSE SDDMM)")
-            say(f"phase 3 K3 ell_slabs_sddmm fp32 k={k} ({len(E.cols)} slabs, one launch): max_abs_err {err:.3e} "
-                f"max_rel_err {err / scale:.3e} (tol {RTOL_F32:g}) | kernel {ms3:.4f} ms | plain {plain3:.4f} ms | "
-                f"bound {b3[0]:.4f} ms ({b3[1]}), share {b3[0] / ms3:.1%} | library torch.sparse.sampled_addmm "
-                f"{lib3:.4f} ms")
-            del Bw, out, ref3, Bt
+        del ms_t
+        # K3 on the same dY, against the forward's B, in ell_spmm's work order
+        Bw = torch.from_numpy(rng.standard_normal((WEB_N, k)).astype(np.float32)).to(dev)
+        memo3 = {}
+        k3 = lambda: ell_kernel.ell_slabs_sddmm(E.cols, dY, Bw, memo=memo3, row_keys=keys)
+        out, out2 = k3(), k3()
+        ref3 = ell_kernel.ell_slabs_sddmm_reference(E.cols, dY, Bw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(out, out2)), f"K3 k={k}: two runs differ in their bits")
+        scale = max(float(r_.abs().max()) for r_ in ref3)
+        err = max(float((o - r_).abs().max()) for o, r_ in zip(out, ref3))
+        require(err <= RTOL_F32 * scale, f"K3 k={k} differs from its plain version: rel {err / scale:.3e}")
+        ms3 = cuda_ms(torch, k3)
+        dev3, enq3 = device_and_enqueue(torch, k3)
+        plain3 = cuda_ms(torch, lambda: ell_kernel.ell_slabs_sddmm_reference(E.cols, dY, Bw), iters=3)
+        Bt = Bw.t()
+        lib3 = cuda_ms(torch, lambda: torch.sparse.sampled_addmm(S_web, dY_full, Bt, beta=0.0))
+        b3 = bound(slots * 8 + distinct * k * 4 + slab_rows * k * 4, 2 * slots * k, FP32_FLOPS)
+        e3 = entry(err, err / scale, dev3, plain3, b3, lib3,
+                   "torch.sparse.sampled_addmm on the CSR pattern (cuSPARSE SDDMM)", event_ms=ms3,
+                   enqueue_us=enq3)
+        if k == 128:
+            results["ell_slab_sddmm"] = e3
+        else:
+            results["ell_slab_sddmm"]["k32"] = e3
+        say(f"phase 3 K3 ell_slabs_sddmm fp32 k={k} ({len(E.cols)} slabs, one launch): max_abs_err {err:.3e} "
+            f"max_rel_err {err / scale:.3e} (tol {RTOL_F32:g}), two runs bit-identical | kernel {ms3:.4f} ms "
+            f"(profiler: device {dev3:.4f} ms per call, host enqueue {enq3:.1f} us per call) | plain "
+            f"{plain3:.4f} ms | bound {b3[0]:.4f} ms ({b3[1]}), share of the device time {b3[0] / dev3:.1%} | library "
+            f"torch.sparse.sampled_addmm {lib3:.4f} ms | before the redesign {PRIOR_MS[f'K3 k={k}']} ms (PERF.md)")
+        del Bw, out, out2, ref3, Bt
         del dY, dY_full, g, g2, ref, g_lib
     del S_web, S_web_T, T_web, memo
 
@@ -1099,32 +1183,33 @@ def main() -> int:
     seg_plan = importlib.import_module("spmm_tpu_torch.ops.spmm")._rows_plan(rest, dev)
     seg_ids = segments.boundary_segments(rest.indptr, rest.nnz_pad, dtype=torch.int64)
     nrest = E_pt.n_rest_rows
-    runs = [segments.segment_sum(contrib, plan=seg_plan) for _ in range(3)]
-    ref = segments.segment_sum_reference(contrib, seg_plan)
-    lib_runs = [torch.zeros((rest.shape[0], 1), device=dev).index_add_(0, seg_ids, contrib) for _ in range(3)]
-    red_runs = [ref] + [segments.segment_sum_reference(contrib, seg_plan) for _ in range(2)]
-    torch.cuda.synchronize()
-    require(all(torch.equal(runs[0], r) for r in runs[1:]), "the ordered sum: three runs differ in their bits")
-    err, rel = max_errs(runs[0], ref)
-    require(rel <= RTOL_F32, f"the ordered-sum kernel differs from its plain version: rel {rel:.3e}")
-    same = lambda rs: all(torch.equal(rs[0], r) for r in rs[1:])
-    ms = cuda_ms(torch, lambda: segments.segment_sum(contrib, plan=seg_plan))
-    plain = cuda_ms(torch, lambda: segments.segment_sum_reference(contrib, seg_plan))
-    lib = cuda_ms(torch, lambda: torch.zeros((rest.shape[0], 1), device=dev).index_add_(0, seg_ids, contrib))
+    r_seg = ordered_sum_shape(torch, segments, contrib, seg_plan, seg_ids, bound, FP32_FLOPS,
+                              f"fp32 k=1 on PageRank's leftover rows ({nrest} rows of Pᵀ, {rest.nnz} entries, "
+                              f"the longest {int(np.diff(np.asarray(rest.host().indptr)).max())})",
+                              PRIOR_MS["ordered sum Pᵀ"])
     spmv_ms = cuda_ms(torch, lambda: ops.ell_spmv(E_pt, x_pt))
-    b_seg = bound(contrib.numel() * 4 + seg_plan.offsets.numel() * 8 + rest.shape[0] * 4, contrib.numel(),
-                  FP32_FLOPS)
-    results["segment_sum"] = entry(err, rel, ms, plain, b_seg, lib,
-                                   "Tensor.index_add_ (the atomic scatter it replaces)")
-    say(f"phase 3 ordered segment sum fp32 k=1 on PageRank's leftover rows ({nrest} rows of Pᵀ, "
-        f"{rest.nnz} entries, the longest {int(np.diff(np.asarray(rest.host().indptr)).max())}): "
-        f"max_abs_err {err:.3e} max_rel_err {rel:.3e} (tol {RTOL_F32:g}), three runs bit-identical | "
-        f"kernel {ms:.4f} ms | plain (torch.segment_reduce) {plain:.4f} ms, three runs "
-        f"{'bit-identical' if same(red_runs) else 'DIFFER in their bits'} | bound {b_seg[0]:.4f} ms "
-        f"({b_seg[1]}), share {b_seg[0] / ms:.1%} | library index_add_ (atomic) {lib:.4f} ms, three runs "
-        f"{'bit-identical' if same(lib_runs) else 'differ in their bits'} | ell_spmv over Pᵀ (one PageRank "
-        f"product, K2 + this sum) {spmv_ms:.4f} ms (with index_add_: 2.5418, PERF.md)")
-    del E_pt, contrib, runs, ref, lib_runs, red_runs, P
+    say(f"phase 3 ell_spmv over Pᵀ (one PageRank product, K2 + the ordered sum) {spmv_ms:.4f} ms "
+        f"(with index_add_: 2.5418, PERF.md)")
+    del E_pt, contrib, P
+    # ... and on blocked_spmm_slab's leftover stream at k = 128 (phase 6's
+    # view of the same graph): 90,780 short segments, rows already sorted
+    from spmm_tpu_torch.config import Config
+    from spmm_tpu_torch.ops.blocked import _view_plan
+    from spmm_tpu_torch.preprocess import preprocess
+
+    P6 = preprocess(A_web, Config()).to(dev)
+    view6 = ops.blocked_slab_view(P6)
+    rem_cols, rem_vals, rem_seg = view6[1]
+    B6 = torch.from_numpy(rng.standard_normal((WEB_N, 128)).astype(np.float32)).to(dev)
+    contrib6 = B6.index_select(0, rem_cols) * rem_vals.float()[:, None]
+    nseg6 = view6[2].shape[0] - sum(int(c.shape[0]) for _, c in view6[0])
+    plan6 = _view_plan(view6, rem_seg, nseg6, sorted_ids=True)
+    r_seg["stream_k128"] = ordered_sum_shape(
+        torch, segments, contrib6, plan6, rem_seg, bound, FP32_FLOPS,
+        f"fp32 k=128 on blocked_spmm_slab's leftover stream ({nseg6} segments, {contrib6.shape[0]} rows)",
+        PRIOR_MS["ordered sum k=128 stream"])
+    results["segment_sum"] = r_seg
+    del P6, view6, B6, contrib6, plan6
 
     # ---- 4. main path ------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:

@@ -91,7 +91,7 @@ def load(path: str) -> ctypes.CDLL:
     so.ell_slabs_sddmm_launch.restype = I
     so.ell_slabs_sddmm_launch.argtypes = [P, P, LL, P, P, P, I, P, LL, LL, I, I, P, P]
     so.segment_sum_launch.restype = I
-    so.segment_sum_launch.argtypes = [P, P, P, P, I, LL, LL, I, I, P]
+    so.segment_sum_launch.argtypes = [P, P, P, P, P, I, LL, LL, LL, I, I, I, I, P]
     so.cuda_error_string.restype = ctypes.c_char_p
     so.cuda_error_string.argtypes = [I]
     return so

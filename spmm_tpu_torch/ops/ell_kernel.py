@@ -29,7 +29,8 @@ on CUDA tensors a product whose B or slab values require grad goes through a
   (a web graph's in-degree hubs hold a quarter of its entries) that K2 sums
   apart into scratch rows and one gather + sum joins -- no atomics, so two
   backward runs give the same bits;
-- grad data is K3, one launch over the same slab table and work items.
+- grad data is K3, one launch over its own slot-major work table
+  (:func:`sddmm_table`), memoized beside K2's.
 
 The JAX package has no backward kernel (its gradients are XLA's transposes
 of the gathers and sums); CPU tensors take the plain versions, which autograd
@@ -80,6 +81,10 @@ SPLIT_L = 64
 SLAB_FIELDS = 6
 #: rows of a transposed pack longer than this are cut into pieces of it
 T_CUT = 2048
+#: K3: slots a lane keeps in flight (a sub-batch) and steps per warp (the
+#: kernel's kSub and kSteps); a warp step is 32 * max(1, K3_SUB // TPR) slots
+K3_SUB = 8
+K3_STEPS = 4
 
 
 def accum_of(data_dtype, accum_dtype=None):
@@ -172,6 +177,45 @@ def table_slots(meta: np.ndarray, items: np.ndarray, tpr_log2: int):
     return tuple(np.concatenate(a) if a else np.zeros(0, np.int64) for a in out)
 
 
+def k3_step(tpr_log2: int) -> int:
+    """Slots one warp of K3 takes per step at ``2**tpr_log2`` lanes a row: 32
+    (one per lane) times the ``K3_SUB // TPR`` units of a group narrower than
+    ``K3_SUB`` lanes."""
+    return 32 * max(1, K3_SUB >> tpr_log2)
+
+
+def sddmm_table(shapes, tpr_log2: int, *, row_keys=None):
+    """K3's work table for slabs of ``shapes`` [(R, L), ...] laid out one after
+    another: slot-major, each CTA a run of ``THREADS // 32 * K3_STEPS *
+    k3_step(tpr_log2)`` consecutive slots (slot = r * L + e) of one slab, its
+    warps a run of ``K3_STEPS`` steps each.  Returns ``meta`` (S, 4) int64 (L,
+    R, row offset, 0) and ``items`` (n_items, 2) int32 (slab, first slot),
+    in the order of each item's first row's key when ``row_keys`` (one per
+    row of the concatenated slabs) is given."""
+    per_cta = THREADS // 32 * K3_STEPS * k3_step(tpr_log2)
+    meta = np.zeros((len(shapes), 4), np.int64)
+    item_slab, item_slot = [], []
+    row0 = 0
+    for s, (R, L) in enumerate(shapes):
+        R, L = int(R), int(L)
+        if R * L >= 2**31:
+            raise ValueError(f"ell_slabs_sddmm: a slab of {R * L} slots (at most 2**31 - 1)")
+        meta[s] = (L, R, row0, 0)
+        starts = np.arange(0, R * L, per_cta, dtype=np.int64)
+        item_slab.append(np.full(len(starts), s, np.int32))
+        item_slot.append(starts)
+        row0 += R
+    if not shapes:
+        return meta, np.zeros((0, 2), np.int32)
+    slab = np.concatenate(item_slab)
+    slot = np.concatenate(item_slot)
+    items = np.stack([slab, slot.astype(np.int32)], 1)
+    if row_keys is not None:
+        first_row = meta[slab, 2] + slot // np.maximum(meta[slab, 0], 1)
+        items = items[np.argsort(np.asarray(row_keys)[first_row], kind="stable")]
+    return meta, np.ascontiguousarray(items, np.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class SlabTable:
     """The device form of one work table: the (S, 6) int64 slab table
@@ -193,10 +237,12 @@ def table_memo(owner) -> dict | None:
     return memo_of(owner, "_k2_tables")
 
 
-def _slab_table(cols, data, device, tpr_log2: int, row_keys=None, split_l: int = SPLIT_L) -> SlabTable:
+def _slab_table(cols, data, device, tpr_log2: int, row_keys=None, split_l: int = SPLIT_L,
+                sddmm: bool = False) -> SlabTable:
     """``data`` None: a table without value pointers (K3 reads no value).
     ``data`` int32 slabs: value indices into a flat array that K2 is given
-    at launch (its value dtype then comes with the launch)."""
+    at launch (its value dtype then comes with the launch).  ``sddmm``: K3's
+    slot-major items (:func:`sddmm_table`) in place of K2's."""
     cols = [as_tensor(c, device) for c in cols]
     if data is not None:
         data = [as_tensor(d, device) for d in data]
@@ -217,8 +263,11 @@ def _slab_table(cols, data, device, tpr_log2: int, row_keys=None, split_l: int =
         raise ValueError(f"ell_slabs_spmm: {len(data)} data slabs for {len(cols)} cols slabs")
     if callable(row_keys):
         row_keys = row_keys()
-    meta, items = work_table([(c.shape[0], c.shape[1]) for c in cols], tpr_log2, row_keys=row_keys,
-                             split_l=split_l)
+    shapes = [(c.shape[0], c.shape[1]) for c in cols]
+    if sddmm:
+        meta, items = sddmm_table(shapes, tpr_log2, row_keys=row_keys)
+    else:
+        meta, items = work_table(shapes, tpr_log2, row_keys=row_keys, split_l=split_l)
     host = np.zeros((len(cols), SLAB_FIELDS), np.int64)
     host[:, 0] = [c.data_ptr() for c in cols]
     if data is not None:
@@ -234,13 +283,13 @@ def _slab_table(cols, data, device, tpr_log2: int, row_keys=None, split_l: int =
     )
 
 
-def _table(cols, data, device, tpr_log2: int, memo, row_keys) -> SlabTable:
-    """The work table of these slabs on ``device`` for one lane layout, from
-    ``memo`` when it holds one."""
-    key = (device, tpr_log2)
+def _table(cols, data, device, tpr_log2: int, memo, row_keys, sddmm: bool = False) -> SlabTable:
+    """The work table of these slabs on ``device`` for one lane layout (K2's,
+    or with ``sddmm`` K3's), from ``memo`` when it holds one."""
+    key = ("sddmm", device, tpr_log2) if sddmm else (device, tpr_log2)
     table = memo.get(key) if memo is not None else None
     if table is None:
-        table = _slab_table(cols, data, device, tpr_log2, row_keys)
+        table = _slab_table(cols, data, device, tpr_log2, row_keys, sddmm=sddmm)
         if memo is not None:
             memo[key] = table
     return table
@@ -446,7 +495,7 @@ class _EllSlabsSpmm(torch.autograd.Function):
             grest = dY.index_select(0, call.rest_rows)
         gdata = [None] * len(data)
         if any(ctx.needs_input_grad[3:]):
-            g = ell_slabs_sddmm(call.cols, dY, B, data=data, memo=call.memo, row_keys=call.row_keys,
+            g = ell_slabs_sddmm(call.cols, dY, B, memo=call.memo, row_keys=call.row_keys,
                                 out_rows=call.out_rows)
             gdata = [gi.to(d.dtype) if need else None
                      for gi, d, need in zip(g, data, ctx.needs_input_grad[3:])]
@@ -673,16 +722,15 @@ def ell_slabs_sddmm_reference(cols, dY: torch.Tensor, B: torch.Tensor, *, out_ro
     return tuple(out)
 
 
-def ell_slabs_sddmm(cols, dY: torch.Tensor, B: torch.Tensor, *, data=None,
-                    memo: dict | None = None, row_keys=None, out_rows=None) -> tuple:
+def ell_slabs_sddmm(cols, dY: torch.Tensor, B: torch.Tensor, *, memo: dict | None = None,
+                    row_keys=None, out_rows=None) -> tuple:
     """The gradient of :func:`ell_slabs_spmm` with respect to the slab
     values: per slab an (R_s, L_s) tensor in dY's dtype (views of one flat
     array).  CPU tensors take the plain version; CUDA tensors ONE launch of
-    K3 over K2's work table (``memo``, ``row_keys`` and ``data`` as K2's
-    wrapper takes them: K3 reads no value, but a table built here is K2's
-    too).  dY is fp32 for an fp32 or bf16 B and fp64 for an fp64 B: (ΣR, k),
-    or with K2's row map ``out_rows`` the (m, k) gradient read at those
-    rows."""
+    K3 over its slot-major work table (:func:`sddmm_table`, kept in ``memo``
+    beside K2's; ``row_keys`` orders its items as K2's).  dY is fp32 for an
+    fp32 or bf16 B and fp64 for an fp64 B: (ΣR, k), or with K2's row map
+    ``out_rows`` the (m, k) gradient read at those rows."""
     global sddmm_launches
     dev, k = B.device, B.shape[1]
     if dev.type == "cpu":
@@ -703,9 +751,7 @@ def ell_slabs_sddmm(cols, dY: torch.Tensor, B: torch.Tensor, *, data=None,
         raise ValueError("ell_slabs_sddmm: B and dY must be contiguous, n >= 1 and k >= 1")
     vec, tpr_log2 = lane_layout(k, B.data_ptr() % 16 == 0 and dY.data_ptr() % 16 == 0,
                                 _WIDE[B.dtype])
-    if data is None:  # a table without value pointers is K3's alone
-        memo = None
-    table = _table(cols, data, dev, tpr_log2, memo, row_keys)
+    table = _table(cols, None, dev, tpr_log2, memo, row_keys, sddmm=True)
     shapes = [tuple(c.shape) for c in table.keep[0]]
     flat = torch.empty(sum(R * L for R, L in shapes), dtype=dY.dtype, device=dev)
     if flat.numel():

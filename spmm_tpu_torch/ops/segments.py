@@ -21,14 +21,16 @@ a long prefix, so they are not used.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from spmm_tpu_torch import kernels
 from spmm_tpu_torch.formats.containers import as_tensor, device_of
 
-#: CUDA launches of the ordered-sum kernel in this process (chip_smoke.py
-#: resets and reads them)
+#: CUDA calls of the ordered-sum kernel in this process, one per call (a call
+#: that spans several chunks makes two launches; chip_smoke.py resets and
+#: reads the count)
 launches = 0
 
 _DTYPES = {torch.float32: kernels.F32, torch.float64: kernels.F64,
@@ -105,25 +107,62 @@ def segment_sum_reference(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor
     return out.index_add_(0, seg, rows[: seg.numel()])
 
 
+#: threads per CTA (the kernel's kThreads), the most columns one CTA takes
+#: (a column tile), and the bytes of one chunk of rows staged in shared
+#: memory: twice as many where a row fills a warp (three such CTAs fit an SM,
+#: each mostly a chain of latencies, so the chunk sets the bytes in flight)
+THREADS = 256
+TILE_COLS = 128
+CHUNK_BYTES = 32 * 1024
+CHUNK_BYTES_WIDE = 64 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_layout(k: int, itemsize: int) -> tuple[int, int, int]:
+    """``(kt, ct, ipt)`` of the ordered-sum kernel for k columns of
+    ``itemsize``-byte values: ``kt`` columns per column tile, ``ct`` lanes
+    per row (a power of two, at most a warp), ``ipt`` consecutive rows per
+    lane group.  A chunk of ``P = (THREADS // ct) * ipt`` positions, about
+    ``CHUNK_BYTES`` of rows (``CHUNK_BYTES_WIDE`` where a row takes a warp),
+    is one CTA's work.  The summation order follows from these alone (k and
+    the dtype), never from the data or its alignment."""
+    kt = max(1, min(k, TILE_COLS))
+    ct = min(1 << (kt - 1).bit_length(), 32)
+    groups = THREADS // ct
+    chunk = CHUNK_BYTES_WIDE if ct == 32 else CHUNK_BYTES
+    ipt = max(4, 1 << max(0, (chunk // (groups * kt * itemsize)).bit_length() - 1))
+    return kt, ct, ipt
+
+
 def _launch(data: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
-    """One launch of the ordered-sum kernel: (num_segments, k) from (N, k)."""
+    """The ordered-sum kernel: (num_segments, k) from (N, k).  One launch
+    when N fits one chunk (:func:`chunk_layout`), else two: the chunks, then
+    the fix-up that adds the partials of the segments that cross chunks."""
     global launches
     if data.dtype not in _DTYPES:
         raise TypeError(f"segment_sum: dtype {data.dtype} not supported (float32, float64, int32, int64)")
     data = data.contiguous()
-    nseg, k = plan.num_segments, data.shape[1]
+    n, k = data.shape
+    nseg = plan.num_segments
     out = torch.empty((nseg, k), dtype=data.dtype, device=data.device)
     if nseg == 0 or k == 0:
         return out
-    wide = 16 // data.element_size()
-    vec = wide if k % wide == 0 and data.data_ptr() % 16 == 0 else 1
-    units = k // vec
-    ct_log2 = min(max(units - 1, 0).bit_length(), 8)  # lanes per row: units rounded up to a power of 2
+    es = data.element_size()
+    kt, ct, ipt = chunk_layout(k, es)
+    chunk = (THREADS // ct) * ipt
+    nchunks = max(1, -(-n // chunk))
+    wide = 16 // es
+    run = plan.order is None and k <= kt  # the chunk's rows are one contiguous run
+    vec = wide if data.data_ptr() % 16 == 0 and (run or k % wide == 0) else 1
+    scratch = None
+    if nchunks > 1:  # per chunk: a segment id, then two partial rows
+        scratch = torch.empty((nchunks * (8 + 2 * k * es),), dtype=torch.uint8, device=data.device)
     order = plan.order
     launches += 1
     err = kernels.lib().segment_sum_launch(
         data.data_ptr(), plan.offsets.data_ptr(), 0 if order is None else order.data_ptr(),
-        out.data_ptr(), _DTYPES[data.dtype], nseg, k, vec, ct_log2, kernels.stream_ptr(data.device))
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), _DTYPES[data.dtype], n, nseg, k,
+        vec, kt, ct.bit_length() - 1, ipt, kernels.stream_ptr(data.device))
     kernels.check(err, "segment_sum")
     return out
 

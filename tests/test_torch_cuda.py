@@ -335,13 +335,26 @@ def test_k1_fp64_matches_plain(cuda, block_shape):
     assert np.abs(Y.cpu().numpy() - want).max() <= 1e-12 * np.abs(want).max()
 
 
+#: K3's slot-major walk: rows of L = 1, 2, 3, 31, 33, 64, 65 and longer than
+#: the split threshold, R not a multiple of any step, an empty slab
+K3_SHAPES = [(1037, 1), (555, 2), (333, 3), (77, 31), (45, 33), (20, 64), (19, 65), (3, 700), (0, 9),
+             (1, 1), (2, 130)]
+
+
+def _k3_slabs(cuda, shapes, n, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randint(-3, n + 3, (R, L), generator=g, dtype=torch.int32).to(cuda) for R, L in shapes]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("shapes", ["k2", "k3"])
 @pytest.mark.parametrize("k", [1, 3, 32, 128, 130, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
-def test_k3_kernel_matches_plain(cuda, k, dtype):
-    """K3 (the slab values' gradient) in one launch over mixed slabs against
-    its plain version; a second run is bit-identical."""
-    cols, _ = _k2_slabs(cuda, torch.float32, 4000, k)
+def test_k3_kernel_matches_plain(cuda, shapes, k, dtype):
+    """K3 (the slab values' gradient) in one launch over mixed slabs (K2's
+    test shapes, or ``K3_SHAPES``) against its plain version; a second run is
+    bit-identical."""
+    cols = _k3_slabs(cuda, K2_SHAPES if shapes == "k2" else K3_SHAPES, 4000, k)
     acc = torch.float64 if dtype == torch.float64 else torch.float32
     g = torch.Generator().manual_seed(k + 7)
     B = torch.randn(4000, k, generator=g, dtype=acc).to(cuda, dtype)
@@ -613,34 +626,86 @@ def test_backward_bf16_on_card(cuda, form):
 # ---- slice 6: ordered sums (F6), K1's dtype mixes (F7), the maps of K2 / K3 ----
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 3, 8, 128, 130, 300])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int64])
-@pytest.mark.parametrize("sort", [True, False])
-def test_segment_sum_kernel_matches_plain(cuda, k, dtype, sort):
-    """The ordered-sum kernel against its plain version (fp32 1e-5, fp64
-    1e-12 of max, integers exact): a segment of 20,000 rows, empty segments,
-    ids out of range; three runs equal in their bits."""
+#: the ordered sum's cases: (name, k values); the original 20,000-row hub
+#: among 500 segments sorted and unsorted, and the shapes of its chunked
+#: design (ops/segments.py: chunk_layout) -- a hub of 300,000 rows among short
+#: segments, boundaries on chunk edges with a segment over >= 3 chunks and
+#: empty segments at the edges and the end, offsets[0] > 0 with rows after
+#: the last segment, an unsorted order with a hub, 4M segments of 1-3 rows
+SEG_CASES = [(case, k) for case in ("hub20k_sorted", "hub20k_unsorted") for k in (1, 3, 4, 8, 128, 130, 300)] + [
+    (case, k) for case in ("hub300k", "chunk_edges", "offset0", "unsorted_hub", "tiny4m") for k in (1, 4, 128, 130)]
+
+
+def _segment_case(case, k, dtype, dev):
+    """(data, plan) of one case, the data made on the card from a seed."""
     from spmm_tpu_torch.ops import segments
 
     rng = np.random.default_rng(k)
-    ids = rng.integers(-2, 502, 60_000)
-    ids[:20_000] = 7
-    if sort:
-        ids = np.sort(ids)
-    ids_d = torch.from_numpy(ids).to(cuda)
-    data = torch.from_numpy(rng.standard_normal((60_000, k)) * 100).to(cuda, dtype)
-    plan = segments.segment_plan(ids_d, 500, indices_are_sorted=sort)
+    if case.startswith("hub20k"):
+        ids = rng.integers(-2, 502, 60_000)
+        ids[:20_000] = 7
+        sort = case.endswith("_sorted")
+        if sort:
+            ids = np.sort(ids)
+        plan = segments.segment_plan(torch.from_numpy(ids).to(dev), 500, indices_are_sorted=sort)
+        n = ids.size
+    elif case == "unsorted_hub":
+        ids = rng.integers(0, 300, 400_000)
+        ids[rng.choice(400_000, 200_000, replace=False)] = 42
+        plan = segments.segment_plan(torch.from_numpy(ids).to(dev), 300)
+        n = ids.size
+    else:
+        start, tail = 0, 0
+        if case == "hub300k":
+            lens = rng.integers(1, 6, 20_000)
+            lens[7777] = 300_000
+        elif case == "chunk_edges":
+            kt, ct, ipt = segments.chunk_layout(k, torch.empty((), dtype=dtype).element_size())
+            P = (segments.THREADS // ct) * ipt
+            # edges at P, 2P, 5P (empty segments there too), one segment over
+            # chunks 2-4 from an edge, one over >= 3 chunks from mid-chunk
+            lens = np.concatenate([[P, 0, 0, P // 2, P // 2, 0, 3 * P, 0, 7, 3 * P + 5],
+                                   rng.integers(1, 9, 500), [0, 0, 0]])
+        elif case == "offset0":
+            lens = rng.integers(0, 40, 3000)
+            start, tail = 1000, 777
+        else:  # tiny4m
+            lens = rng.integers(1, 4, 4_000_000)
+            lens[rng.choice(4_000_000, 1000, replace=False)] = 0
+        offsets = start + np.concatenate([[0], np.cumsum(lens)])
+        plan = segments.offsets_plan(torch.from_numpy(offsets).to(dev), dev)
+        n = int(offsets[-1]) + tail
+    g = torch.Generator(device=dev).manual_seed(k)
+    if dtype.is_floating_point:
+        data = torch.randn((n, k), generator=g, device=dev, dtype=dtype) * 100
+    else:
+        data = torch.randint(-1000, 1000, (n, k), generator=g, device=dev, dtype=dtype)
+    return data, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,k", SEG_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int32, torch.int64])
+def test_segment_sum_kernel_matches_plain(cuda, case, k, dtype):
+    """The ordered-sum kernel against its plain version (fp32 1e-5, fp64
+    1e-12 of max, integers exact) on every case of ``SEG_CASES``; three runs
+    equal in their bits.  Floats are held to the plain version taken in
+    fp64: ``torch.segment_reduce`` adds a segment's rows one by one, and in
+    fp32 over a hub of 20,000 rows its own rounding reaches ~1e-5 of max."""
+    from spmm_tpu_torch.ops import segments
+
+    data, plan = _segment_case(case, k, dtype, cuda)
     n0 = segments.launches
     runs = [segments.segment_sum(data, plan=plan) for _ in range(3)]
     assert segments.launches == n0 + 3
-    ref = segments.segment_sum_reference(data, plan)
+    ref = segments.segment_sum_reference(data.double() if dtype == torch.float32 else data, plan)
     torch.cuda.synchronize()
+    assert runs[0].shape == ref.shape == (plan.num_segments, k) and runs[0].dtype == dtype
     assert all(torch.equal(runs[0], r) for r in runs[1:])
-    if dtype == torch.int64:
+    if not dtype.is_floating_point:
         assert torch.equal(runs[0], ref)
     else:
-        assert _rel(runs[0], ref) <= (1e-12 if dtype == torch.float64 else 1e-5)
+        assert _rel(runs[0].to(ref.dtype), ref) <= (1e-12 if dtype == torch.float64 else 1e-5)
 
 
 def _thrice(fn):
@@ -718,13 +783,18 @@ def test_k1_k_tile(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shapes", ["k2", "k3"])
 @pytest.mark.parametrize("k", [1, 3, 32, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
-def test_k2_k3_row_map_match_plain(cuda, k, dtype):
+def test_k2_k3_row_map_match_plain(cuda, shapes, k, dtype):
     """K2 with its row map (slab rows written at permuted rows) and K3 reading
-    dY through it, against their plain versions; the rows no slab row maps
-    to are left as they were."""
-    cols, data = _k2_slabs(cuda, dtype, 4000, 30 + k)
+    dY through it, against their plain versions (K2's test shapes, or
+    ``K3_SHAPES``); the rows no slab row maps to are left as they were, and
+    K3 gives the same bits twice."""
+    shp = K2_SHAPES if shapes == "k2" else K3_SHAPES
+    cols = _k3_slabs(cuda, shp, 4000, 30 + k)
+    g = torch.Generator().manual_seed(31 + k)
+    data = [torch.randn(R, L, generator=g).to(cuda, dtype) for R, L in shp]
     rows = sum(c.shape[0] for c in cols)
     g = torch.Generator().manual_seed(k)
     out_rows = (torch.randperm(rows + 50, generator=g)[:rows]).to(torch.int32).to(cuda)
@@ -738,13 +808,15 @@ def test_k2_k3_row_map_match_plain(cuda, k, dtype):
     ref = torch.full_like(Y, 7.0)
     ops.ell_slabs_spmm_reference(cols, data, B, ref, accum_dtype=acc, out_rows=out_rows)
     dY = torch.randn(rows + 50, k, generator=g, dtype=torch.float64).to(cuda, acc)
-    gd = ops.ell_slabs_sddmm(cols, dY, B, data=data, out_rows=out_rows)
+    gd = ops.ell_slabs_sddmm(cols, dY, B, out_rows=out_rows)
+    gd2 = ops.ell_slabs_sddmm(cols, dY, B, out_rows=out_rows)
     gr = ell_kernel.ell_slabs_sddmm_reference(cols, dY, B, out_rows=out_rows)
     torch.cuda.synchronize()
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     assert _rel(Y, ref) <= tol
     scale = max(float(r.abs().max()) for r in gr if r.numel())
     assert all(float((a - b).abs().max()) <= tol * scale for a, b in zip(gd, gr, strict=True) if b.numel())
+    assert all(torch.equal(a, b) for a, b in zip(gd, gd2, strict=True))
 
 
 @pytest.mark.cuda

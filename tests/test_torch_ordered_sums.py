@@ -3,6 +3,9 @@ K1's dtype mixes and ``k_tile``, and the port's own native sources.
 
 - ``ops.segments.segment_sum`` against ``jax.ops.segment_sum`` (sorted and
   unsorted ids, ids out of range, fp32 at 1e-5 and fp64 at 1e-12 of max);
+- the ordered-sum kernel's work order, walked in numpy as the kernel walks
+  it (chunks, lane groups, the pieces' join and the fix-up): every row
+  summed once, the sums against ``jax.ops.segment_sum``;
 - a CPU mirror of ``tests/test_aux.py::test_spmm_bitwise_deterministic``
   for every product that went through ``index_add_``: two runs equal in
   their bits, and each held against the JAX package (1e-4 of max, as the
@@ -79,6 +82,156 @@ def test_segment_sum_matches_jax(dtype, tol, sort, k):
     plan = segments.segment_plan(torch.from_numpy(ids), nseg, indices_are_sorted=sort)
     assert torch.equal(segments.segment_sum(torch.from_numpy(data), plan=plan), got)
     assert not got.numpy()[np.setdiff1d(np.arange(nseg), ids)].any()  # empty segments are zero
+
+
+def _walk_chunks(rows, offsets, itemsize):
+    """The ordered-sum kernel's walk, in numpy (``csrc/segment_sum.cu``):
+    chunks of P positions, lane groups of ``ipt`` rows, the pieces of
+    segments that cross groups joined by a segmented scan over the groups,
+    partials of segments that cross chunks joined by the fix-up in chunk
+    order.  ``rows``: the data in position order.  Returns
+    the sums, how often each segment was written and how often each
+    position was summed (every column tile walks alike, so all columns go
+    together)."""
+    n, k = rows.shape
+    nseg = len(offsets) - 1
+    kt, ct, ipt = segments.chunk_layout(k, itemsize)
+    G = segments.THREADS // ct
+    P = G * ipt
+    nchunks = max(1, -(-n // P))
+    out = np.zeros((nseg, k), rows.dtype)
+    written = np.zeros(nseg, np.int64)
+    seen = np.zeros(n, np.int64)
+    last_le = lambda x: int(np.searchsorted(offsets, x, "right")) - 1
+    empty = offsets[:-1] == offsets[1:]
+    written[empty] += 1  # zeroed by the grid-stride pass
+    partA, partB, segB = {}, {}, np.full(nchunks, -1)
+    IN, ENDS, OUT = 1, 2, 4
+    for c in range(nchunks):
+        p0, p1 = c * P, min(c * P + P, n)
+        if p1 <= p0:
+            continue
+        fl = np.zeros(G, np.int64)
+        I, C, iseg, cseg = {}, {}, {}, {}
+        for g in range(G):
+            a, b = p0 + g * ipt, min(p0 + g * ipt + ipt, p1)
+            if a >= b:
+                continue
+            s, p = last_le(a), a
+            if s < 0:
+                p = int(offsets[0])
+                s = last_le(p) if p < b else -1
+            while 0 <= s < nseg and p < b:
+                lo, hi = int(offsets[s]), int(offsets[s + 1])
+                e = min(hi, b)
+                acc = np.zeros(k, rows.dtype)
+                for i in range(p, e):  # in order
+                    acc = acc + rows[i]
+                seen[p:e] += 1
+                if lo < a:
+                    fl[g] |= IN | (ENDS if hi <= b else 0)
+                    I[g], iseg[g] = acc, s
+                elif hi > b:
+                    fl[g] |= OUT
+                    C[g], cseg[g] = acc, s
+                else:
+                    out[s] = acc
+                    written[s] += 1
+                if hi >= b:
+                    break
+                p = hi
+                s = last_le(p)
+        # the join: a segmented scan over the groups, Hillis-Steele
+        thr = (fl & (IN | ENDS)) == IN
+        zero = np.zeros(k, rows.dtype)
+        v = [I[g] if thr[g] else C.get(g, zero) for g in range(G)]
+        rf = ~thr
+        d = 1
+        while d < G:
+            v = [v[g] if g < d or rf[g] else v[g - d] + v[g] for g in range(G)]
+            rf = np.array([rf[g] or (g >= d and rf[g - d]) for g in range(G)])
+            d *= 2
+        for g in range(G):
+            if fl[g] & IN and fl[g] & ENDS:
+                tot = v[g - 1] + I[g] if g > 0 else I[g]
+                if g > 0 and rf[g - 1]:  # began in this chunk
+                    out[iseg[g]] = tot
+                    written[iseg[g]] += 1
+                else:
+                    partA[c] = tot
+        g = (p1 - 1 - p0) // ipt
+        if fl[g] & OUT or thr[g]:
+            if rf[g]:
+                partB[c], segB[c] = v[g], (cseg[g] if fl[g] & OUT else iseg[g])
+            else:
+                partA[c] = v[g]
+    for c0 in np.nonzero(segB >= 0)[0]:  # the fix-up
+        s = segB[c0]
+        c1 = (int(offsets[s + 1]) - 1) // P
+        assert c1 > c0
+        acc = partB[c0]
+        for c in range(c0 + 1, c1 + 1):
+            acc = acc + partA.pop(c)
+        out[s] = acc
+        written[s] += 1
+    assert not partA  # every entering piece was joined
+    return out, written, seen
+
+
+@pytest.mark.parametrize("case", ["hub", "edges", "offset0", "unsorted"])
+@pytest.mark.parametrize("k,dtype", [(1, np.float32), (5, np.float32), (130, np.float32), (1, np.int64),
+                                     (3, np.int64)])
+def test_chunk_walk_sums_every_row_once(case, k, dtype):
+    """The ordered-sum kernel's chunked walk and fix-up (``_walk_chunks``):
+    every position inside a segment is summed exactly once and none outside,
+    every segment written exactly once, and the sums held to
+    ``jax.ops.segment_sum`` (1e-5 of max in fp32, exact in int64) -- on a
+    hub across many chunks, boundaries and empty segments on chunk edges,
+    rows before the first and after the last segment, and unsorted ids."""
+    rng = np.random.default_rng(k + 100)
+    itemsize = np.dtype(dtype).itemsize
+    kt, ct, ipt = segments.chunk_layout(k, itemsize)
+    P = (segments.THREADS // ct) * ipt
+    start, tail = 0, 0
+    if case == "hub":
+        lens = rng.integers(0, 6, 400)
+        lens[123] = 3 * P + 17  # over four chunks
+    elif case == "edges":
+        lens = np.concatenate([[P, 0, 0, P // 2, P // 2, 0, 3 * P, 0, 7, 3 * P + 5], rng.integers(1, 9, 50),
+                               [0, 0, 0]])
+    elif case == "offset0":
+        lens = rng.integers(0, 3 * P // 50, 100)
+        start, tail = P // 3, 77
+    else:
+        lens = None
+    if lens is None:  # unsorted ids with a hub: the plan's order puts them in segment order
+        nseg = 60
+        ids = rng.integers(-2, nseg + 2, 2 * P + 99)
+        ids[rng.choice(ids.size, P + 5, replace=False)] = 17
+        plan = segments.segment_plan(torch.from_numpy(ids), nseg)
+        offsets, order = plan.offsets.numpy(), plan.order.numpy()
+        n = ids.size
+    else:
+        nseg = lens.size
+        offsets = start + np.concatenate([[0], np.cumsum(lens)])
+        n, order = int(offsets[-1]) + tail, None
+        pos = np.arange(n)
+        ids = np.searchsorted(offsets, pos, "right") - 1
+        ids[(pos < offsets[0]) | (pos >= offsets[-1])] = -1  # no segment
+    data = (rng.standard_normal((n, k)) * 100).astype(dtype) if dtype == np.float32 else \
+        rng.integers(-1000, 1000, (n, k)).astype(dtype)
+    rows = data if order is None else data[order]
+    out, written, seen = _walk_chunks(rows, offsets, itemsize)
+    assert (written == 1).all()
+    inside = (np.arange(n) >= offsets[0]) & (np.arange(n) < offsets[-1])
+    assert (seen[inside] == 1).all() and not seen[~inside].any()
+    assert n > P  # more than one chunk: the fix-up ran
+    with jax.enable_x64(dtype != np.float32):
+        want = np.asarray(jax.ops.segment_sum(jnp.asarray(data), jnp.asarray(ids), nseg))
+    if dtype == np.float32:
+        _close(out, want, 1e-5)
+    else:
+        np.testing.assert_array_equal(out, want)
 
 
 def test_segment_sum_gradient_is_the_gather():

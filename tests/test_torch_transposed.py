@@ -203,3 +203,108 @@ def test_sddmm_plain_reads_dy_through_the_row_map():
     want = ell_kernel.ell_slabs_sddmm_reference(cols, dY[out_rows.long()], B)
     for a, b in zip(got, want, strict=True):
         assert torch.equal(a, b)
+
+
+# ---- K3's slot-major walk ------------------------------------------------------
+
+
+def _transpose_reduce(v, tpr):
+    """The kernel's transpose-reduction over each group of ``tpr`` lanes of a
+    warp: v (32, ns) partials per lane; lane t ends with the sum of value
+    t >> log2(tpr / ns) over its group."""
+    lanes = np.arange(32)
+    tl = lanes % tpr
+    ns = v.shape[1]
+    h, o = ns // 2, tpr // 2
+    while h >= 1:
+        up = (tl & o) != 0
+        send = np.where(up[:, None], v[:, :h], v[:, h : 2 * h])
+        keep = np.where(up[:, None], v[:, h : 2 * h], v[:, :h])
+        v = keep + send[lanes ^ o]
+        h, o = h // 2, o // 2
+    s = v[:, 0]
+    o = tpr // ns // 2
+    while o >= 1:
+        s = s + s[lanes ^ o]
+        o //= 2
+    return s
+
+
+def _k3_walk(cols, dY, B, out_rows, vec, tpr_log2, row_keys):
+    """K3 as the kernel walks its table (``sddmm_table``): warps over runs of
+    slots, the lanes' column and dY-row loads, 8-slot sub-batches of partial
+    dot products over each lane's columns, the transpose-reduction and the
+    lane that stores each slot.  Returns per slab the values and how often
+    each slot was written."""
+    tpr = 1 << tpr_log2
+    NS, U = min(tpr, ell_kernel.K3_SUB), max(1, ell_kernel.K3_SUB // tpr)
+    NSB = max(1, tpr // ell_kernel.K3_SUB)
+    step = ell_kernel.k3_step(tpr_log2)
+    meta, items = ell_kernel.sddmm_table([c.shape for c in cols], tpr_log2, row_keys=row_keys)
+    n, k = B.shape
+    units = k // vec
+    lanes = np.arange(32)
+    gi, tl = lanes // tpr, lanes % tpr
+    # lane t's columns: units t, t + tpr, ... of vec columns each
+    colmask = np.zeros((32, k), bool)
+    for t in range(32):
+        for u in range(tl[t], units, tpr):
+            colmask[t, u * vec : (u + 1) * vec] = True
+    vals = [np.zeros(c.size) for c in cols]
+    writes = [np.zeros(c.size, np.int64) for c in cols]
+    for s, q in items:
+        L, R, row0 = (int(x) for x in meta[s, :3])
+        flat_cols = np.clip(cols[s].reshape(-1), 0, n - 1)
+        for w in range(ell_kernel.THREADS // 32):
+            w0 = int(q) + w * ell_kernel.K3_STEPS * step
+            w1 = min(w0 + ell_kernel.K3_STEPS * step, R * L)
+            for q0 in range(w0, w1, step):
+                slot = q0 + np.arange(U)[:, None] * 32 + lanes[None, :]  # (U, 32): load_step
+                ok = slot < w1
+                cw = np.where(ok, flat_cols[np.minimum(slot, R * L - 1)], 0)
+                yw = np.where(ok, out_rows[row0 + np.minimum(slot, R * L - 1) // L], -1)
+                outv = np.zeros((U, 32))
+                for sb in range(NSB):
+                    part = np.zeros((32, ell_kernel.K3_SUB))
+                    for j in range(ell_kernel.K3_SUB):
+                        src = gi * tpr + sb * NS + j % NS
+                        cj, yj = cw[j // NS][src], yw[j // NS][src]
+                        prod = dY[np.maximum(yj, 0)] * B[cj] * colmask
+                        part[:, j] = np.where(yj >= 0, prod.sum(1), 0.0)
+                    if tpr >= ell_kernel.K3_SUB:
+                        red = _transpose_reduce(part, tpr)
+                        got = red[gi * tpr + (tl % 8) * (tpr // 8)]
+                        outv[0] = np.where(tl // 8 == sb, got, outv[0])
+                    else:
+                        for u in range(U):
+                            outv[u] = _transpose_reduce(part[:, u * NS : (u + 1) * NS], tpr)
+                vals[s][slot[ok]] = outv[ok]
+                np.add.at(writes[s], slot[ok], 1)
+    return [v.reshape(c.shape) for v, c in zip(vals, cols)], [w.reshape(c.shape) for w, c in zip(writes, cols)]
+
+
+@pytest.mark.parametrize("k", [1, 8, 32, 64, 128, 130])
+def test_k3_slot_major_walk_matches_jax_vjp(k):
+    """K3's slot-major table walked as the kernel walks it, with the
+    transpose-reduction's lane-to-slot assignment: every slot written once,
+    and the values held to ``jax.vjp`` of the JAX ``ell_spmm`` with respect
+    to the slab values (1e-5 of max), dY read through ``ell_spmm``'s row map."""
+    from spmm_tpu_torch.ops.ell_spmm import _row_maps, slab_row_keys
+
+    A = jsyn.webgraph_like(400, 2600, seed=51)
+    Ej = jell.ell_pack(A, max_len=2048)  # the hub row too
+    B0 = rhs(400, k, 52)
+    dY = rhs(400, k, 53)
+    f = lambda d: j_ell_spmm(dataclasses.replace(Ej.device(), data=d), jnp.asarray(B0))
+    (gj,) = jax.jit(lambda d, c: jax.vjp(f, d)[1](c))(tuple(jnp.asarray(d) for d in Ej.data), jnp.asarray(dY))
+    Et = from_numpy(Ej).to("cpu")
+    out_rows = _row_maps(Et, torch.device("cpu"))[0].numpy()
+    cols = [np.asarray(c) for c in Ej.cols]
+    assert {c.shape[1] for c in cols} >= {1, 2, 3} and any(c.shape[1] > ell_kernel.SPLIT_L for c in cols)
+    vec, tpr_log2 = ell_kernel.lane_layout(k, True)
+    got, writes = _k3_walk(cols, dY.astype(np.float64), B0.astype(np.float64), out_rows, vec, tpr_log2,
+                           slab_row_keys(Et))
+    for g, w, want in zip(got, writes, gj, strict=True):
+        assert (w == 1).all()
+        if want.size:
+            _close(g, np.asarray(want), 1e-5)
