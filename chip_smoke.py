@@ -73,10 +73,26 @@ Phases, each printing one line with its times (CUDA events for kernels,
               size, triangle counting at ``TRI_N`` = 49,152 nodes (the
               symmetrised web-Google graph's hubs make its A×A 1.8e11
               partial products).
-8. report   — one JSON line of per-kernel results (launches of phases 4, 6 and
-              7, the entry points that launched each kernel, phase 3's times,
-              bound and library time at the main-path shape), the card's name
-              and power limit, and the final ``{"ok": true, ...}`` line.
+8. dist     — the distribution layer (``spmm_tpu_torch.parallel``), with the
+              launch counters at 0 again: (a) NCCL at world size 1 on the
+              card (one card; NCCL takes no two ranks on one GPU):
+              ``partition_rows`` / ``partition_cols`` of the web-Google-sized
+              graph, ``spmm_dist``, ``spmm_dist_ring``, ``spmm_dist_colsplit``
+              at k=128 and ``spmv_dist``, each held against scipy (1e-4 of
+              max) and the single-chip ``ops.spmm`` / ``ops.spmv`` (1e-5),
+              one K2 launch each, timed beside that call (CUDA events); then
+              ``spgemm_dist_spmd`` and ``spgemm_dist_csr`` on A×A, structure
+              equal to scipy's, timed beside ``ops.spgemm`` (without a plan)
+              and ``spgemm_slab_csr``.  (b) four gloo ranks on the host's
+              CPUs (the tests' rank pool, ``tests/torch_dist.py``) run every
+              entry point on ``webgraph_like(65_536, 365_000, seed=0)`` at
+              k=32 against scipy: the collective logic under this machine's
+              torch, a host run of the plain versions.
+9. report   — one JSON line of per-kernel results (launches of phases 4, 6, 7
+              and 8a, the entry points that launched each kernel, phase 3's
+              times, bound and library time at the main-path shape), the
+              card's name and power limit, and the final ``{"ok": true, ...}``
+              line.
 
 Any failure stops the run with a nonzero exit and no result line.  There is
 no CPU path: without CUDA, or without the rest of the repository beside this
@@ -819,6 +835,162 @@ def grad_phase(torch, A, E, Ab, A_band, P, view, dev, rng, paths, root) -> dict:
     return tally
 
 
+#: the graph of phase 8b (four gloo ranks on the host's CPUs): web-Google's
+#: mean degree on 65,536 nodes, with k = 32
+GLOO_N, GLOO_NNZ, GLOO_K = 65_536, 365_000, 32
+
+
+def dist_phase(torch, A, ref_C, dev, rng, paths, root) -> dict:
+    """Phase 8, the distribution layer.  (a) On the card at full size: NCCL
+    at world size 1 on ``dev`` (the collectives degenerate, the kernels and
+    their launches are real); every distributed entry point held against
+    scipy and against the single-chip call it wraps, each K2 launch counted
+    around the path's own calls, and timed (CUDA events) beside that call.
+    (b) Four gloo ranks on the host's CPUs (the tests' rank pool,
+    ``tests/torch_dist.py``) on a cut graph: the collective logic under this
+    machine's torch, against scipy; a host run of the plain versions.
+    Returns each kernel's launches on (a)'s path."""
+    import dataclasses as dc
+    import socket
+
+    import torch.distributed as dist
+
+    from spmm_tpu_torch import ops
+    from spmm_tpu_torch.formats import webgraph_like
+    from spmm_tpu_torch.formats.containers import as_numpy
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+    from spmm_tpu_torch.parallel import (
+        make_mesh, partition_cols, partition_rows, spgemm_dist_csr, spgemm_dist_spmd, spmm_dist,
+        spmm_dist_colsplit, spmm_dist_ring, spmv_dist, unshard_csr_rows, unshard_rows,
+    )
+
+    t_phase = time.perf_counter()
+    tally = dict.fromkeys(counters(), 0)
+
+    # ---- (a) NCCL, world size 1, full size --------------------------------
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    card = torch.device("cuda", torch.cuda.current_device())
+    torch.cuda.set_device(card)  # the rank's device, before the mesh's communicator
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+                            device_id=card)
+    try:
+        mesh = make_mesh()
+        require(str(dist.get_backend()) == "nccl" and mesh.device_type == "cuda",
+                f"phase 8 runs on NCCL over the card, not {dist.get_backend()} / {mesh.device_type}")
+        (S, Sc), t_part = host_timed(torch, lambda: (partition_rows(A, 1), partition_cols(A, 1)))
+        k = 128
+        B = torch.from_numpy(rng.standard_normal((A.ncol, k)).astype(np.float32)).to(dev)
+        x = B[:, 0].contiguous()
+        Bh = B.cpu().numpy()
+        ref = A.to_scipy() @ Bh
+        ref_x = ref[:, 0]
+        m = A.nrow
+        cases = [  # name, distributed call, its (m, k) result, single-chip call, scipy
+            ("spmm_dist", lambda: spmm_dist(S, B, mesh), lambda y: unshard_rows(y, S),
+             lambda: ops.spmm(A, B), ref),
+            ("spmm_dist_ring", lambda: spmm_dist_ring(S, B, mesh), lambda y: unshard_rows(y, S),
+             lambda: ops.spmm(A, B), ref),
+            ("spmm_dist_colsplit", lambda: spmm_dist_colsplit(Sc, B, mesh),
+             lambda y: y.reshape(-1, k)[:m], lambda: ops.spmm(A, B), ref),
+            ("spmv_dist", lambda: spmv_dist(S, x, mesh), lambda y: unshard_rows(y[..., None], S)[:, 0],
+             lambda: ops.spmv(A, x), ref_x),
+        ]
+        rows = []
+        for name, call, flat, single, sref in cases:
+            y = launched(paths, f"parallel.{name}", call, {"ell_slab_spmm": 1}, tally)
+            require(y.is_cuda, f"{name}: the result is not on the card")
+            y1 = single().cpu().numpy()
+            yf = as_numpy(flat(y))
+            err_s = float(np.abs(yf - sref).max())
+            require(err_s <= 1e-4 * float(np.abs(sref).max()), f"{name} differs from scipy: {err_s:.3e}")
+            rel_1 = float(np.abs(yf - y1).max()) / max(float(np.abs(y1).max()), 1e-30)
+            require(rel_1 <= 1e-5, f"{name} differs from the single-chip call: rel {rel_1:.3e}")
+            ms_d = cuda_ms(torch, call)
+            ms_1 = cuda_ms(torch, single)
+            ms_d2 = cuda_ms(torch, call)
+            rows.append(f"{name} {ms_d:.4f} / {ms_d2:.4f} ms vs single-chip {ms_1:.4f} "
+                        f"(err vs scipy {err_s:.2e}, vs single {rel_1:.1e})")
+            del y, y1, yf
+        say(f"phase 8a NCCL world size 1 on {torch.cuda.get_device_name(0)}, webgraph {A.shape} nnz {A.nnz}, "
+            f"k={k} (partition_rows + partition_cols {t_part:.1f} ms host); CUDA events, mean of 10, "
+            f"distributed call timed twice around the single-chip one: " + " | ".join(rows))
+        del B, x, ref
+
+        # A×A: the global host CSR and the row-sharded device CSR
+        C = traced(paths, "parallel.spgemm_dist_spmd", lambda: spgemm_dist_spmd(S, A, mesh), tally)
+        held_against(C, ref_C, "spgemm_dist_spmd")
+        G = traced(paths, "parallel.spgemm_dist_csr", lambda: spgemm_dist_csr(S, A, mesh), tally)
+        require(G.data.is_cuda and G.nnz == ref_C.nnz, "spgemm_dist_csr: not on the card, or nnz differs")
+        held_against(unshard_csr_rows(G), ref_C, "spgemm_dist_csr")
+        del C, G
+        fresh = lambda: dc.replace(A)  # a new operand object: no plan reuse in ops.spgemm
+        gm = {
+            "spgemm_dist_spmd": cuda_ms(torch, lambda: spgemm_dist_spmd(S, A, mesh), iters=3, warmup=1),
+            "ops.spgemm": cuda_ms(torch, lambda: ops.spgemm(fresh(), A), iters=3, warmup=1),
+            "spgemm_dist_csr": cuda_ms(torch, lambda: spgemm_dist_csr(S, A, mesh), iters=3, warmup=1),
+            "spgemm_slab_csr": cuda_ms(torch, lambda: ss.spgemm_slab_csr(A, A, device=dev), iters=3,
+                                       warmup=1),
+        }
+        say(f"phase 8a A×A ({ref_C.nnz} nnz, structure equal to scipy's, counts exact): "
+            f"spgemm_dist_spmd {gm['spgemm_dist_spmd']:.1f} ms vs ops.spgemm (no plan) {gm['ops.spgemm']:.1f} | "
+            f"spgemm_dist_csr {gm['spgemm_dist_csr']:.1f} ms vs spgemm_slab_csr {gm['spgemm_slab_csr']:.1f} "
+            f"(CUDA events around calls that synchronise, mean of 3) | launches on the path {tally}")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (b) four gloo ranks on the host ----------------------------------
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import torch_dist
+
+    t0 = time.perf_counter()
+    Ag = webgraph_like(GLOO_N, GLOO_NNZ, seed=0)
+    Bg = rng.standard_normal((GLOO_N, GLOO_K)).astype(np.float32)
+    refg = Ag.to_scipy() @ Bg
+    refCg = scipy_square(Ag.to_scipy())
+    nr = torch_dist.RANKS
+    Sg, Scg = partition_rows(Ag, nr), partition_cols(Ag, nr)
+    pool = torch_dist.RankPool(nr)
+    try:
+        host = {}
+        for name, Sx, Bx, flat, want in (
+            ("spmm_dist", Sg, Bg, lambda y: unshard_rows(y, Sg), refg),
+            ("spmm_dist_ring", Sg, Bg, lambda y: unshard_rows(y, Sg), refg),
+            ("spmm_dist_colsplit", Scg, Bg, lambda y: y.reshape(-1, GLOO_K)[:GLOO_N], refg),
+            ("spmv_dist", Sg, np.ascontiguousarray(Bg[:, 0]), lambda y: unshard_rows(y[..., None], Sg)[:, 0],
+             refg[:, 0]),
+        ):
+            outs = pool.run(torch_dist.spmm_task, name, Sx, Bx)
+            y = flat(np.stack([o["block"][0] for o in outs]))
+            err = float(np.abs(y - want).max())
+            require(err <= 1e-4 * float(np.abs(want).max()), f"gloo {name} differs from scipy: {err:.3e}")
+            host[name] = max(o["ms"] for o in outs)
+        outs = pool.run(torch_dist.spgemm_task, Sg, Ag)
+        for o in outs:
+            held_against(o["C"], refCg, "gloo spgemm_dist_spmd")
+        host["spgemm_dist_spmd"] = max(o["ms"] for o in outs)
+        outs = pool.run(torch_dist.spgemm_csr_task, Sg, Ag)
+        blocks = [o["block"] for o in outs]
+        G = dc.replace(blocks[0], data=np.concatenate([b.data for b in blocks]),
+                       indices=np.concatenate([b.indices for b in blocks]),
+                       indptr=np.concatenate([b.indptr for b in blocks]))
+        require(all(o["nnz"] == refCg.nnz for o in outs), "gloo spgemm_dist_csr: nnz differs")
+        held_against(unshard_csr_rows(G), refCg, "gloo spgemm_dist_csr")
+        host["spgemm_dist_csr"] = max(o["ms"] for o in outs)
+        env = pool.run(torch_dist.env_task)
+        require(not any(e["jax"] for e in env), "a gloo rank loaded JAX")
+    finally:
+        pool.close()
+    say(f"phase 8b {nr} gloo ranks on this host's CPUs (torch {torch.__version__}, one thread each; a host "
+        f"run of the plain versions, no card): webgraph ({GLOO_N}, {GLOO_N}) nnz {Ag.nnz} (web-Google cut to "
+        f"{GLOO_N} nodes at its mean degree), k={GLOO_K}, every entry point against scipy | host ms per call "
+        f"(SpMM: the second of two calls, SpGEMM: its one call), slowest rank: "
+        + " | ".join(f"{n_} {v:.1f}" for n_, v in host.items())
+        + f" | phase 8b took {time.perf_counter() - t0:.1f} s, phase 8 {time.perf_counter() - t_phase:.1f} s")
+    return tally
+
+
 def main() -> int:
     import torch
 
@@ -1280,7 +1452,14 @@ def main() -> int:
         require(n > 0, f"kernel {kname} was not launched on this slice's path (phase 7)")
         launches[kname] += n
 
-    # ---- 8. report ---------------------------------------------------------
+    # ---- 8. the distribution layer -----------------------------------------
+    reset_counters()
+    launches8 = dist_phase(torch, A_web, ref_C, dev, rng, paths, root)
+    require(launches8["ell_slab_spmm"] >= 4, "K2 was not launched on every distributed SpMM (phase 8)")
+    for kname, n in launches8.items():
+        launches[kname] += n
+
+    # ---- 9. report ---------------------------------------------------------
     k2, k1 = "spmm_tpu/ops/pallas_ell.py:82", "spmm_tpu/ops/pallas_bsr.py:38"
     replaces = {
         "bsr_spmm": ("spmm_tpu_torch/csrc/bsr_spmm.cu", k1),

@@ -984,6 +984,59 @@ def _piece_exec(A_piece: CSR, rows_sorted, sc, B_dev: CSR, *, W, npa_pad, nsegB_
     return t.rows_sorted, outs
 
 
+def _piece_kw(Bh: CSR, W: int, npa_max: int, rows_pad: int, sched, starts, accum_dtype,
+              pattern: bool) -> dict:
+    """The ``_piece_exec`` keywords every piece of one uniform schedule
+    shares (``sched`` / ``starts`` from ``_uniform_schedule``)."""
+    b_iptr64 = np.asarray(Bh.indptr, np.int64)
+    nsegB = int(((b_iptr64[1:] - b_iptr64[:-1] + W - 1) // W).sum())
+    # a piece's rows_sorted/rowmeta cover the furthest chunk of any piece
+    # (start + R_pad), so no chunk's slice comes back short; max_chunk rows
+    # (a plan's padding) would cost every piece a ~48 MB fill at the default
+    # budget, and a heavy row can force pieces down to one row each
+    furthest = starts.astype(np.int64) + np.array([R for _, R in sched], np.int64)
+    return dict(
+        W=W,
+        npa_pad=_round_up(npa_max, 1024),
+        nsegB_pad=_nseg_pad(nsegB),
+        nrow_pad=max(rows_pad, int(furthest.max(initial=0))),
+        schedule=tuple(sched),
+        accum_dtype=accum_dtype,
+        pattern=pattern,
+    )
+
+
+def _piece_csr(sub: CSR, cls, counts, sc, B_dev: CSR, Bh: CSR, dev, *, nclasses: int,
+               nnz_pad: int, kw: dict) -> CSR:
+    """One uniform piece (or shard) of a row-partitioned product as its local
+    CSR (the piece's rows, B's columns): ``cls`` / ``counts`` are its rows'
+    classes and class counts from ``_per_shard_sizing``, ``sc`` its (start,
+    count) per chunk, ``kw`` the shared ``_piece_exec`` keywords.  Without
+    tail rows the chunks compact on the device (``nnz_pad`` bounds the
+    output) and the CSR stays there; with tail rows the chunks are pulled,
+    the tail rows' global-sort products added, and the CSR is a host one."""
+    rows_pad, ncol = sub.shape[0], Bh.shape[1]
+    accum_dtype = kw["accum_dtype"]
+    rows_sorted = _stable_argsort_smallint(np.asarray(cls), nclasses + 2).astype(np.int32)
+    _, outs = _piece_exec(sub.to(dev), torch.from_numpy(rows_sorted).to(dev), sc, B_dev, **kw)
+    nt = int(counts[nclasses])
+    if nt == 0 and not outs:  # the piece holds only empty rows
+        return CSR(data=torch.zeros(0, dtype=_torch_dtype(accum_dtype), device=dev),
+                   indices=torch.zeros(0, dtype=torch.int32, device=dev),
+                   indptr=torch.zeros(rows_pad + 1, dtype=torch.int64, device=dev),
+                   shape=(rows_pad, ncol), nnz=0)
+    if nt == 0:
+        return _csr_of(outs, (rows_pad, ncol), nnz_pad, accum_dtype, dev)
+    rows_l, cols_l, vals_l = _pull_chunks(outs)
+    base = int(np.asarray(counts)[:nclasses].sum())
+    trows = rows_sorted[base : base + nt].astype(np.int64)
+    tr, tc, tv = _tail_products(sub.host(), trows, Bh, accum_dtype, dev)
+    rows_l.append(tr)
+    cols_l.append(tc)
+    vals_l.append(tv)
+    return _assemble_csr(*_concat(rows_l, cols_l, vals_l, accum_dtype), (rows_pad, ncol))
+
+
 #: a piece file that these errors come from is torn (a crash mid-write) and
 #: is recomputed; any other error (an OSError of the disk, say) propagates and
 #: leaves the file in place
@@ -1134,34 +1187,14 @@ def spgemm_slab_big(
     sched, starts, cnts, _ = _uniform_schedule(
         classes=classes, counts=counts[:, : len(classes) + 1], slot_budget=slot_budget
     )
-    tail_per_piece = counts[:, len(classes)]
-    schedule = tuple(sched)
     sc_tab = np.stack([starts, cnts], axis=1)  # (P, 2, nchunks)
 
     Bh = B.host()
-    b_iptr64 = np.asarray(Bh.indptr, np.int64)
-    nsegB = int(((b_iptr64[1:] - b_iptr64[:-1] + W - 1) // W).sum())
     rows_pad = S.rows_per_shard
-    # a piece's rows_sorted/rowmeta cover the furthest chunk of any piece
-    # (start + R_pad), so no chunk's slice comes back short; max_chunk rows
-    # (a plan's padding) would cost every piece a ~48 MB fill at the default
-    # budget, and a heavy row can force pieces down to one row each
-    furthest = starts.astype(np.int64) + np.array([R for _, R in sched], np.int64)
-    kw = dict(
-        W=W,
-        npa_pad=_round_up(npa_max, 1024),
-        nsegB_pad=_nseg_pad(nsegB),
-        nrow_pad=max(rows_pad, int(furthest.max(initial=0))),
-        schedule=schedule,
-        accum_dtype=accum_dtype,
-        pattern=pattern,
-    )
+    kw = _piece_kw(Bh, W, npa_max, rows_pad, sched, starts, accum_dtype, pattern)
     B_dev = Bh.to(dev)
-    acc_np = np.dtype(_dtype_name(accum_dtype))
 
-    # per piece: (data, indices, local indptr) as tight host arrays.  Pieces
-    # without tail rows compact on the device; the others pull their chunks
-    # and add the tail rows' global-sort products on the host.
+    # per piece: (data, indices, local indptr) as tight host arrays
     ckpt = (
         _BigCheckpoint(checkpoint_dir, A, B, P, classes, W, slot_budget,
                        _dtype_name(accum_dtype), pattern)
@@ -1177,33 +1210,13 @@ def spgemm_slab_big(
             if got is not None:
                 piece_csrs.append(got)
                 continue
-        nnz_p = int(nnz_s[p])
         sub = CSR(
             data=S.data[p], indices=S.indices[p], indptr=S.indptr[p].astype(np.int64),
-            shape=(rows_pad, A.shape[1]), nnz=nnz_p,
+            shape=(rows_pad, A.shape[1]), nnz=int(nnz_s[p]),
         )
-        rows_sorted = _stable_argsort_smallint(cls[p], len(classes) + 2).astype(np.int32)
-        rows_sorted_dev, outs = _piece_exec(
-            sub.to(dev), torch.from_numpy(rows_sorted).to(dev), sc_tab[p], B_dev, **kw
-        )
-        del rows_sorted_dev
-        nt = int(tail_per_piece[p])
-        if nt == 0 and not outs:  # the piece holds only empty rows
-            piece = (np.zeros(0, acc_np), np.zeros(0, np.int32), np.zeros(rows_pad + 1, np.int64))
-        elif nt == 0:
-            Cp = _csr_to_host(_csr_of(outs, (rows_pad, B.ncol), nnz_pad_piece, accum_dtype, dev))
-            piece = (Cp.data, Cp.indices, Cp.indptr)
-        else:
-            rows_l, cols_l, vals_l = _pull_chunks(outs)
-            base = int(counts[p, : len(classes)].sum())
-            trows = rows_sorted[base : base + nt].astype(np.int64)
-            tr, tc, tv = _tail_products(sub, trows, Bh, accum_dtype, dev)
-            rows_l.append(tr)
-            cols_l.append(tc)
-            vals_l.append(tv)
-            Cp = _assemble_csr(*_concat(rows_l, cols_l, vals_l, accum_dtype), (rows_pad, B.ncol))
-            piece = (Cp.data[: Cp.nnz], Cp.indices[: Cp.nnz], np.asarray(Cp.indptr, np.int64))
-        del outs
+        Cp = _csr_to_host(_piece_csr(sub, cls[p], counts[p], sc_tab[p], B_dev, Bh, dev,
+                                     nclasses=len(classes), nnz_pad=nnz_pad_piece, kw=kw))
+        piece = (Cp.data, Cp.indices, Cp.indptr)
         piece_csrs.append(piece)
         if ckpt is not None:
             ckpt.save(p, piece)

@@ -77,6 +77,10 @@ def _ell_of(A: CSR, device) -> ELL:
     ent = _ELL_CACHE.get(key)
     if ent is not None and ent[0]() is A:
         E = ent[1]
+        dev = torch.device(device)
+        if E.perm.device.type == dev.type and dev.index in (None, E.perm.device.index):
+            # the same instance: K2's work table, memoized on it, is reused
+            return E
     elif isinstance(A.data, torch.Tensor):
         E = ell_pack_device(A)
     else:

@@ -886,3 +886,104 @@ def test_ell_spmm_row_map_on_card(cuda):
     finally:
         torch.Tensor.index_select = real
     assert (20000, 128) not in shapes  # no un-permute of the output
+
+
+# ---------------------------------------------------------------------------
+# the distributed entry points on one card: NCCL at world size 1 (the
+# collectives degenerate, the kernels and their launches are real)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import socket
+
+    import torch.distributed as dist
+
+    from spmm_tpu_torch.parallel import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)  # the rank's device, before the mesh's communicator
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spmm_dist", "spmm_dist_ring", "spmv_dist", "spmm_dist_colsplit"])
+def test_dist_spmm_at_world_size_1_on_card(nccl_mesh, name, monkeypatch):
+    """Each distributed SpMM runs its shard through K2 (one launch; the pack
+    threshold lowered as a shard above it takes that route at full size) and
+    matches the same product through K2's plain version on the CPU."""
+    from spmm_tpu_torch import parallel
+    from spmm_tpu_torch.parallel.partition import local_shard
+
+    spmm_mod = importlib.import_module("spmm_tpu_torch.ops.spmm")
+    monkeypatch.setattr(spmm_mod, "AUTO_ELL_THRESHOLD", 0)
+    A = tsyn.webgraph_like(2000, 14000, seed=0)
+    S = parallel.partition_cols(A, 1) if name == "spmm_dist_colsplit" else parallel.partition_rows(A, 1)
+    B = torch.from_numpy(rhs(2000, 16, 0))
+    Bx = B[:, 0].contiguous() if name == "spmv_dist" else B
+    n0 = ell_kernel.launches
+    Y = getattr(parallel, name)(S, Bx.to(nccl_mesh.device_type), nccl_mesh)
+    assert ell_kernel.launches == n0 + 1
+    L = local_shard(S, 0, "cpu")
+    ref = ops.spmm(L, Bx[:, None] if name == "spmv_dist" else Bx)
+    ref = ref[:, 0] if name == "spmv_dist" else ref
+    torch.cuda.synchronize()
+    assert Y.shape == (1,) + tuple(ref.shape) and Y.is_cuda
+    assert float((Y[0].cpu() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pattern", "tail"])
+def test_dist_spgemm_at_world_size_1_on_card(nccl_mesh, case):
+    """``spgemm_dist_spmd`` and ``spgemm_dist_csr`` on the card: A×A's
+    structure equal to scipy's, counts exact (values 1e-4 of max with a tail
+    row through the ESC)."""
+    import scipy.sparse as sp
+
+    from spmm_tpu_torch import parallel
+
+    if case == "pattern":
+        A, kw = tsyn.webgraph_like(2400, 12000, seed=17), {}
+    else:
+        M = sp.random(600, 600, density=0.01, random_state=3, format="lil", dtype=np.float32)
+        M[5, :] = np.random.default_rng(3).standard_normal(600)
+        A, kw = CSR.from_scipy(M.tocsr()), {"classes": (4, 8, 16)}
+    ref = (A.to_scipy() @ A.to_scipy()).tocsr()
+    ref.sort_indices()
+    S = parallel.partition_rows(A, 1)
+    outs = [parallel.spgemm_dist_spmd(S, A, nccl_mesh, **kw)]
+    if case == "pattern":
+        G = parallel.spgemm_dist_csr(S, A, nccl_mesh, **kw)
+        assert G.data.is_cuda and G.nnz == ref.nnz
+        outs.append(parallel.unshard_csr_rows(G))
+    else:
+        with pytest.raises(ValueError, match="heavy-tail"):
+            parallel.spgemm_dist_csr(S, A, nccl_mesh, **kw)
+    for C in outs:
+        assert C.nnz == ref.nnz
+        np.testing.assert_array_equal(np.asarray(C.indptr, np.int64), ref.indptr)
+        np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
+        np.testing.assert_allclose(C.data[: C.nnz], ref.data, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_dist_refuses_host_tensors_on_nccl(nccl_mesh):
+    """A CPU mesh on NCCL, or a CPU B on a CUDA mesh, raises: no silent copy
+    through the host."""
+    from spmm_tpu_torch import parallel
+
+    with pytest.raises(ValueError, match="gloo"):
+        parallel.make_mesh(device="cpu")
+    S = parallel.partition_rows(tsyn.random_csr(64, 64, 0.1, seed=0), 1)
+    with pytest.raises(ValueError, match="lies on cpu"):
+        parallel.spmm_dist(S, torch.zeros((64, 4)), nccl_mesh)

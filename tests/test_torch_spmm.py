@@ -194,6 +194,9 @@ def test_spmm_dispatcher_formats(monkeypatch):
     close(ops.spmm(A2, B))
     np.testing.assert_allclose(ops.spmv(A2, B[:, 0]).numpy(), ref[:, 0], rtol=1e-4, atol=1e-4)
     assert len(calls) == 1 and id(A2) in tspmm_mod._ELL_CACHE
+    # the same pack instance on every call, so K2's work table memoized on it
+    # is built once too
+    assert tspmm_mod._ell_of(A2, "cpu") is tspmm_mod._ell_of(A2, torch.device("cpu"))
     key = id(A2)
     del A2
     gc.collect()
@@ -276,3 +279,22 @@ def test_device_csr_auto_packs_on_its_device(monkeypatch):
     ref = A.to_scipy() @ B.numpy()
     np.testing.assert_allclose(Y.numpy(), ref, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(y.numpy(), ref[:, 0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("path", ["spmm_xla", "ell_spmm"])
+def test_nan_propagation_not_masked(path):
+    """A NaN in A's values reaches the output (``tests/test_aux.py``'s
+    contract): no padding mask may filter by value, in the gather path or in
+    K2's plain version; the NaN rows are the JAX package's."""
+    from spmm_tpu.ops import spmm_xla as j_spmm_xla
+
+    A = tsyn.webgraph_like(64, 400, seed=6)
+    data = A.data.copy()
+    data[0] = np.nan
+    A2 = dataclasses.replace(A, data=data)
+    B = torch.ones((64, 4))
+    y = (ops.spmm_xla(A2.pad(8), B) if path == "spmm_xla" else ops.ell_spmm(ell_pack(A2), B)).numpy()
+    Aj = jsyn.webgraph_like(64, 400, seed=6)
+    yj = np.asarray(j_spmm_xla(dataclasses.replace(Aj, data=data).pad(8).device(), jnp.ones((64, 4))))
+    assert np.isnan(y).any()
+    np.testing.assert_array_equal(np.isnan(y), np.isnan(yj))
