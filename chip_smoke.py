@@ -83,11 +83,21 @@ Phases, each printing one line with its times (CUDA events for kernels,
               one K2 launch each, timed beside that call (CUDA events); then
               ``spgemm_dist_spmd`` and ``spgemm_dist_csr`` on A×A, structure
               equal to scipy's, timed beside ``ops.spgemm`` (without a plan)
-              and ``spgemm_slab_csr``.  (b) four gloo ranks on the host's
+              and ``spgemm_slab_csr``; then ``spgemm_dist_halo``,
+              ``spgemm_dist_halo_exchange``, ``spgemm_dist_plan`` / ``exec``
+              (B replicated and ``b_sharded``), ``spgemm_dist_revalue`` of
+              the all-ones plans to seeded normal values (F1) and
+              ``spgemm_dist_big(pieces=2)`` in both B modes, each exact
+              against scipy (the revalue within 1e-4 of max) with its
+              ``all_to_all_single`` calls counted, timed beside
+              ``spgemm_dist_spmd``, ``ops.spgemm``'s plan reuse and
+              ``spgemm_slab_big(pieces=2)``; last ``dryrun_multichip(1)``
+              with its K2 launches.  (b) four gloo ranks on the host's
               CPUs (the tests' rank pool, ``tests/torch_dist.py``) run every
               entry point on ``webgraph_like(65_536, 365_000, seed=0)`` at
-              k=32 against scipy: the collective logic under this machine's
-              torch, a host run of the plain versions.
+              k=32 against scipy, then ``dryrun_multichip(4)`` on a (2, 2)
+              mesh: the collective logic under this machine's torch, a host
+              run of the plain versions.
 9. report   — one JSON line of per-kernel results (launches of phases 4, 6, 7
               and 8a, the entry points that launched each kernel, phase 3's
               times, bound and library time at the main-path shape), the
@@ -835,6 +845,123 @@ def grad_phase(torch, A, E, Ab, A_band, P, view, dev, rng, paths, root) -> dict:
     return tally
 
 
+def dist_halo_plan_big(torch, A, S, ref_C, mesh, dev, paths, tally) -> str:
+    """Phase 8a's second half: the halo, plan / exec / revalue and
+    big-path entry points at world size 1 on NCCL, each held exact against
+    scipy's A×A (the revalue in value mode within 1e-4 of max), timed
+    (CUDA events around calls that synchronise, mean of 3) beside the
+    single-chip call it mirrors; ``all_to_all_single`` counted around each
+    call; then ``dryrun_multichip(1)`` with its K2 launches counted.
+    Returns the phase's line."""
+    import torch.distributed as dist
+
+    from spmm_tpu_torch import ops
+    from spmm_tpu_torch.entry import dryrun_multichip
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+    from spmm_tpu_torch.parallel import (
+        partition_rows, spgemm_dist_big, spgemm_dist_exec, spgemm_dist_halo,
+        spgemm_dist_halo_exchange, spgemm_dist_plan, spgemm_dist_revalue,
+    )
+
+    spmm_mod = importlib.import_module("spmm_tpu_torch.ops.spmm")  # the module, not ops.spmm
+    a2a, real_a2a = [0], dist.all_to_all_single
+
+    def counted(*a, **k):
+        a2a[0] += 1
+        return real_a2a(*a, **k)
+
+    def exchanges(fn):
+        """(fn(), the all_to_all_single calls it made)."""
+        n0 = a2a[0]
+        out = fn()
+        return out, a2a[0] - n0
+
+    dist.all_to_all_single = counted
+    try:
+        C, n_h = exchanges(lambda: traced(paths, "parallel.spgemm_dist_halo",
+                                          lambda: spgemm_dist_halo(S, A, mesh), tally))
+        held_against(C, ref_C, "spgemm_dist_halo")
+        C, n_hx = exchanges(lambda: traced(paths, "parallel.spgemm_dist_halo_exchange",
+                                           lambda: spgemm_dist_halo_exchange(S, A, mesh), tally))
+        held_against(C, ref_C, "spgemm_dist_halo_exchange")
+        require(n_h == 0 and n_hx >= 1, f"all_to_all_single calls: halo {n_h}, halo exchange {n_hx}")
+        plans, n_plan, n_exec, t_plan = {}, {}, {}, {}
+        for bs in (False, True):
+            (plans[bs], n_plan[bs]), t_plan[bs] = host_timed(torch, lambda: exchanges(
+                lambda: traced(paths, "parallel.spgemm_dist_plan",
+                               lambda: spgemm_dist_plan(S, A, mesh, b_sharded=bs), tally)))
+            n_exec[bs] = 0
+            for _ in range(2):
+                C, n = exchanges(lambda: traced(paths, "parallel.spgemm_dist_exec",
+                                                lambda: spgemm_dist_exec(plans[bs], mesh), tally))
+                held_against(C, ref_C, f"spgemm_dist_exec (b_sharded={bs})")
+                n_exec[bs] += n
+        require(n_plan[False] == 0 and n_plan[True] >= 1 and n_exec == {False: 0, True: 0},
+                f"all_to_all_single calls: plan {n_plan}, exec {n_exec}")
+        # F1: the all-ones plans revalued with seeded normal values
+        Av = dataclasses.replace(A, data=np.random.default_rng(91).standard_normal(
+            np.asarray(A.data).shape[0]).astype(np.float32))
+        Sv = partition_rows(Av, 1)
+        ref_v, t_ref_v = host_timed(torch, lambda: scipy_square(Av.to_scipy()))
+        err_v, t_rev = {}, {}
+        for bs in (False, True):
+            require(plans[bs].pattern, "the plan of A's all-ones values is not in pattern mode")
+            pv, t_rev[bs] = host_timed(torch, lambda: traced(
+                paths, "parallel.spgemm_dist_revalue", lambda: spgemm_dist_revalue(plans[bs], Sv, Av, mesh),
+                tally))
+            require(not pv.pattern, "the revalued plan stayed in pattern mode (F1)")
+            Cv = traced(paths, "parallel.spgemm_dist_exec", lambda: spgemm_dist_exec(pv, mesh), tally)
+            err_v[bs] = held_against(Cv, ref_v, f"spgemm_dist_revalue (b_sharded={bs})", rtol=1e-4)
+            del pv, Cv
+        for bs in (False, True):
+            C = traced(paths, "parallel.spgemm_dist_big",
+                       lambda: spgemm_dist_big(A, A, mesh, pieces=2, b_sharded=bs), tally)
+            held_against(C, ref_C, f"spgemm_dist_big (b_sharded={bs})")
+        del C
+        gm = {
+            "halo": cuda_ms(torch, lambda: spgemm_dist_halo(S, A, mesh), iters=3, warmup=1),
+            "halo_exchange": cuda_ms(torch, lambda: spgemm_dist_halo_exchange(S, A, mesh), iters=3,
+                                     warmup=1),
+            "exec": cuda_ms(torch, lambda: spgemm_dist_exec(plans[False], mesh), iters=3, warmup=1),
+            "exec b_sharded": cuda_ms(torch, lambda: spgemm_dist_exec(plans[True], mesh), iters=3,
+                                      warmup=1),
+            # the plan reuse of two calls on the same operands (the first builds it)
+            "ops.spgemm warm": cuda_ms(torch, lambda: ops.spgemm(A, A), iters=3, warmup=2),
+            "big": cuda_ms(torch, lambda: spgemm_dist_big(A, A, mesh, pieces=2), iters=3, warmup=1),
+            "big b_sharded": cuda_ms(torch, lambda: spgemm_dist_big(A, A, mesh, pieces=2, b_sharded=True),
+                                     iters=3, warmup=1),
+            "spgemm_slab_big": cuda_ms(torch, lambda: ss.spgemm_slab_big(A, A, pieces=2, device=dev),
+                                       iters=3, warmup=1),
+        }
+        del plans
+        # the dryrun's tiny ring products take K2's route with the pack
+        # threshold at 0, as a full-size shard's do above it
+        thr = spmm_mod.AUTO_ELL_THRESHOLD
+        spmm_mod.AUTO_ELL_THRESHOLD = 0
+        try:
+            before = counters()["ell_slab_spmm"]
+            _, t_dry = host_timed(torch, lambda: traced(paths, "entry.dryrun_multichip",
+                                                        lambda: dryrun_multichip(1), tally))
+            k2_dry = counters()["ell_slab_spmm"] - before
+        finally:
+            spmm_mod.AUTO_ELL_THRESHOLD = thr
+        require(k2_dry >= 2, f"dryrun_multichip(1) launched K2 {k2_dry} times, expected >= 2")
+    finally:
+        dist.all_to_all_single = real_a2a
+    return (f"phase 8a halo / plan / big (A×A exact against scipy from every entry point; "
+            f"all_to_all_single calls: halo {n_h}, halo exchange {n_hx}, plan {n_plan[False]} / b_sharded "
+            f"{n_plan[True]}, 2 execs {n_exec[False]} / {n_exec[True]}): halo {gm['halo']:.1f} ms, halo "
+            f"exchange {gm['halo_exchange']:.1f} | plan build {t_plan[False]:.1f} / b_sharded "
+            f"{t_plan[True]:.1f} ms (host, first call), exec {gm['exec']:.1f} / b_sharded "
+            f"{gm['exec b_sharded']:.1f} vs ops.spgemm warm (plan reuse) {gm['ops.spgemm warm']:.1f} | "
+            f"revalue of the all-ones plans to normal values (F1) {t_rev[False]:.1f} / {t_rev[True]:.1f} ms "
+            f"(host), max_abs_err {err_v[False]:.3e} / {err_v[True]:.3e} (tol 1e-4 of max {float(np.abs(ref_v.data).max()):.3e}; "
+            f"scipy {t_ref_v:.1f} ms) | big pieces=2 {gm['big']:.1f} / b_sharded {gm['big b_sharded']:.1f} vs "
+            f"spgemm_slab_big(pieces=2) {gm['spgemm_slab_big']:.1f} (CUDA events around calls that "
+            f"synchronise, mean of 3) | dryrun_multichip(1) {t_dry:.1f} ms (host), {k2_dry} K2 launches "
+            f"(pack threshold 0 for its tiny shapes)")
+
+
 #: the graph of phase 8b (four gloo ranks on the host's CPUs): web-Google's
 #: mean degree on 65,536 nodes, with k = 32
 GLOO_N, GLOO_NNZ, GLOO_K = 65_536, 365_000, 32
@@ -937,6 +1064,8 @@ def dist_phase(torch, A, ref_C, dev, rng, paths, root) -> dict:
             f"spgemm_dist_spmd {gm['spgemm_dist_spmd']:.1f} ms vs ops.spgemm (no plan) {gm['ops.spgemm']:.1f} | "
             f"spgemm_dist_csr {gm['spgemm_dist_csr']:.1f} ms vs spgemm_slab_csr {gm['spgemm_slab_csr']:.1f} "
             f"(CUDA events around calls that synchronise, mean of 3) | launches on the path {tally}")
+        say(dist_halo_plan_big(torch, A, S, ref_C, mesh, dev, paths, tally))
+        say(f"phase 8a launches on the path {tally}")
     finally:
         dist.destroy_process_group()
 
@@ -978,6 +1107,40 @@ def dist_phase(torch, A, ref_C, dev, rng, paths, root) -> dict:
         require(all(o["nnz"] == refCg.nnz for o in outs), "gloo spgemm_dist_csr: nnz differs")
         held_against(unshard_csr_rows(G), refCg, "gloo spgemm_dist_csr")
         host["spgemm_dist_csr"] = max(o["ms"] for o in outs)
+        # the halo, plan / exec / revalue and big-path entry points
+        for name in ("spgemm_dist_halo", "spgemm_dist_halo_exchange"):
+            outs = pool.run(torch_dist.halo_task, name, Sg, Ag)
+            for o in outs:
+                held_against(o["C"], refCg, f"gloo {name}")
+            require(all(len(o["a2a"]) == (name == "spgemm_dist_halo_exchange") for o in outs),
+                    f"gloo {name}: all_to_all_single calls {[o['a2a'] for o in outs]}")
+            host[name] = max(o["ms"] for o in outs)
+        for bs in (False, True):
+            outs = pool.run(torch_dist.plan_task, Sg, Ag, b_sharded=bs)
+            for o in outs:
+                for C in o["C"]:
+                    held_against(C, refCg, f"gloo spgemm_dist_plan / exec (b_sharded={bs})")
+                require(len(o["plan"]["a2a"]) == bs and not o["exec"]["a2a"],
+                        f"gloo plan / exec: all_to_all_single calls {o['plan']['a2a']} / {o['exec']['a2a']}")
+            tag = " b_sharded" if bs else ""
+            host["spgemm_dist_plan" + tag] = max(o["ms"]["plan"] for o in outs)
+            host["spgemm_dist_exec" + tag] = max(o["ms"]["exec"] for o in outs)
+        Ag2 = dc.replace(Ag, data=rng.standard_normal(np.asarray(Ag.data).shape[0]).astype(np.float32))
+        refCg2 = scipy_square(Ag2.to_scipy())
+        for bs in (False, True):  # F1: an all-ones plan revalued with normal values
+            outs = pool.run(torch_dist.revalue_task, Sg, Ag, partition_rows(Ag2, nr), Ag2, (Sg, Ag),
+                            b_sharded=bs)
+            for o in outs:
+                require(o["patterns"] == (True, False), f"gloo revalue: pattern modes {o['patterns']}")
+                held_against(o["C"], refCg2, f"gloo spgemm_dist_revalue (b_sharded={bs})", rtol=1e-4)
+        for bs in (False, True):
+            outs = pool.run(torch_dist.big_task, Ag, Ag, pieces=2, b_sharded=bs)
+            for o in outs:
+                held_against(o["C"], refCg, f"gloo spgemm_dist_big (b_sharded={bs})")
+            host["spgemm_dist_big" + (" b_sharded" if bs else "")] = max(o["ms"] for o in outs)
+        outs = pool.run(torch_dist.dryrun_task, nr, timeout=300)
+        require(len(outs[0]["out"].splitlines()) == 10 and "mesh={'rows': 2, 'cols': 2}" in outs[0]["out"],
+                f"gloo dryrun_multichip({nr}) printed: {outs[0]['out']!r}")
         env = pool.run(torch_dist.env_task)
         require(not any(e["jax"] for e in env), "a gloo rank loaded JAX")
     finally:
@@ -985,8 +1148,9 @@ def dist_phase(torch, A, ref_C, dev, rng, paths, root) -> dict:
     say(f"phase 8b {nr} gloo ranks on this host's CPUs (torch {torch.__version__}, one thread each; a host "
         f"run of the plain versions, no card): webgraph ({GLOO_N}, {GLOO_N}) nnz {Ag.nnz} (web-Google cut to "
         f"{GLOO_N} nodes at its mean degree), k={GLOO_K}, every entry point against scipy | host ms per call "
-        f"(SpMM: the second of two calls, SpGEMM: its one call), slowest rank: "
+        f"(SpMM: the second of two calls, SpGEMM: its one call, exec: the second of two), slowest rank: "
         + " | ".join(f"{n_} {v:.1f}" for n_, v in host.items())
+        + f" | dryrun_multichip({nr}) on a (2, 2) mesh: its 10 lines OK"
         + f" | phase 8b took {time.perf_counter() - t0:.1f} s, phase 8 {time.perf_counter() - t_phase:.1f} s")
     return tally
 

@@ -984,11 +984,12 @@ def _piece_exec(A_piece: CSR, rows_sorted, sc, B_dev: CSR, *, W, npa_pad, nsegB_
     return t.rows_sorted, outs
 
 
-def _piece_kw(Bh: CSR, W: int, npa_max: int, rows_pad: int, sched, starts, accum_dtype,
+def _piece_kw(b_iptr, W: int, npa_max: int, rows_pad: int, sched, starts, accum_dtype,
               pattern: bool) -> dict:
     """The ``_piece_exec`` keywords every piece of one uniform schedule
-    shares (``sched`` / ``starts`` from ``_uniform_schedule``)."""
-    b_iptr64 = np.asarray(Bh.indptr, np.int64)
+    shares (``sched`` / ``starts`` from ``_uniform_schedule``); ``b_iptr`` is
+    the host indptr of the B the pieces multiply."""
+    b_iptr64 = np.asarray(b_iptr, np.int64)
     nsegB = int(((b_iptr64[1:] - b_iptr64[:-1] + W - 1) // W).sum())
     # a piece's rows_sorted/rowmeta cover the furthest chunk of any piece
     # (start + R_pad), so no chunk's slice comes back short; max_chunk rows
@@ -1006,35 +1007,43 @@ def _piece_kw(Bh: CSR, W: int, npa_max: int, rows_pad: int, sched, starts, accum
     )
 
 
-def _piece_csr(sub: CSR, cls, counts, sc, B_dev: CSR, Bh: CSR, dev, *, nclasses: int,
-               nnz_pad: int, kw: dict) -> CSR:
+def _piece_csr(sub: CSR, cls, counts, sc, B_dev: CSR, dev, *, nclasses: int, nnz_pad: int,
+               kw: dict) -> CSR:
     """One uniform piece (or shard) of a row-partitioned product as its local
     CSR (the piece's rows, B's columns): ``cls`` / ``counts`` are its rows'
     classes and class counts from ``_per_shard_sizing``, ``sc`` its (start,
     count) per chunk, ``kw`` the shared ``_piece_exec`` keywords.  Without
     tail rows the chunks compact on the device (``nnz_pad`` bounds the
     output) and the CSR stays there; with tail rows the chunks are pulled,
-    the tail rows' global-sort products added, and the CSR is a host one."""
-    rows_pad, ncol = sub.shape[0], Bh.shape[1]
+    the tail rows' global-sort products of ``sub`` with ``B_dev`` itself
+    added, and the CSR is a host one."""
     accum_dtype = kw["accum_dtype"]
     rows_sorted = _stable_argsort_smallint(np.asarray(cls), nclasses + 2).astype(np.int32)
     _, outs = _piece_exec(sub.to(dev), torch.from_numpy(rows_sorted).to(dev), sc, B_dev, **kw)
     nt = int(counts[nclasses])
-    if nt == 0 and not outs:  # the piece holds only empty rows
+    tail = None
+    if nt:
+        base = int(np.asarray(counts)[:nclasses].sum())
+        trows = rows_sorted[base : base + nt].astype(np.int64)
+        tail = _tail_products(sub.host(), trows, B_dev, accum_dtype, dev)
+    return _local_csr(outs, tail, (sub.shape[0], B_dev.shape[1]), nnz_pad, accum_dtype, dev)
+
+
+def _local_csr(outs, tail, shape, nnz_pad: int, accum_dtype, dev) -> CSR:
+    """A piece's (or shard's) chunk outputs and its tail rows' products
+    (``(rows, cols, vals)`` host arrays, or None) as its local CSR: compacted
+    on the device without tail rows, assembled on the host with them."""
+    if tail is None and not outs:  # the piece holds only empty rows
         return CSR(data=torch.zeros(0, dtype=_torch_dtype(accum_dtype), device=dev),
                    indices=torch.zeros(0, dtype=torch.int32, device=dev),
-                   indptr=torch.zeros(rows_pad + 1, dtype=torch.int64, device=dev),
-                   shape=(rows_pad, ncol), nnz=0)
-    if nt == 0:
-        return _csr_of(outs, (rows_pad, ncol), nnz_pad, accum_dtype, dev)
+                   indptr=torch.zeros(shape[0] + 1, dtype=torch.int64, device=dev),
+                   shape=shape, nnz=0)
+    if tail is None:
+        return _csr_of(outs, shape, nnz_pad, accum_dtype, dev)
     rows_l, cols_l, vals_l = _pull_chunks(outs)
-    base = int(np.asarray(counts)[:nclasses].sum())
-    trows = rows_sorted[base : base + nt].astype(np.int64)
-    tr, tc, tv = _tail_products(sub.host(), trows, Bh, accum_dtype, dev)
-    rows_l.append(tr)
-    cols_l.append(tc)
-    vals_l.append(tv)
-    return _assemble_csr(*_concat(rows_l, cols_l, vals_l, accum_dtype), (rows_pad, ncol))
+    for acc, x in zip((rows_l, cols_l, vals_l), tail):
+        acc.append(x)
+    return _assemble_csr(*_concat(rows_l, cols_l, vals_l, accum_dtype), shape)
 
 
 #: a piece file that these errors come from is torn (a crash mid-write) and
@@ -1050,11 +1059,18 @@ class _BigCheckpoint:
     finished piece's CSR triple is written atomically (one .npz per piece),
     and a manifest pins the product it belongs to: a re-run with the same
     ``checkpoint_dir`` skips finished pieces, and a manifest mismatch
-    (other operands or config) raises rather than mixing two products."""
+    (other operands or config) raises rather than mixing two products.
 
-    def __init__(self, path, A, B, P, classes, W, slot_budget, accum, pattern):
+    ``extra`` adds keys to the manifest (the distributed big path pins its
+    shard count and B layout).  Where several processes share the directory,
+    one writes (``writer=True``: it writes the manifest and drops stale or
+    torn files) and the others only read, after it: a reader finds no
+    manifest, or a different one, and raises."""
+
+    def __init__(self, path, A, B, P, classes, W, slot_budget, accum, pattern, extra=None,
+                 writer: bool = True):
         self.dir = path
-        os.makedirs(path, exist_ok=True)
+        self.writer = writer
         manifest = {
             # repr strings: a NaN in the data would make the JSON round trip
             # compare NaN != NaN and refuse a valid resume
@@ -1068,6 +1084,7 @@ class _BigCheckpoint:
             "slot_budget": int(slot_budget),
             "accum_dtype": accum,
             "pattern": bool(pattern),
+            **(extra or {}),
         }
         mpath = os.path.join(path, "manifest.json")
         prev = None
@@ -1083,7 +1100,13 @@ class _BigCheckpoint:
                     f"checkpoint dir {path!r} holds a different product/config "
                     "(manifest mismatch); point at a fresh directory"
                 )
+        elif not writer:
+            raise ValueError(
+                f"checkpoint dir {path!r} holds no manifest after its writer made it: "
+                "it must be a directory that every process sees"
+            )
         else:
+            os.makedirs(path, exist_ok=True)
             # no (or a torn) manifest: piece files present are unattributable
             for fp in glob.glob(os.path.join(path, "piece_*.npz")):
                 os.remove(fp)
@@ -1103,7 +1126,8 @@ class _BigCheckpoint:
             with np.load(fp) as z:
                 return [z[k] for k in keys]
         except _TORN_PIECE_ERRORS:
-            os.remove(fp)
+            if self.writer:  # a reader leaves the file to the writer
+                os.remove(fp)
             return None
 
     def _write(self, p: int, arrays: dict) -> None:
@@ -1156,8 +1180,7 @@ def spgemm_slab_big(
 
     ``checkpoint_dir``: persist each finished piece and resume a killed run
     from them (:class:`_BigCheckpoint`).  The caller owns the directory."""
-    from spmm_tpu_torch.parallel.partition import partition_rows
-    from spmm_tpu_torch.parallel.spgemm_spmd import _per_shard_sizing, _uniform_schedule
+    from spmm_tpu_torch.parallel.spgemm_spmd import _uniform_schedule
 
     dev = compute_device(device)
     W = seg_w
@@ -1165,25 +1188,8 @@ def spgemm_slab_big(
     if pattern is None:
         pattern = _is_pattern(A) and _is_pattern(B)
 
-    P = pieces or pieces_hint or 2
-    while True:
-        S = partition_rows(A, P)
-        # one row alone can exceed the budget (it becomes a tail row): stop
-        # splitting at one-row pieces
-        at_min = S.rows_per_shard <= 1 or P >= A.nrow
-        try:
-            cls, counts, npa_max, nnz_s, npa_body = _per_shard_sizing(S, B, W, classes)
-        except ValueError:  # a piece still exceeds the int32 expansion
-            if at_min:
-                raise
-            P *= 2
-            continue
-        # the budget holds the slab slots only: tail rows take the ESC
-        body_max = int(npa_body.max(initial=0))
-        if pieces is not None or body_max * W <= _MAX_EXP_PAD or at_min:
-            break
-        P *= 2
-
+    P, S, (cls, counts, npa_max, nnz_s, _), body_max = _choose_pieces(
+        A, B, W, classes, pieces, pieces_hint or 2)
     sched, starts, cnts, _ = _uniform_schedule(
         classes=classes, counts=counts[:, : len(classes) + 1], slot_budget=slot_budget
     )
@@ -1191,7 +1197,7 @@ def spgemm_slab_big(
 
     Bh = B.host()
     rows_pad = S.rows_per_shard
-    kw = _piece_kw(Bh, W, npa_max, rows_pad, sched, starts, accum_dtype, pattern)
+    kw = _piece_kw(Bh.indptr, W, npa_max, rows_pad, sched, starts, accum_dtype, pattern)
     B_dev = Bh.to(dev)
 
     # per piece: (data, indices, local indptr) as tight host arrays
@@ -1214,27 +1220,62 @@ def spgemm_slab_big(
             data=S.data[p], indices=S.indices[p], indptr=S.indptr[p].astype(np.int64),
             shape=(rows_pad, A.shape[1]), nnz=int(nnz_s[p]),
         )
-        Cp = _csr_to_host(_piece_csr(sub, cls[p], counts[p], sc_tab[p], B_dev, Bh, dev,
+        Cp = _csr_to_host(_piece_csr(sub, cls[p], counts[p], sc_tab[p], B_dev, dev,
                                      nclasses=len(classes), nnz_pad=nnz_pad_piece, kw=kw))
         piece = (Cp.data, Cp.indices, Cp.indptr)
         piece_csrs.append(piece)
         if ckpt is not None:
             ckpt.save(p, piece)
 
-    # stitch the ordered row-block CSRs; crop padded rows past A.nrow
-    iptrs = []
-    off = 0
-    for i, (_, _, ip) in enumerate(piece_csrs):
-        ip = ip + off
+    return _stitch(piece_csrs, A.nrow, B.ncol)
+
+
+def _choose_pieces(A: CSR, B: CSR, W: int, classes, pieces: int | None, P0: int, nsh: int = 1):
+    """The piece count of a streamed product: A's rows cut into ``nsh * P``
+    uniform blocks (``nsh`` shards of ``P`` pieces each), ``P`` as given by
+    ``pieces``, else from ``P0`` doubled until every block's slab slots fit
+    ``_MAX_EXP_PAD`` (tail rows' pairs take none) or the blocks are one row.
+    A block whose expansion overflows int32 doubles ``P`` in either case.
+    Returns (P, the blocks' ShardedCSR, their ``_per_shard_sizing``, the
+    largest block's body pairs)."""
+    from spmm_tpu_torch.parallel.partition import partition_rows
+    from spmm_tpu_torch.parallel.spgemm_spmd import _per_shard_sizing
+
+    P = pieces or P0
+    while True:
+        S = partition_rows(A, nsh * P)
+        # one row alone can exceed the budget (it becomes a tail row): stop
+        # splitting at one-row blocks
+        at_min = S.rows_per_shard <= 1 or nsh * P >= A.nrow
+        try:
+            sizing = _per_shard_sizing(S, B, W, classes)
+        except ValueError:  # a block still exceeds the int32 expansion
+            if at_min:
+                raise
+            P *= 2
+            continue
+        body_max = int(sizing[4].max(initial=0))
+        if pieces is not None or body_max * W <= _MAX_EXP_PAD or at_min:
+            return P, S, sizing, body_max
+        P *= 2
+
+
+def _stitch(triples, nrow: int, ncol: int) -> CSR:
+    """Row-block CSR triples ``(data, indices, local indptr)`` in global row
+    order as one host CSR; the rows past ``nrow`` (the last block's padding)
+    are cropped."""
+    iptrs, off = [], 0
+    for i, (_, _, ip) in enumerate(triples):
+        ip = np.asarray(ip, np.int64) + off
         iptrs.append(ip if i == 0 else ip[1:])
         off = int(ip[-1])
-    indptr_full = np.concatenate(iptrs)
+    indptr = np.concatenate(iptrs)
     return CSR(
-        data=np.concatenate([c[0] for c in piece_csrs]),
-        indices=np.concatenate([c[1] for c in piece_csrs]),
-        indptr=indptr_full[: A.nrow + 1],
-        shape=(A.nrow, B.ncol),
-        nnz=int(indptr_full[A.nrow]),
+        data=np.concatenate([t[0] for t in triples]),
+        indices=np.concatenate([t[1] for t in triples]).astype(np.int32, copy=False),
+        indptr=indptr[: nrow + 1],
+        shape=(nrow, ncol),
+        nnz=int(indptr[nrow]),
     )
 
 
@@ -1255,14 +1296,18 @@ def _pull_chunks(outs):
     return rows_l, cols_l, vals_l
 
 
-def _tail_products(H: CSR, trows: np.ndarray, Bh: CSR, accum_dtype, device):
+def _tail_products(H: CSR, trows: np.ndarray, B: CSR, accum_dtype, device):
     """Heavy-tail rows through the global-sort ESC on ``device``: products of
-    ``H``'s rows ``trows`` with B, in ``accum_dtype`` like the slab rows.
-    Returns (rows in H's row space, cols, vals)."""
+    ``H``'s rows ``trows`` with B (on the host or on ``device``: it is not
+    copied again), in ``accum_dtype`` like the slab rows.  Returns (rows in
+    H's row space, cols, vals)."""
     npdt = np.dtype(_dtype_name(accum_dtype))
     sub = _take_rows(H, trows)
     sub = dataclasses.replace(sub, data=np.asarray(sub.data, npdt))
-    Bc = dataclasses.replace(Bh, data=np.asarray(Bh.data, npdt))
+    if isinstance(B.data, torch.Tensor):
+        Bc = dataclasses.replace(B, data=B.data.to(_torch_dtype(accum_dtype)))
+    else:
+        Bc = dataclasses.replace(B, data=np.asarray(B.data, npdt))
     Ct = spgemm_sorted(sub, Bc, device=device, as_csr=False)
     return (
         trows[np.asarray(Ct.row[: Ct.nnz], np.int64)],

@@ -20,7 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from spmm_tpu_torch.formats.containers import COO, CSR, as_tensor, compute_device, to_csr
+from spmm_tpu_torch.formats.containers import COO, CSR, as_numpy, as_tensor, compute_device, to_csr
 from spmm_tpu_torch.ops.segments import SegmentPlan, boundary_segments, segment_sum
 
 _INVALID = torch.iinfo(torch.int64).max
@@ -96,7 +96,8 @@ def spgemm(
     """Global-sort ESC driver: exact host sizing, row chunks of at most
     ``max_expand_per_chunk`` partial products (one row may exceed it alone),
     the ESC of each chunk on ``device`` (the card unless the caller names
-    another), host concatenation.  Returns a host CSR (or COO)."""
+    another), host concatenation.  B may be host- or ``device``-held.
+    Returns a host CSR (or COO)."""
     device = compute_device(device)
     if A.nnz == 0 or B.nnz == 0:
         out = COO(
@@ -108,7 +109,7 @@ def spgemm(
         )
         return to_csr(out) if as_csr else out
     Ah = A.host()
-    lbB = np.asarray(B.host().indptr, dtype=np.int64)
+    lbB = as_numpy(B.indptr).astype(np.int64)  # B may lie on the device: its indptr alone
     lb = lbB[1:] - lbB[:-1]
     a_ind = np.asarray(Ah.indices[: A.nnz], dtype=np.int64)
     per_nnz = lb[a_ind]

@@ -13,7 +13,16 @@ from spmm_tpu_torch.parallel.spmm_dist import (
     spmm_dist_ring,
     spmv_dist,
 )
-from spmm_tpu_torch.parallel.spgemm_spmd import spgemm_dist_csr, spgemm_dist_spmd
+from spmm_tpu_torch.parallel.spgemm_spmd import (
+    spgemm_dist_big,
+    spgemm_dist_csr,
+    spgemm_dist_exec,
+    spgemm_dist_halo,
+    spgemm_dist_halo_exchange,
+    spgemm_dist_plan,
+    spgemm_dist_revalue,
+    spgemm_dist_spmd,
+)
 
 __all__ = [
     "make_mesh",
@@ -27,6 +36,12 @@ __all__ = [
     "spmm_dist_colsplit",
     "spmm_dist_ring",
     "spmv_dist",
+    "spgemm_dist_big",
     "spgemm_dist_csr",
+    "spgemm_dist_exec",
+    "spgemm_dist_plan",
+    "spgemm_dist_revalue",
+    "spgemm_dist_halo",
+    "spgemm_dist_halo_exchange",
     "spgemm_dist_spmd",
 ]

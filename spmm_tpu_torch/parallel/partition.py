@@ -43,13 +43,18 @@ class ShardedCSR(Container):
     nnz: int
 
 
+def rows_per_shard(m: int, n_shards: int) -> int:
+    """The height of :func:`partition_rows`' blocks of an m-row matrix."""
+    return _round_up((m + n_shards - 1) // n_shards, 8)
+
+
 def partition_rows(A: CSR, n_shards: int, *, nnz_align: int = 128) -> ShardedCSR:
     """Split A into ``n_shards`` equal row blocks (row-balanced; for
     nnz-balanced splits preprocess first — the bitmap reorder clusters heavy
     rows so equal-nnz splits follow from region boundaries)."""
     h = A.host()
     m, n = A.shape
-    rows_per = _round_up((m + n_shards - 1) // n_shards, 8)
+    rows_per = rows_per_shard(m, n_shards)
     indptr = np.asarray(h.indptr, dtype=np.int64)
     starts = np.minimum(np.arange(n_shards, dtype=np.int64) * rows_per, m)
     ends = np.minimum(starts + rows_per, m)

@@ -987,3 +987,88 @@ def test_dist_refuses_host_tensors_on_nccl(nccl_mesh):
     S = parallel.partition_rows(tsyn.random_csr(64, 64, 0.1, seed=0), 1)
     with pytest.raises(ValueError, match="lies on cpu"):
         parallel.spmm_dist(S, torch.zeros((64, 4)), nccl_mesh)
+
+
+def _dist_case(case):
+    """(A, keywords) of the card's distributed SpGEMM tests."""
+    import scipy.sparse as sp
+
+    if case == "pattern":
+        return tsyn.webgraph_like(2400, 12000, seed=17), {}
+    if case == "values":
+        A = tsyn.webgraph_like(2400, 12000, seed=17)
+        vals = np.random.default_rng(17).standard_normal(A.data.shape).astype(np.float32)
+        return dataclasses.replace(A, data=vals), {}
+    M = sp.random(600, 600, density=0.01, random_state=3, format="lil", dtype=np.float32)
+    M[5, :] = np.random.default_rng(3).standard_normal(600)
+    return CSR.from_scipy(M.tocsr()), {"classes": (4, 8, 16)}
+
+
+def _exact(C, ref):
+    assert C.nnz == ref.nnz
+    np.testing.assert_array_equal(np.asarray(C.indptr, np.int64), ref.indptr)
+    np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
+    np.testing.assert_allclose(C.data[: C.nnz], ref.data, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pattern", "values", "tail"])
+def test_dist_halo_plan_big_at_world_size_1_on_card(nccl_mesh, case, monkeypatch):
+    """The halo, plan / exec / revalue and big-path entry points on the
+    card: A×A's structure equal to scipy's, values within 1e-4 (counts exact
+    in pattern mode); ``all_to_all_single`` runs in the halo exchange and
+    the ``b_sharded`` plan, never in an exec; an all-ones plan revalued with
+    normal values gives their product (F1)."""
+    import torch.distributed as dist
+
+    from spmm_tpu_torch import parallel
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+    from spmm_tpu_torch.parallel.spgemm_spmd import partition_halo
+
+    calls, esc_b = [], []
+    real = dist.all_to_all_single
+    monkeypatch.setattr(dist, "all_to_all_single", lambda *a, **k: calls.append(1) or real(*a, **k))
+    real_esc = ss.spgemm_sorted
+    monkeypatch.setattr(ss, "spgemm_sorted",
+                        lambda M, B, *a, **k: esc_b.append((B.indices.is_cuda, B.nnz)) or real_esc(M, B, *a, **k))
+    A, kw = _dist_case(case)
+    ref = (A.to_scipy() @ A.to_scipy()).tocsr()
+    ref.sort_indices()
+    S = parallel.partition_rows(A, 1)
+    halo_nnz = int(partition_halo(S, A, structure_only=True)[1][0, -1])
+    _exact(parallel.spgemm_dist_halo(S, A, nccl_mesh, **kw), ref)
+    assert calls == []
+    _exact(parallel.spgemm_dist_halo_exchange(S, A, nccl_mesh, **kw), ref)
+    assert len(calls) == (1 if case == "pattern" else 2)
+    # the tail rows' ESC multiplies the halo on the card, not a copy of B
+    assert esc_b == ([(True, halo_nnz)] * 2 if case == "tail" else [])
+    for bs in (False, True):
+        del calls[:]
+        plan = parallel.spgemm_dist_plan(S, A, nccl_mesh, b_sharded=bs, **kw)
+        assert len(calls) == (0 if not bs else 1 if case == "pattern" else 2)
+        assert all(x.is_cuda for x in plan.aligned_cols + plan.aligned_vals)
+        for _ in range(2):
+            _exact(parallel.spgemm_dist_exec(plan, nccl_mesh), ref)
+        assert len(calls) == (0 if not bs else 1 if case == "pattern" else 2)
+        A2 = dataclasses.replace(A, data=np.random.default_rng(5).standard_normal(A.data.shape).astype(np.float32))
+        ref2 = (A2.to_scipy() @ A2.to_scipy()).tocsr()
+        ref2.sort_indices()
+        plan2 = parallel.spgemm_dist_revalue(plan, parallel.partition_rows(A2, 1), A2, nccl_mesh)
+        assert plan.pattern == (case == "pattern") and not plan2.pattern
+        _exact(parallel.spgemm_dist_exec(plan2, nccl_mesh), ref2)
+        _exact(parallel.spgemm_dist_big(A, A, nccl_mesh, pieces=2, b_sharded=bs, **kw), ref)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_at_world_size_1_on_card(nccl_mesh, monkeypatch, capsys):
+    """``dryrun_multichip(1)`` on the card prints its ten lines; with the
+    pack threshold at 0 its two ring products and the column-split product
+    launch K2."""
+    from spmm_tpu_torch.entry import dryrun_multichip
+
+    monkeypatch.setattr(importlib.import_module("spmm_tpu_torch.ops.spmm"), "AUTO_ELL_THRESHOLD", 0)
+    n0 = ell_kernel.launches
+    dryrun_multichip(1)
+    assert ell_kernel.launches - n0 >= 3
+    lines = capsys.readouterr().out.splitlines()
+    assert len([ln for ln in lines if ln.startswith("dryrun") and " OK" in ln]) == 10

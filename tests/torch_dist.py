@@ -21,7 +21,9 @@ reasoning: six test workers already share the CPUs).
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import io
 import multiprocessing
 import queue
 import socket
@@ -293,6 +295,208 @@ def spgemm_csr_task(S, B, **kw) -> dict:
     ms = (time.perf_counter() - t0) * 1e3
     return {"tensors": all(isinstance(x, torch.Tensor) for x in (C.data, C.indices, C.indptr)),
             "block": C.host(), "nnz": C.nnz, "ms": ms}
+
+
+@contextlib.contextmanager
+def _watch():
+    """Record on this rank, while the block runs: the payload dtype of every
+    ``all_to_all_single``, the (rows, nnz, device type) of every B that
+    reached the slab tables (``_plan_tables``) and of every B that the tail
+    rows' global-sort ESC multiplied (``spgemm_sorted``), the nnz of every
+    block of B this rank sent its share of the halos from, and the number of
+    pieces ``_piece_csr`` computed."""
+    import torch.distributed as dist
+
+    from spmm_tpu_torch.ops import slab_spgemm
+    from spmm_tpu_torch.parallel import spgemm_spmd
+
+    seen = {"a2a": [], "b": [], "sorted": [], "block": [], "pieces": 0}
+    real_a2a, real_tables, real_sorted, real_piece, real_body = (
+        dist.all_to_all_single, slab_spgemm._plan_tables, slab_spgemm.spgemm_sorted,
+        spgemm_spmd._piece_csr, spgemm_spmd._exchange_halo_body)
+
+    def a2a(out, inp, *a, **k):
+        seen["a2a"].append(str(inp.dtype).removeprefix("torch."))
+        return real_a2a(out, inp, *a, **k)
+
+    def tables(A, B, *a, **k):
+        seen["b"].append((int(B.shape[0]), int(B.nnz), B.indices.device.type))
+        return real_tables(A, B, *a, **k)
+
+    def esc(A, B, *a, **k):
+        seen["sorted"].append((int(B.shape[0]), int(B.nnz), B.indices.device.type
+                               if isinstance(B.indices, torch.Tensor) else "host"))
+        return real_sorted(A, B, *a, **k)
+
+    def piece(*a, **k):
+        seen["pieces"] += 1
+        return real_piece(*a, **k)
+
+    def body(block, *a, **k):
+        seen["block"].append(int(block.nnz))
+        return real_body(block, *a, **k)
+
+    dist.all_to_all_single = a2a
+    slab_spgemm._plan_tables = spgemm_spmd._plan_tables = tables
+    slab_spgemm.spgemm_sorted = esc
+    spgemm_spmd._piece_csr, spgemm_spmd._exchange_halo_body = piece, body
+    try:
+        yield seen
+    finally:
+        dist.all_to_all_single = real_a2a
+        slab_spgemm._plan_tables = spgemm_spmd._plan_tables = real_tables
+        slab_spgemm.spgemm_sorted = real_sorted
+        spgemm_spmd._piece_csr, spgemm_spmd._exchange_halo_body = real_piece, real_body
+
+
+def halo_task(name: str, S, B, **kw) -> dict:
+    """``spgemm_dist_halo`` or ``spgemm_dist_halo_exchange``: the global host
+    CSR this rank returns and the call's host ms, with what ``_watch`` saw
+    during the call."""
+    from spmm_tpu_torch import parallel
+
+    mesh = _cpu_mesh()
+    t0 = time.perf_counter()
+    with _watch() as seen:
+        C = getattr(parallel, name)(S, B, mesh, **kw)
+    return {"C": C.host(), "ms": (time.perf_counter() - t0) * 1e3, **seen}
+
+
+def plan_task(S, B, **kw) -> dict:
+    """``spgemm_dist_plan`` then ``spgemm_dist_exec`` twice: both global
+    CSRs, what ``_watch`` saw during the plan and during the two execs,
+    where the plan's blocks lie, and the host ms of the plan and of the
+    second exec."""
+    from spmm_tpu_torch.parallel import spgemm_dist_exec, spgemm_dist_plan
+
+    mesh = _cpu_mesh()
+    t0 = time.perf_counter()
+    with _watch() as at_plan:
+        plan = spgemm_dist_plan(S, B, mesh, **kw)
+    t1 = time.perf_counter()
+    with _watch() as at_exec:
+        Cs = [spgemm_dist_exec(plan, mesh).host()]
+        t2 = time.perf_counter()
+        Cs.append(spgemm_dist_exec(plan, mesh).host())
+    ms = {"plan": (t1 - t0) * 1e3, "exec": (time.perf_counter() - t2) * 1e3}
+    return {"C": Cs, "plan": at_plan, "exec": at_exec, "pattern": plan.pattern, "ms": ms,
+            "devices": sorted({x.device.type for x in plan.aligned_cols + plan.aligned_vals})}
+
+
+def exec_raw_task(S, B, **kw) -> dict:
+    """``spgemm_dist_exec(as_csr=False)`` over this rank's plan: the chunk
+    outputs' leading axes, their live entries (rows in the shard's row
+    space) and the plan's tail rows' products."""
+    from spmm_tpu_torch.ops.slab_spgemm import _pull_chunks
+    from spmm_tpu_torch.parallel import spgemm_dist_exec, spgemm_dist_plan
+
+    mesh = _cpu_mesh()
+    plan = spgemm_dist_plan(S, B, mesh, **kw)
+    outs = spgemm_dist_exec(plan, mesh, as_csr=False)
+    r, c, v = _pull_chunks([tuple(x[0] for x in o) for o in outs])
+    cat = lambda xs, dt: np.concatenate(xs) if xs else np.zeros(0, dt)
+    return {"lead": sorted({x.shape[0] for o in outs for x in o}), "schedule": plan.schedule,
+            "rows": cat(r, np.int64), "cols": cat(c, np.int64), "vals": cat(v, np.float32),
+            "tail": plan.tail}
+
+
+def revalue_task(S, B, S2, B2, bad, **kw) -> dict:
+    """A plan of (S, B), revalued with (S2, B2) and executed: the global CSR,
+    both plans' pattern modes and what ``_watch`` saw during the plan and
+    during the revalue; then the ValueError of a revalue with ``bad`` = (S,
+    B) of another structure."""
+    from spmm_tpu_torch.parallel import spgemm_dist_exec, spgemm_dist_plan, spgemm_dist_revalue
+
+    mesh = _cpu_mesh()
+    with _watch() as at_plan:
+        plan = spgemm_dist_plan(S, B, mesh, **kw)
+    with _watch() as seen:
+        plan2 = spgemm_dist_revalue(plan, S2, B2, mesh)
+    C = spgemm_dist_exec(plan2, mesh).host()
+    try:
+        spgemm_dist_revalue(plan, *bad, mesh)
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return {"C": C, "patterns": (plan.pattern, plan2.pattern), "plan": at_plan, "revalue": seen,
+            "error": err}
+
+
+def big_task(A, B, *, max_exp_pad: int | None = None, **kw) -> dict:
+    """``spgemm_dist_big``: the global host CSR (or the ValueError's
+    message), the call's host ms and what ``_watch`` saw.  ``max_exp_pad`` sets
+    ``slab_spgemm._MAX_EXP_PAD`` on this rank for the call (a test's
+    monkeypatch does not reach a spawned rank)."""
+    from spmm_tpu_torch.ops import slab_spgemm
+    from spmm_tpu_torch.parallel import spgemm_dist_big
+
+    old = slab_spgemm._MAX_EXP_PAD
+    if max_exp_pad is not None:
+        slab_spgemm._MAX_EXP_PAD = max_exp_pad
+    mesh = _cpu_mesh()
+    t0 = time.perf_counter()
+    try:
+        with _watch() as seen:
+            C = spgemm_dist_big(A, B, mesh, **kw)
+    except ValueError as e:
+        return {"error": str(e)}
+    finally:
+        slab_spgemm._MAX_EXP_PAD = old
+    return {"C": C.host(), "ms": (time.perf_counter() - t0) * 1e3, **seen}
+
+
+def b_off_the_mesh_task(S, A, B_meta) -> list:
+    """The ValueError of each new SpGEMM entry point given a B held in
+    tensors on another device type than the mesh's."""
+    from spmm_tpu_torch import parallel
+
+    mesh = _cpu_mesh()
+    msgs = []
+    for call in (lambda: parallel.spgemm_dist_halo(S, B_meta, mesh),
+                 lambda: parallel.spgemm_dist_halo_exchange(S, B_meta, mesh),
+                 lambda: parallel.spgemm_dist_plan(S, B_meta, mesh, b_sharded=True),
+                 lambda: parallel.spgemm_dist_big(A, B_meta, mesh)):
+        try:
+            call()
+            msgs.append(None)
+        except ValueError as e:
+            msgs.append(str(e))
+    return msgs
+
+
+def dryrun_task(n: int, *, ell: bool = False) -> dict:
+    """``entry.dryrun_multichip(n, device="cpu")``: what this rank printed
+    (rank 0 prints the lines), its products through the ELL pack (K2's route,
+    its plain version here), and whether JAX got loaded.  ``ell`` lowers
+    ``ops.spmm``'s pack threshold to 0 for the call, so the ring's tiny
+    products take that route, as a full-size shard's do."""
+    from spmm_tpu_torch.entry import dryrun_multichip
+
+    spmm_mod = importlib.import_module("spmm_tpu_torch.ops.spmm")  # the module, not ops.spmm
+    thr, real = spmm_mod.AUTO_ELL_THRESHOLD, spmm_mod.ell_spmm
+    calls = []
+    spmm_mod.ell_spmm = lambda *a, **k: calls.append(1) or real(*a, **k)
+    if ell:
+        spmm_mod.AUTO_ELL_THRESHOLD = 0
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            dryrun_multichip(n, device="cpu")
+    finally:
+        spmm_mod.AUTO_ELL_THRESHOLD, spmm_mod.ell_spmm = thr, real
+    return {"out": out.getvalue(), "ell_products": len(calls), "jax": "jax" in sys.modules}
+
+
+def dryrun_error_task(n: int) -> str | None:
+    """The RuntimeError of ``dryrun_multichip(n)`` on a group of another
+    world size."""
+    from spmm_tpu_torch.entry import dryrun_multichip
+
+    try:
+        dryrun_multichip(n, device="cpu")
+    except RuntimeError as e:
+        return str(e)
+    return None
 
 
 def hang_task() -> int:
