@@ -98,11 +98,23 @@ Phases, each printing one line with its times (CUDA events for kernels,
               k=32 against scipy, then ``dryrun_multichip(4)`` on a (2, 2)
               mesh: the collective logic under this machine's torch, a host
               run of the plain versions.
-9. report   — one JSON line of per-kernel results (launches of phases 4, 6, 7
+9. rates    — the committed primitive rates
+              (``spmm_tpu_torch/primitive_rates_h100.json``; its ``_device``
+              must be this card) beside the probe
+              (``utils.primitives.measure_rates``) run again at 2^22 elements
+              (printed only: rates move by some percent between cards), and
+              the attainable share (``ops.roofline.*_attainable`` / measured
+              time) of ``ell_spmm`` k=128 and K2 on the web-Google pack,
+              ``ell_spmv`` on it (timed here), ``ops.spgemm`` cold, the warm
+              numeric phase and the chain per product (phase 5's times),
+              each finite and above 0, by the file's rates and by this
+              run's.
+10. report  — one JSON line of per-kernel results (launches of phases 4, 6, 7
               and 8a, the entry points that launched each kernel, phase 3's
-              times, bound and library time at the main-path shape), the
-              card's name and power limit, and the final ``{"ok": true, ...}``
-              line.
+              times, bound and library time at the main-path shape; K2 also
+              its roofline share and its attainable share by this run's
+              probe), the card's name and power
+              limit, and the final ``{"ok": true, ...}`` line.
 
 Any failure stops the run with a nonzero exit and no result line.  There is
 no CPU path: without CUDA, or without the rest of the repository beside this
@@ -117,6 +129,7 @@ import dataclasses
 import functools
 import importlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -325,7 +338,9 @@ def profile_line(p, n: int = 6) -> str:
 
 def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     """Phase 5: the slab SpGEMM's entry points at full size, each product held
-    against one scipy A×A, which it returns (phase 6 reuses it)."""
+    against one scipy A×A.  Returns that A×A (phase 6 reuses it) and the
+    sizing, chunk schedule and times of the cold call, the warm numeric
+    phase and the chain (phase 9's attainable shares)."""
     from spmm_tpu_torch import ops
     from spmm_tpu_torch.ops import slab_spgemm as ss
     from spmm_tpu_torch.utils.profiling import profile_fn
@@ -456,7 +471,9 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     require(not calls, f"the resume recomputed {len(calls)} pieces")
     say(f"phase 5 big path: 4 pieces {t_big:.1f} ms, peak {peak_big:.3f} GB, exact | resume "
         f"{t_resume:.1f} ms, 0 pieces recomputed, exact | phase 5 took {time.perf_counter() - t_phase:.1f} s")
-    return ref
+    # what phase 9's attainable bounds need: the sizing, the chunk mix and the times
+    return ref, dict(sizing=sizing, sched=sched, out_nnz=ref.nnz, cold_ms=t_calls[0], warm_ms=num_ms,
+                     chain_ms=chain_ms)
 
 
 def blocked_phase(torch, A, E, Ab, A_band, ref_C, dev, rng, paths, k2_ell_ms: float) -> dict:
@@ -1155,6 +1172,83 @@ def dist_phase(torch, A, ref_C, dev, rng, paths, root) -> dict:
     return tally
 
 
+def rates_phase(torch, A, E, dev, rng, k2: dict, sg: dict) -> dict:
+    """Phase 9: the committed primitive rates (``ops.roofline.MeasuredRates``)
+    beside the probe run again here, and the attainable share (bound /
+    measured time) of the main path's products: ``ell_spmm`` k=128 and K2 on
+    the web-Google pack (phase 3's times), ``ell_spmv`` on the same pack
+    (timed here), ``ops.spgemm`` cold, the warm numeric phase and the chain
+    per product (phase 5's times).  Each share must be finite and above 0;
+    above 1 it is read in PERF.md.  Returns each product's bound and share
+    from this run's probe (the kernels line holds only this run's
+    measurements) beside those from the file."""
+    from spmm_tpu_torch import ops
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+    from spmm_tpu_torch.ops.roofline import (
+        MeasuredRates, spgemm_attainable, spgemm_warm_attainable, spmm_attainable, spmv_attainable,
+    )
+    from spmm_tpu_torch.utils.primitives import measure_rates
+
+    t_phase = time.perf_counter()
+    path = MeasuredRates.calibration_path()
+    with open(path) as f:
+        raw = json.load(f)
+    name = torch.cuda.get_device_name(0)
+    require(raw.get("_device") == name, f"{os.path.basename(path)} was measured on {raw.get('_device')!r}, "
+            f"this run is on {name!r}")
+    rates = MeasuredRates.parse(raw, path)
+    probe = []
+    fresh = MeasuredRates(**measure_rates(size_log2=22, device=dev, log=probe.append))
+    for line in probe:
+        say(f"phase 9 probe, size 2^22: {line}")
+
+    def show(v):
+        return ", ".join(f"{x:g}: {r:.4g}" for x, r in v) if isinstance(v, tuple) else f"{v:.4g}"
+
+    say(f"phase 9 rates: the file ({raw['_power_limit']}, captured {raw['_captured']}, size 2^{raw['_size_log2']}, "
+        f"torch {raw['_torch']} cuda {raw['_cuda']}) | this run's probe (not gated) | "
+        + " | ".join(f"{f.name} {show(getattr(rates, f.name))} / {show(getattr(fresh, f.name))}"
+                     for f in dataclasses.fields(MeasuredRates)))
+
+    n, W = A.shape[0], ss.DEFAULT_SEG_W
+    x = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+    spmv_ms = cuda_ms(torch, lambda: ops.ell_spmv(E, x))
+    sizing, sched = sg["sizing"], sg["sched"]
+    chunk_slots = tuple((L, R_pad * L) for L, R_pad, _, _ in sched)
+    nsegB_pad = ss._nseg_pad(sizing.nsegB)
+    out_nnz = sg["out_nnz"]
+    cold_kw = dict(nrow_b=n, b2_table_bytes=nsegB_pad * W * 4, b2_row_bytes=W * 4,
+                   geom_table_bytes=n * 8, geom_row_bytes=8, out_nnz=out_nnz, chunk_slots=chunk_slots)
+    spmm_bound = lambda r: spmm_attainable(E.padded_nnz, n, 128, r, table_bytes=n * 128 * 4)
+    bounds = {  # name: (the bound as a function of the rates, measured ms, its arguments)
+        "ell_spmm k=128": (spmm_bound, k2["ell_spmm_ms"],
+                           f"spmm_attainable({E.padded_nnz}, {n}, 128, table_bytes={n * 512})"),
+        "K2 k=128": (spmm_bound, k2["ms"], "the same bound over K2's time alone"),
+        "ell_spmv": (lambda r: spmv_attainable(E.padded_nnz, r), spmv_ms, f"spmv_attainable({E.padded_nnz})"),
+        "ops.spgemm cold": (lambda r: spgemm_attainable(sizing.npa, sizing.npa * W, A.nnz, None, r, **cold_kw),
+                            sg["cold_ms"],
+                            f"spgemm_attainable(npa={sizing.npa}, slots={sizing.npa * W}, nnz_b={A.nnz}, "
+                            + ", ".join(f"{k}={v}" for k, v in cold_kw.items() if k != "chunk_slots")
+                            + f", chunk_slots=<{len(chunk_slots)} chunks, {sum(s for _, s in chunk_slots)} slots>)"),
+        "warm numeric": (lambda r: spgemm_warm_attainable(sizing.npa * W, out_nnz, r, chunk_slots=chunk_slots),
+                         sg["warm_ms"], f"spgemm_warm_attainable({sizing.npa * W}, {out_nnz}, chunk_slots=...)"),
+        "chain per product": (lambda r: spgemm_warm_attainable(sizing.npa * W, out_nnz, r, dispatches=1 / 8,
+                                                               chunk_slots=chunk_slots),
+                              sg["chain_ms"], "the same with dispatches=1/8"),
+    }
+    shares = {}
+    for what, (bound, ms, args) in bounds.items():
+        b, b_fresh = bound(rates) * 1e3, bound(fresh) * 1e3
+        share = b / ms
+        for s_ in (share, b_fresh / ms):
+            require(math.isfinite(s_) and s_ > 0, f"the attainable share of {what} is {s_}")
+        shares[what] = dict(attainable_ms=b_fresh, attainable_share=b_fresh / ms)
+        say(f"phase 9 attainable {what}: {args} = {b:.4f} ms (this run's rates {b_fresh:.4f}) | measured "
+            f"{ms:.4f} ms | share {share:.3f} (this run's rates {b_fresh / ms:.3f})")
+    say(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return shares
+
+
 def main() -> int:
     import torch
 
@@ -1599,7 +1693,7 @@ def main() -> int:
     for kname in ("ell_slab_spmm", "bsr_spmm"):
         require(launches[kname] > 0, f"kernel {kname} was not launched on the main path")
 
-    ref_C = slab_phase(torch, A_web, dev, rng, cli_spgemm_ms=r["spgemm_ms"])
+    ref_C, spgemm_times = slab_phase(torch, A_web, dev, rng, cli_spgemm_ms=r["spgemm_ms"])
 
     # ---- 6. the BlockedCSR path and the rest of slice 3 --------------------
     reset_counters()
@@ -1623,7 +1717,13 @@ def main() -> int:
     for kname, n in launches8.items():
         launches[kname] += n
 
-    # ---- 9. report ---------------------------------------------------------
+    # ---- 9. measured primitive rates and the attainable shares -------------
+    shares = rates_phase(torch, A_web, E, dev, rng, results["ell_slab_spmm"], spgemm_times)
+    k2_line = results["ell_slab_spmm"]  # K2's attainable share (this run's probe) beside its roofline share
+    k2_line.update(share=k2_line["bound_ms"] / k2_line["ms"], attainable_ms=shares["K2 k=128"]["attainable_ms"],
+                   attainable_share=shares["K2 k=128"]["attainable_share"])
+
+    # ---- 10. report --------------------------------------------------------
     k2, k1 = "spmm_tpu/ops/pallas_ell.py:82", "spmm_tpu/ops/pallas_bsr.py:38"
     replaces = {
         "bsr_spmm": ("spmm_tpu_torch/csrc/bsr_spmm.cu", k1),

@@ -1072,3 +1072,27 @@ def test_dryrun_multichip_at_world_size_1_on_card(nccl_mesh, monkeypatch, capsys
     assert ell_kernel.launches - n0 >= 3
     lines = capsys.readouterr().out.splitlines()
     assert len([ln for ln in lines if ln.startswith("dryrun") and " OK" in ln]) == 10
+
+
+@pytest.mark.cuda
+def test_primitive_rates_probe_on_card(cuda):
+    """The rates probe at 2^20 elements on the card: every field of
+    ``MeasuredRates``, each a positive finite rate, and K2 and the ordered
+    sum launched by its gather and scatter measurements; the power-limit
+    line names the card measured."""
+    import math
+
+    from spmm_tpu_torch.ops import segments
+    from spmm_tpu_torch.ops.roofline import MeasuredRates
+    from spmm_tpu_torch.utils.primitives import _power_limit, measure_rates
+
+    # nvidia-smi's line is that of the card measured
+    assert _power_limit(cuda).startswith(torch.cuda.get_device_name(cuda) + ", ")
+    n0, n2 = segments.launches, ell_kernel.launches
+    r = measure_rates(size_log2=20, device=cuda, log=lambda line: None)
+    assert segments.launches > n0 and ell_kernel.launches > n2
+    assert set(r) == {f.name for f in dataclasses.fields(MeasuredRates)}
+    for k, v in r.items():
+        vals = [x for pt in v for x in pt] if isinstance(v, tuple) else [v]
+        assert vals and all(math.isfinite(x) and x > 0 for x in vals), k
+    MeasuredRates(**r)

@@ -6,6 +6,7 @@ the roofline functions are pure arithmetic and must equal the JAX package's
 given the same chip numbers.
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -122,7 +123,7 @@ def test_roofline_equals_the_jax_package(name, args, kw, chip):
     assert rt.bound_by == ("bytes" if rj.t_bandwidth_s >= rj.t_compute_s else "operations")
 
 
-def test_chip_spec_and_detect():
+def test_chip_spec_and_detect(monkeypatch):
     h = troof.H100_SXM
     assert (h.hbm_gbps, h.flops_f32, h.flops_f64, h.flops_f64_tensor, h.flops_bf16, h.flops_tf32,
             h.l2_bytes) == (3350.0, 67e12, 34e12, 67e12, 989e12, 495e12, 50_000_000)
@@ -137,5 +138,22 @@ def test_chip_spec_and_detect():
     r = troof.Roofline(flops=2e12, hbm_bytes=1e6, chip=h, peak_flops=h.flops_f64)
     assert r.bound_by == "operations" and r.t_sol_s == 2e12 / 34e12
     assert troof.Roofline(flops=1.0, hbm_bytes=3.35e9, chip=h).bound_by == "bytes"
-    # nothing of the JAX package's measured-rate half is carried over
-    assert not hasattr(troof, "MeasuredRates") and not hasattr(troof, "V5E_RATES")
+    # the datasheet goes to the SXM card only: the PCIe and NVL cards have
+    # other memory rates and power limits
+    from spmm_tpu_torch.formats import containers
+
+    monkeypatch.setattr(containers, "compute_device", lambda device="cuda": torch.device(device))
+    for name, sxm in (("NVIDIA H100 80GB HBM3", True), ("NVIDIA H100 SXM5 64GB", True),
+                      ("NVIDIA H100 PCIe", False), ("NVIDIA H100 NVL", False),
+                      ("NVIDIA A100-SXM4-80GB", False)):
+        monkeypatch.setattr(torch.cuda, "get_device_name", lambda dev=None, name=name: name)
+        if sxm:
+            assert troof.detect_chip() is h, name
+        else:
+            with pytest.raises(ValueError, match="ChipSpec"):
+                troof.detect_chip()
+    # the measured rates have no default of any device: no module-level rates
+    # and no defaults in the class
+    assert not hasattr(troof, "V5E_RATES")
+    assert all(f.default is dataclasses.MISSING for f in dataclasses.fields(troof.MeasuredRates)
+               if not f.name.endswith("_curve"))
