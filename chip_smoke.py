@@ -109,7 +109,16 @@ Phases, each printing one line with its times (CUDA events for kernels,
               numeric phase and the chain per product (phase 5's times),
               each finite and above 0, by the file's rates and by this
               run's.
-10. report  — one JSON line of per-kernel results (launches of phases 4, 6, 7
+10. bench   — ``python bench_torch.py --quick --no-scaling`` (the port's
+              one-JSON-line benchmark) in a subprocess with
+              ``BENCH_BUDGET_S=400``: exit 0, its last line JSON with
+              ``value`` > 0, no ``*_error`` / ``interrupted`` / ``skipped``,
+              every ``*_ms`` finite and > 0, every ``*_sol_frac`` in
+              (0, 1.05], every ``*_att_frac`` finite and > 0,
+              ``spgemm_out_nnz`` equal to scipy's A×A on the quick graph and
+              ``device`` this card; its main numbers and each section's
+              seconds printed.
+11. report  — one JSON line of per-kernel results (launches of phases 4, 6, 7
               and 8a, the entry points that launched each kernel, phase 3's
               times, bound and library time at the main-path shape; K2 also
               its roofline share and its attainable share by this run's
@@ -339,8 +348,8 @@ def profile_line(p, n: int = 6) -> str:
 def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     """Phase 5: the slab SpGEMM's entry points at full size, each product held
     against one scipy A×A.  Returns that A×A (phase 6 reuses it) and the
-    sizing, chunk schedule and times of the cold call, the warm numeric
-    phase and the chain (phase 9's attainable shares)."""
+    sizing and times of the cold call, the warm numeric phase and the chain
+    (phase 9's attainable shares)."""
     from spmm_tpu_torch import ops
     from spmm_tpu_torch.ops import slab_spgemm as ss
     from spmm_tpu_torch.utils.profiling import profile_fn
@@ -471,8 +480,8 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     require(not calls, f"the resume recomputed {len(calls)} pieces")
     say(f"phase 5 big path: 4 pieces {t_big:.1f} ms, peak {peak_big:.3f} GB, exact | resume "
         f"{t_resume:.1f} ms, 0 pieces recomputed, exact | phase 5 took {time.perf_counter() - t_phase:.1f} s")
-    # what phase 9's attainable bounds need: the sizing, the chunk mix and the times
-    return ref, dict(sizing=sizing, sched=sched, out_nnz=ref.nnz, cold_ms=t_calls[0], warm_ms=num_ms,
+    # what phase 9's attainable bounds need: the sizing and the times
+    return ref, dict(sizing=sizing, out_nnz=ref.nnz, cold_ms=t_calls[0], warm_ms=num_ms,
                      chain_ms=chain_ms)
 
 
@@ -995,7 +1004,6 @@ def dist_phase(torch, A, ref_C, dev, rng, paths, root) -> dict:
     machine's torch, against scipy; a host run of the plain versions.
     Returns each kernel's launches on (a)'s path."""
     import dataclasses as dc
-    import socket
 
     import torch.distributed as dist
 
@@ -1007,14 +1015,13 @@ def dist_phase(torch, A, ref_C, dev, rng, paths, root) -> dict:
         make_mesh, partition_cols, partition_rows, spgemm_dist_csr, spgemm_dist_spmd, spmm_dist,
         spmm_dist_colsplit, spmm_dist_ring, spmv_dist, unshard_csr_rows, unshard_rows,
     )
+    from spmm_tpu_torch.parallel.mesh import free_port
 
     t_phase = time.perf_counter()
     tally = dict.fromkeys(counters(), 0)
 
     # ---- (a) NCCL, world size 1, full size --------------------------------
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
+    port = free_port()
     card = torch.device("cuda", torch.cuda.current_device())
     torch.cuda.set_device(card)  # the rank's device, before the mesh's communicator
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
@@ -1213,12 +1220,9 @@ def rates_phase(torch, A, E, dev, rng, k2: dict, sg: dict) -> dict:
     n, W = A.shape[0], ss.DEFAULT_SEG_W
     x = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
     spmv_ms = cuda_ms(torch, lambda: ops.ell_spmv(E, x))
-    sizing, sched = sg["sizing"], sg["sched"]
-    chunk_slots = tuple((L, R_pad * L) for L, R_pad, _, _ in sched)
-    nsegB_pad = ss._nseg_pad(sizing.nsegB)
-    out_nnz = sg["out_nnz"]
-    cold_kw = dict(nrow_b=n, b2_table_bytes=nsegB_pad * W * 4, b2_row_bytes=W * 4,
-                   geom_table_bytes=n * 8, geom_row_bytes=8, out_nnz=out_nnz, chunk_slots=chunk_slots)
+    sizing, out_nnz = sg["sizing"], sg["out_nnz"]
+    cold_kw = ss.attainable_kwargs(sizing, n, out_nnz, ss._norm_classes(ss.DEFAULT_CLASSES, W), W=W)
+    chunk_slots = cold_kw["chunk_slots"]
     spmm_bound = lambda r: spmm_attainable(E.padded_nnz, n, 128, r, table_bytes=n * 128 * 4)
     bounds = {  # name: (the bound as a function of the rates, measured ms, its arguments)
         "ell_spmm k=128": (spmm_bound, k2["ell_spmm_ms"],
@@ -1247,6 +1251,57 @@ def rates_phase(torch, A, E, dev, rng, k2: dict, sg: dict) -> dict:
             f"{ms:.4f} ms | share {share:.3f} (this run's rates {b_fresh / ms:.3f})")
     say(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return shares
+
+
+def bench_phase(torch, root) -> None:
+    """Phase 10: ``bench_torch.py --quick --no-scaling`` in a subprocess on
+    this card (``BENCH_BUDGET_S=400``: its gates ask for up to 200 s left
+    before a section starts), its line held to the checks of the
+    docstring; prints its main numbers and each section's seconds."""
+    import bench_torch
+    from spmm_tpu_torch.formats import webgraph_like
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py"), "--quick", "--no-scaling"],
+                          cwd=root, env=dict(os.environ, BENCH_BUDGET_S="400"), capture_output=True,
+                          text=True, timeout=600)
+    t_run = time.perf_counter() - t_phase
+    sections = " | ".join(ln.removeprefix("section ") for ln in proc.stderr.splitlines()
+                          if ln.startswith("section "))
+    require(proc.returncode == 0, f"bench_torch.py exited {proc.returncode}: {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"bench_torch.py's last line is no JSON: {lines[-1:]!r}")
+    value = res.get("value")
+    require(isinstance(value, (int, float)) and value > 0, f"bench_torch.py's value is {value!r}")
+    bad = [k for k in res if k in ("error", "interrupted", "skipped") or k.endswith("_error")]
+    require(not bad, f"bench_torch.py's line holds {', '.join(f'{k}={res[k]!r}' for k in bad)}")
+    for key in ("spgemm_ms", "spgemm_plan_ms", "spgemm_warm_ms", "spgemm_chain_ms", "spmm_ell_k128_ms",
+                "spmv_ell_ms", "bsr_spmm_k128_ms", "spmm_ell_k32_ms", "spmm_blocked_k128_ms"):
+        require(key in res, f"bench_torch.py's line has no {key}")
+    for k, v in res.items():
+        ok = isinstance(v, (int, float)) and math.isfinite(v)
+        if k.endswith("_ms"):
+            require(ok and v > 0, f"bench_torch.py's {k} is {v!r}")
+        elif k.endswith("_sol_frac"):
+            require(ok and 0 < v <= 1.05, f"bench_torch.py's {k} is {v!r}, not in (0, 1.05]")
+        elif k.endswith("_att_frac"):
+            require(ok and v > 0, f"bench_torch.py's {k} is {v!r}")
+    A = webgraph_like(bench_torch.QUICK_N, bench_torch.QUICK_NNZ, seed=0)
+    ref_nnz = scipy_square(A.to_scipy()).nnz
+    require(res.get("spgemm_out_nnz") == ref_nnz,
+            f"bench_torch.py's spgemm_out_nnz {res.get('spgemm_out_nnz')} is not scipy's {ref_nnz}")
+    name = torch.cuda.get_device_name(0)
+    require(res.get("device") == name, f"bench_torch.py ran on {res.get('device')!r}, not {name!r}")
+    main_keys = ("value", "spgemm_ms", "spgemm_att_frac", "spgemm_plan_ms", "spgemm_warm_ms", "spgemm_chain_ms",
+                 "spgemm_chain_att_frac", "spmm_ell_k128_ms", "spmm_ell_k128_sol_frac", "spmv_ell_ms",
+                 "bsr_spmm_k128_ms", "spmm_ell_k32_ms", "spmm_blocked_k128_ms", "power_limit")
+    say(f"phase 10 bench_torch.py --quick --no-scaling ({A.shape[0]} nodes, {A.nnz} nnz; A×A {ref_nnz} nnz, "
+        f"scipy's): " + ", ".join(f"{k} {res.get(k)}" for k in main_keys)
+        + f" | sections: {sections} | the run {t_run:.1f} s, phase 10 {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1723,7 +1778,10 @@ def main() -> int:
     k2_line.update(share=k2_line["bound_ms"] / k2_line["ms"], attainable_ms=shares["K2 k=128"]["attainable_ms"],
                    attainable_share=shares["K2 k=128"]["attainable_share"])
 
-    # ---- 10. report --------------------------------------------------------
+    # ---- 10. the port's benchmark, quick ----------------------------------
+    bench_phase(torch, root)
+
+    # ---- 11. report --------------------------------------------------------
     k2, k1 = "spmm_tpu/ops/pallas_ell.py:82", "spmm_tpu/ops/pallas_bsr.py:38"
     replaces = {
         "bsr_spmm": ("spmm_tpu_torch/csrc/bsr_spmm.cu", k1),

@@ -284,6 +284,19 @@ def _chunk_schedule(classes, counts, slot_budget):
     return sched, offset
 
 
+def attainable_kwargs(sizing: Sizing, nrow_b: int, out_nnz: int, classes, *, W: int = DEFAULT_SEG_W,
+                      slot_budget: int = DEFAULT_SLOT_BUDGET) -> dict:
+    """The port's keyword arguments of ``ops.roofline.spgemm_attainable``
+    for a product of this sizing (``spgemm_warm_attainable`` takes its
+    ``chunk_slots``): the B2 table is (nsegB_pad, W) int32, so W*4-byte
+    rows; ``_plan_tables``' per-row segment counts are int64, 8-byte rows;
+    the chunks' (L, slots) are those of the schedule the product runs."""
+    sched, _ = _chunk_schedule(classes, sizing.counts, slot_budget)
+    return dict(nrow_b=nrow_b, b2_table_bytes=_nseg_pad(sizing.nsegB) * W * 4, b2_row_bytes=W * 4,
+                geom_table_bytes=nrow_b * 8, geom_row_bytes=8, out_nnz=out_nnz,
+                chunk_slots=tuple((L, R_pad * L) for L, R_pad, _, _ in sched))
+
+
 def _is_pattern(M: CSR) -> bool:
     """True when every stored value is exactly 1.0 — the reference's forced
     semantics (serial_newblock_clock.cpp:84,96).  An O(nnz) host check;
@@ -874,7 +887,16 @@ def spgemm_slab(
     runs the gather-free numeric phase (tail-free sizings, nnz >=
     AUTO_PLAN_MIN_NNZ).  Rows above the largest class take the global-sort
     ESC; products above ``_MAX_EXP_PAD`` padded slots run in row pieces
-    (:func:`spgemm_slab_big`), checkpointed to ``checkpoint_dir`` if given."""
+    (:func:`spgemm_slab_big`), checkpointed to ``checkpoint_dir`` if given.
+    C's data is in ``accum_dtype``, an empty product's too.
+
+    The product is structural, as the JAX package's: C holds every (i, j)
+    that some A[i, k] · B[k, j] pair reaches, so partial products that
+    cancel exactly, or an explicit zero in A or B, leave an entry that holds
+    0, where scipy's ``A @ B`` drops it.  ``indptr`` / ``indices`` are then
+    those of scipy's product of the two patterns.  A plan fixes C's
+    structure whatever the values, and ``spgemm_plan_revalue`` /
+    ``spgemm_dist_revalue`` rely on that."""
     dev = compute_device(device)
     if pattern is None:
         pattern = _is_pattern(A) and _is_pattern(B)
@@ -882,7 +904,7 @@ def spgemm_slab(
         out = COO(
             row=np.zeros(0, np.int32),
             col=np.zeros(0, np.int32),
-            data=np.zeros(0, np.float32),
+            data=np.zeros(0, np.dtype(_dtype_name(accum_dtype))),
             shape=(A.nrow, B.ncol),
             nnz=0,
         )

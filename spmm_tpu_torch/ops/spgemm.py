@@ -97,13 +97,16 @@ def spgemm(
     ``max_expand_per_chunk`` partial products (one row may exceed it alone),
     the ESC of each chunk on ``device`` (the card unless the caller names
     another), host concatenation.  B may be host- or ``device``-held.
-    Returns a host CSR (or COO)."""
+    Returns a host CSR (or COO), its data in the dtype of A's and B's values
+    promoted, an empty product's too."""
     device = compute_device(device)
     if A.nnz == 0 or B.nnz == 0:
+        # the dtype the expansion's multiply gives A's and B's values
+        dt = torch.promote_types(as_tensor(A.data[:0], "cpu").dtype, as_tensor(B.data[:0], "cpu").dtype)
         out = COO(
             row=np.zeros(0, np.int32),
             col=np.zeros(0, np.int32),
-            data=np.zeros(0, np.float32),
+            data=torch.empty(0, dtype=dt).numpy(),
             shape=(A.nrow, B.ncol),
             nnz=0,
         )

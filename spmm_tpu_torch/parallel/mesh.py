@@ -12,6 +12,7 @@ raises instead of copying through the host.
 from __future__ import annotations
 
 import os
+import socket
 import time
 from typing import Sequence
 
@@ -94,6 +95,14 @@ def check_on_mesh(mesh: DeviceMesh, t: torch.Tensor, what: str) -> None:
             f"{what} lies on {t.device.type}, the mesh on {mesh.device_type}: move it to "
             f"the mesh's device first (no silent copy through the host)"
         )
+
+
+def free_port() -> int:
+    """A TCP port free on this host now, for a ``tcp://127.0.0.1:<port>``
+    or ``MASTER_PORT`` rendezvous made by the caller."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def initialize_distributed(*, retries: int = 5, backoff_s: float = 2.0, device="cuda") -> None:

@@ -187,7 +187,7 @@ def measure_rates(size_log2: int = 23, *, device="cuda", gather_tables_log2=GATH
     }
 
 
-def _power_limit(dev: torch.device) -> str:
+def power_limit(dev: torch.device) -> str:
     """``nvidia-smi``'s name and power limit of the card ``dev``, asked for
     by its UUID, which names the same card whatever ``CUDA_VISIBLE_DEVICES``
     holds."""
@@ -212,7 +212,7 @@ def main(argv=None) -> int:
         out = dict(rates)
         out.update(
             _device=torch.cuda.get_device_name(dev),
-            _power_limit=_power_limit(dev),
+            _power_limit=power_limit(dev),
             _captured=datetime.datetime.now(datetime.timezone.utc).isoformat(timespec="seconds"),
             _size_log2=args.size,
             _torch=torch.__version__,

@@ -1084,10 +1084,10 @@ def test_primitive_rates_probe_on_card(cuda):
 
     from spmm_tpu_torch.ops import segments
     from spmm_tpu_torch.ops.roofline import MeasuredRates
-    from spmm_tpu_torch.utils.primitives import _power_limit, measure_rates
+    from spmm_tpu_torch.utils.primitives import measure_rates, power_limit
 
     # nvidia-smi's line is that of the card measured
-    assert _power_limit(cuda).startswith(torch.cuda.get_device_name(cuda) + ", ")
+    assert power_limit(cuda).startswith(torch.cuda.get_device_name(cuda) + ", ")
     n0, n2 = segments.launches, ell_kernel.launches
     r = measure_rates(size_log2=20, device=cuda, log=lambda line: None)
     assert segments.launches > n0 and ell_kernel.launches > n2

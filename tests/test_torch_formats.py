@@ -227,6 +227,31 @@ def test_port_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
 
 
+def test_bench_and_scaling_import_no_jax():
+    """``bench_torch.py`` and ``spmm_tpu_torch.utils.scaling``, imported and
+    run at a tiny size on the CPU (their sections import inside their
+    functions), load no ``jax`` and no ``spmm_tpu`` module."""
+    code = (
+        "import sys\n"
+        "import bench_torch\n"
+        "from spmm_tpu_torch.utils import scaling\n"
+        "from spmm_tpu_torch.config import Config\n"
+        "from spmm_tpu_torch.formats.synthetic import webgraph_like\n"
+        "A = webgraph_like(600, 3000, seed=0)\n"
+        "b = bench_torch.Bench(600.0)\n"
+        "ms, P = bench_torch.bench_preprocess(A, Config(), iters=1)\n"
+        "bench_torch.record_headline(b, A, ms, P, float('nan'))\n"
+        "bench_torch.bench_spgemm(b, A, 'cpu')\n"
+        "bench_torch.bench_kernels(b, A, P, 'cpu', bsr_shape=(512, 128, 0.25))\n"
+        "assert b.result['spgemm_out_nnz'] > 0 and not b.failed(), b.result\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'spmm_tpu.'))"
+        " or m == 'spmm_tpu']\n"
+        "assert not bad, bad\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
+
+
 def test_compile_if_stale_rebuilds_and_raises(tmp_path):
     """The shared builder of both native libraries: no rebuild while the
     library is newer than its sources, a rebuild after a source changes, and a

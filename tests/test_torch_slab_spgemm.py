@@ -543,3 +543,72 @@ def test_tensor_held_operands_stay_on_their_device():
     C = ss.spgemm_slab_csr(A, A)
     assert isinstance(C.data, torch.Tensor) and C.data.device.type == "cpu"
     _check(ss._csr_to_host(C), _oracle(A.to_scipy(), A.to_scipy()))
+
+
+# ---- F9: an empty product's dtype; F10: the structural product --------------
+
+
+def _csr_of_scipy(M, dtype):
+    M = sp.csr_matrix(M)
+    M.sort_indices()
+    return CSR(data=M.data.astype(dtype), indices=M.indices.astype(np.int32),
+               indptr=M.indptr.astype(np.int64), shape=M.shape, nnz=int(M.nnz))
+
+
+_SPGEMM_ENTRIES = {  # name: product with the values' dtype as accum_dtype where it takes one
+    "ops.spgemm": lambda A, B, dt: ops.spgemm(A, B, accum_dtype=dt, device="cpu"),
+    "ops.spgemm_sorted": lambda A, B, dt: ops.spgemm_sorted(A, B, device="cpu"),
+}
+
+
+@pytest.mark.parametrize("empty", ["left", "right"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("entry", sorted(_SPGEMM_ENTRIES))
+def test_empty_product_takes_the_dtype_of_the_non_empty_path_f9(entry, dtype, empty):
+    """An empty × non-empty (or non-empty × empty) product returns its data in
+    the dtype the same call gives non-empty operands of those values and that
+    ``accum_dtype``; its shape and all-zero ``indptr`` are scipy's."""
+    rng = np.random.default_rng(7)
+    X = sp.random(5, 6, density=0.4, random_state=rng, format="csr")
+    Y = sp.random(6, 4, density=0.4, random_state=rng, format="csr")
+    Z = sp.csr_matrix((5, 6)) if empty == "left" else sp.csr_matrix((6, 4))
+    A, B = (Z, Y) if empty == "left" else (X, Z)
+    call = _SPGEMM_ENTRIES[entry]
+    acc = torch.float64 if dtype == np.float64 else torch.float32
+    want = call(_csr_of_scipy(X, dtype), _csr_of_scipy(Y, dtype), acc).data.dtype
+    C = call(_csr_of_scipy(A, dtype), _csr_of_scipy(B, dtype), acc)
+    ref = (A @ B).tocsr()
+    assert np.dtype(want) == np.dtype(dtype)
+    assert np.asarray(C.data).dtype == want
+    assert C.nnz == 0 and tuple(C.shape) == ref.shape
+    assert np.array_equal(np.asarray(C.indptr, np.int64), ref.indptr.astype(np.int64))
+
+
+_F10_PROBES = {
+    # partial products that cancel: C[1, 0] = 1·1 + 1·(-1) = 0
+    "cancelled": (sp.csr_matrix([[1.0, 1.0], [0.0, 1.0]]), sp.csr_matrix([[1.0, 0.0], [-1.0, 2.0]])),
+    # an explicit zero stored in A at (0, 1)
+    "explicit zero in A": (sp.csr_matrix((np.array([1.0, 0.0]), np.array([0, 1]), np.array([0, 2])),
+                                         shape=(1, 2)),
+                           sp.csr_matrix([[1.0, 0.0], [0.0, 1.0]])),
+}
+
+
+@pytest.mark.parametrize("probe", sorted(_F10_PROBES))
+@pytest.mark.parametrize("entry", sorted(_SPGEMM_ENTRIES))
+def test_structural_product_keeps_cancelled_and_explicit_zeros_f10(entry, probe):
+    """The port's product is structural (a known deviation from scipy, which
+    drops zero sums): C's structure is scipy's product of the two patterns,
+    the entries whose value is 0 hold 0, and the others hold scipy's values."""
+    A, B = _F10_PROBES[probe]
+    C = _SPGEMM_ENTRIES[entry](_csr_of_scipy(A, np.float32), _csr_of_scipy(B, np.float32), torch.float32)
+    pat = lambda M: sp.csr_matrix((np.ones(M.nnz), M.indices, M.indptr), shape=M.shape)
+    struct = _oracle(pat(A), pat(B))
+    values = _oracle(A, B)
+    values.eliminate_zeros()
+    assert values.nnz < struct.nnz  # scipy drops what the port keeps
+    assert np.array_equal(np.asarray(C.indptr, np.int64), struct.indptr.astype(np.int64))
+    assert np.array_equal(np.asarray(C.indices[: C.nnz]), struct.indices)
+    dense = sp.csr_matrix((np.asarray(C.data[: C.nnz]), np.asarray(C.indices[: C.nnz]),
+                           np.asarray(C.indptr)), shape=C.shape).toarray()
+    np.testing.assert_allclose(dense, values.toarray(), rtol=2e-5, atol=2e-5)

@@ -26,7 +26,6 @@ import importlib
 import io
 import multiprocessing
 import queue
-import socket
 import sys
 import time
 import traceback
@@ -34,6 +33,8 @@ from datetime import timedelta
 
 import numpy as np
 import torch
+
+from spmm_tpu_torch.parallel.mesh import free_port
 
 RANKS = 4
 #: ``init_process_group``'s timeout: the rendezvous and every gloo collective
@@ -46,12 +47,6 @@ TASK_TIMEOUT_S = 60
 
 class RankTimeout(AssertionError):
     """A rank gave no result within the deadline (the pool was killed)."""
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _rank_main(rank: int, world: int, port: int, tasks, results) -> None:
