@@ -21,7 +21,10 @@ Phases, each printing one line with its times (CUDA events for kernels,
               PageRank's leftover rows (Pᵀ's 75 hub rows at k=1) and on
               ``blocked_spmm_slab``'s leftover stream at k=128, beside the
               atomic ``index_add_`` it replaced and ``torch.segment_reduce``
-              (its bits over three runs printed).  Per kernel and shape:
+              (its bits over three runs printed); K4 (a, b, c) and K5, the
+              slab SpGEMM's numeric phase, over every chunk of the
+              web-Google A×A in value mode (fp32) and pattern mode, each
+              against its plain version.  Per kernel and shape:
               max error, kernel / plain / library ms (CUDA events, mean of
               10; the package's ``utils.timing.measure``; for K3 and the
               ordered sum, whose back-to-back calls the host's enqueue can
@@ -47,8 +50,10 @@ Phases, each printing one line with its times (CUDA events for kernels,
               CSR, ``ops.spgemm`` three times (cold, plan build, plan reuse),
               a value-mode product, the global-sort ``spgemm_sorted``, the
               4-piece big path with a checkpoint and its resume (0 pieces
-              recomputed), peak device memory, and a profiler breakdown of the
-              warm numeric phase by op.
+              recomputed), peak device memory, a profiler breakdown of the
+              warm numeric phase by op, the torch stages S2 / S1 / S3 beside
+              K4 (b), K4 (c) and K5, and the launch counters showing that the
+              entry points reached every K4 entry and K5.
 6. blocked  — slice 3 on the same graph, with the launch counters at 0 again:
               ``preprocess`` → the slab views → ``blocked_spmm_slab`` at k=128
               (one K2 launch over all v8-group buckets; against its plain
@@ -119,7 +124,8 @@ Phases, each printing one line with its times (CUDA events for kernels,
               ``device`` this card; its main numbers and each section's
               seconds printed.
 11. report  — one JSON line of per-kernel results (launches of phases 4, 6, 7
-              and 8a, the entry points that launched each kernel, phase 3's
+              and 8a -- K4 and K5 are required on phases 4, 5 and 8a --, the
+              entry points that launched each kernel, phase 3's
               times, bound and library time at the main-path shape; K2 also
               its roofline share and its attainable share by this run's
               probe), the card's name and power
@@ -227,23 +233,33 @@ def held_against(C, ref, what: str, rtol=None) -> float:
     return err
 
 
+#: the slab SpGEMM's kernels, by their names in the report: K4 (a) the
+#: chunk fetch, (b) fetch + merge, (c) the merge of a cached slab; K5
+SPGEMM_KERNELS = ("slab_fetch", "slab_fetch_merge", "slab_merge", "slab_compact")
+
+
 def counters() -> dict:
     """Every launch counter of the port, by the name it has in the report."""
-    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel, segments
+    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel, segments, slab_kernel
 
+    entry = slab_kernel.slab_launches
     return {"ell_slab_spmm": ell_kernel.launches, "bsr_spmm": bsr_kernel.launches,
             "ell_slab_spmm_transposed": ell_kernel.transposed_launches,
             "ell_slab_sddmm": ell_kernel.sddmm_launches,
             "bsr_spmm_transposed": bsr_kernel.transposed_launches,
-            "segment_sum": segments.launches}
+            "segment_sum": segments.launches,
+            "slab_fetch": entry["fetch"], "slab_fetch_merge": entry["fetch_merge"], "slab_merge": entry["merge"],
+            "slab_compact": slab_kernel.compact_launches}
 
 
 def reset_counters() -> None:
-    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel, segments
+    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel, segments, slab_kernel
 
     ell_kernel.launches = ell_kernel.transposed_launches = ell_kernel.sddmm_launches = 0
     bsr_kernel.launches = bsr_kernel.transposed_launches = 0
     segments.launches = 0
+    slab_kernel.compact_launches = 0
+    slab_kernel.slab_launches.update(dict.fromkeys(slab_kernel.slab_launches, 0))
 
 
 def traced(paths: dict, name: str, fn, tally: dict | None = None):
@@ -340,6 +356,123 @@ def ordered_sum_shape(torch, segments, contrib, plan, ids, bound, peak, what: st
                 library="Tensor.index_add_ (the atomic scatter it replaces)", event_ms=ms, enqueue_us=enq)
 
 
+def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
+    """Phase 3's K4 and K5 rows: every chunk of the web-Google A×A in value
+    mode (seeded normal values, fp32) and in pattern mode, each entry
+    against its plain version on the same inputs -- K4 (a) bit-equal to
+    ``_chunk_fetch``, (b) and (c) equal to ``_merge_block`` in columns and
+    nuniq on the live slots, values within 1e-5 of max of the fp64 plain
+    merge (2e-5 of the fp32 one; pattern counts exact), (b) bit-identical to
+    itself and to (c) on the slab (a) built, K5 equal to ``_compact_to_csr``
+    and its CSR to scipy's -- then each timed over the whole product (CUDA
+    events: all 23 chunks, mean of 5; the plain versions mean of 3) beside
+    the bound of the bytes it must move (each input once, each output once:
+    the live entries; ``ops.roofline.Roofline``).  No single PyTorch call
+    computes these functions, so ``library_ms`` is null.  Returns the
+    kernels line's four entries (value mode; pattern mode beside)."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    W = ss.DEFAULT_SEG_W
+    classes = ss._norm_classes(ss.DEFAULT_CLASSES, W)
+    sizing = ss._sizing(A, A, W, classes)
+    sched, _ = ss._chunk_schedule(classes, sizing.counts, ss.DEFAULT_SLOT_BUDGET)
+    slots = sum(L * R for L, R, _, _ in sched)
+    nrow = A.nrow
+    nnz_pad = ss._round_up(sizing.npa * W, 1024)
+    Av = dataclasses.replace(A, data=rng.standard_normal(np.asarray(A.data).shape).astype(np.float32))
+    acc = torch.float32
+    rows = {}
+    for mode, M in (("value", Av), ("pattern", A)):
+        pattern = mode == "pattern"
+        ref = scipy_square(M.to_scipy())
+        plan = ss.spgemm_plan(M, M, device=dev, sizing=sizing, pattern=pattern)
+        kws = [dict(L=L, R_pad=R, W=W, accum_dtype=acc, pattern=pattern) for L, R, _, _ in sched]
+        where = [(st, c) for _, _, st, c in sched]
+        rids = [plan.rows_sorted[st : st + R] for (_, R, st, _) in sched]
+        vals = list(plan.aligned_vals) or [None] * len(sched)
+        fetch_k = lambda: [sk.chunk_fetch(plan, st, c, **kw) for (st, c), kw in zip(where, kws)]
+        fetch_p = lambda: [sk._chunk_fetch(plan, *sk._chunk_meta(plan.rowmeta, st, c, kw["R_pad"], kw["L"] // W),
+                                           **kw) for (st, c), kw in zip(where, kws)]
+        fused_k = lambda: [sk.chunk_merge(plan, st, c, **kw) for (st, c), kw in zip(where, kws)]
+        merge_k = lambda: [sk.slab_merge(col, v, accum_dtype=acc, pattern=pattern)
+                           for col, v in zip(plan.aligned_cols, vals)]
+        merge_p = lambda: [sk._merge_block(col, v, accum_dtype=acc, pattern=pattern)
+                           for col, v in zip(plan.aligned_cols, vals)]
+        fk, fp = fetch_k(), fetch_p()
+        b1, b2, c = fused_k(), fused_k(), merge_k()
+        mp = merge_p()
+        torch.cuda.synchronize()
+        err = 0.0
+        live_pp = 0
+        for i, ((ck, vk), (cp, vp)) in enumerate(zip(fk, fp)):
+            require(torch.equal(ck, cp) and torch.equal(ck, plan.aligned_cols[i])
+                    and (pattern or (torch.equal(vk, vp) and torch.equal(vk, plan.aligned_vals[i]))),
+                    f"K4 (a) differs from _chunk_fetch in chunk {i} ({mode} mode)")
+            live_pp += int((cp != ss._INT_MAX).sum())
+            require(all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(b1[i], b2[i], c[i])),
+                    f"K4 (b) twice and (c) on the slab (a) built differ in their bits in chunk {i} ({mode} mode)")
+            cols_u, vals_u, nuniq = b1[i]
+            require(torch.equal(nuniq, mp[i][2]), f"K4 nuniq differs from _merge_block in chunk {i} ({mode} mode)")
+            live = torch.arange(cols_u.shape[1], device=dev)[None, :] < nuniq[:, None]
+            require(torch.equal(cols_u[live], mp[i][0][live]), f"K4 columns differ from _merge_block in chunk {i}")
+            if pattern:
+                require(torch.equal(vals_u[live], mp[i][1][live]), f"K4 pattern counts differ in chunk {i}")
+            else:
+                exact = sk._merge_block(cp, vp.double(), accum_dtype=torch.float64, pattern=False)[1][live]
+                e64, r64 = max_errs(vals_u[live].double(), exact)
+                _, r32 = max_errs(vals_u[live], mp[i][1][live])
+                require(r64 <= RTOL_F32 and r32 <= 2e-5,
+                        f"K4 values in chunk {i}: rel {r64:.3e} from the fp64 merge, {r32:.3e} from the plain one")
+                err = max(err, e64)
+        outs = [(r,) + o for r, o in zip(rids, b1)]
+        ck5 = sk.compact_to_csr(outs, nrow=nrow, nnz_pad=nnz_pad, dtype=acc, device=dev)
+        cp5 = sk._compact_to_csr(outs, nrow=nrow, nnz_pad=nnz_pad, dtype=acc, device=dev)
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(ck5, cp5)), f"K5 differs from _compact_to_csr ({mode} mode)")
+        held_against(ss._csr_to_host(ss.CSR(data=ck5[0], indices=ck5[1], indptr=ck5[2], shape=A.shape,
+                                            nnz=int(ck5[3]))), ref, f"K5's CSR ({mode} mode)",
+                     rtol=None if pattern else 1e-4)
+        del fk, fp, b1, b2, c, mp, cp5
+        vb = 0 if pattern else 4
+        out_nnz, nu_bytes = ref.nnz, 4 * sum(R for _, R, _, _ in sched)
+        tables = (plan.rowmeta.numel() * 4 + sizing.npa * (4 + vb) + plan.b2_cols.numel() * 4
+                  + plan.b2_vals.numel() * vb)
+        merged = out_nnz * 8 + nu_bytes
+        work = {  # name: (kernel, plain, bytes, operations)
+            "slab_fetch": (fetch_k, fetch_p, tables + slots * (4 + vb), 0 if pattern else live_pp),
+            "slab_fetch_merge": (fused_k, lambda: [sk._merge_block(*f, accum_dtype=acc, pattern=pattern)
+                                                   for f in fetch_p()], tables + merged, 2 * live_pp),
+            "slab_merge": (merge_k, merge_p, slots * (4 + vb) + merged, live_pp),
+            "slab_compact": (lambda: sk.compact_to_csr(outs, nrow=nrow, nnz_pad=nnz_pad, dtype=acc, device=dev),
+                             lambda: sk._compact_to_csr(outs, nrow=nrow, nnz_pad=nnz_pad, dtype=acc, device=dev),
+                             merged + nu_bytes + (nrow + 1) * 8 + out_nnz * 8, 0),
+        }
+        line = []
+        for name, (kern, plain, nbytes, ops_) in work.items():
+            ms = cuda_ms(torch, kern, iters=5, warmup=1)
+            plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+            b = bound(nbytes, ops_, peak)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1], share=b[0] / ms,
+                       bytes=nbytes)
+            if mode == "value":
+                merges = name in ("slab_fetch_merge", "slab_merge")  # the others are bit-equal to theirs
+                rows[name] = dict(max_abs_err=err if merges else 0.0, **row, library_ms=None,
+                                  library="none: no single PyTorch call computes this function")
+            else:
+                rows[name]["pattern"] = row
+            line.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f}; bound {b[0]:.4f}, {b[1]}, "
+                        f"{nbytes / 1e6:.1f} MB, share {b[0] / ms:.1%})")
+        say(f"phase 3 K4 / K5 over the web-Google A×A in {mode} mode ({len(sched)} chunks, {slots} slots, "
+            f"{live_pp} partial products, {out_nnz} out nnz): (a) bit-equal to _chunk_fetch, (b) and (c) equal "
+            f"to _merge_block on the live slots" + ("" if pattern else f" (max_abs_err {err:.3e} from the fp64 "
+            f"merge, tol {RTOL_F32:g} of max)") + ", (b) twice and (c) bit-identical, K5 equal to "
+            f"_compact_to_csr and to scipy | CUDA events, whole product: " + " | ".join(line)
+            + " | library: none (no single PyTorch call computes these)")
+        del plan, outs, ck5
+    return rows
+
+
 def profile_line(p, n: int = 6) -> str:
     """The top ``n`` kernels of a ``utils.profiling.Profile``."""
     return " | ".join(f"{o.name[:60]} x{o.count:g} {o.ms:.3f}" for o in p.ops[:n])
@@ -364,6 +497,7 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
         return torch.cuda.memory_allocated()
 
     t_phase = t0 = time.perf_counter()
+    launches0 = counters()
     ref = scipy_square(A.to_scipy())
     t_ref = (time.perf_counter() - t0) * 1e3
     W = ss.DEFAULT_SEG_W
@@ -397,20 +531,37 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
         f"chain {chain_ms:.3f} ms/product (8, one sync) | compaction {t_compact:.1f} ms | "
         f"D2H {t_d2h:.1f} ms | peak {peak_plan:.3f} GB | numeric and chain exact")
 
-    # the device stages apart (ROADMAP queue 2): S2 expansion (the chunks'
-    # gathers, which the aligned cache runs once), S1 sort+merge (the aligned
-    # numeric phase), S3 compaction
+    # the device stages apart: the torch stages as the port first wrote them
+    # (S2 expansion, the chunks' gathers, which the aligned cache runs once;
+    # S1 sort+merge of the aligned cache; S3 compaction) beside the kernels
+    # that replace them (K4 (b) S2 + S1 fused, K4 (c) S1 from the aligned
+    # cache, which is the warm numeric phase above, K5 S3)
     def fetch_all():
         for L, R_pad, start, cnt in sched:
             base_, bm = ss._chunk_meta(plan.rowmeta, start, cnt, R_pad, L // W)
             ss._chunk_fetch(plan, base_, bm, L=L, R_pad=R_pad, W=W, accum_dtype=torch.float32,
                             pattern=plan.pattern)
 
+    def fused_all():
+        for L, R_pad, start, cnt in sched:
+            ss._chunk(plan, start, cnt, L=L, R_pad=R_pad, W=W, accum_dtype=torch.float32, pattern=plan.pattern)
+
+    def merge_plain():
+        for col in plan.aligned_cols:
+            ss._merge_block(col, None, accum_dtype=torch.float32, pattern=plan.pattern)
+
+    def compact(fn):
+        return lambda: fn(outs, nrow=A.nrow, nnz_pad=nnz_pad, dtype=torch.float32, device=dev)
+
+    require(plan.pattern, "phase 5's A×A is not in pattern mode")
     s2_ms = cuda_ms(torch, fetch_all, iters=3, warmup=1)
-    s3_ms = cuda_ms(torch, lambda: ss._compact_to_csr(outs, nrow=A.nrow, nnz_pad=nnz_pad,
-                                                       dtype=torch.float32, device=dev), iters=3, warmup=1)
-    say(f"phase 5 stages (CUDA events): S2 expansion {s2_ms:.3f} ms | S1 sort+merge {num_ms:.3f} ms | "
-        f"S3 compaction {s3_ms:.3f} ms")
+    s1_ms = cuda_ms(torch, merge_plain, iters=3, warmup=1)
+    s3_ms = cuda_ms(torch, compact(ss._compact_to_csr), iters=3, warmup=1)
+    k4b_ms = cuda_ms(torch, fused_all, iters=5, warmup=1)
+    k5_ms = cuda_ms(torch, compact(ss.compact_to_csr), iters=5, warmup=1)
+    say(f"phase 5 stages (CUDA events, pattern mode): torch S2 expansion {s2_ms:.3f} ms | torch S1 sort+merge "
+        f"{s1_ms:.3f} ms | torch S3 compaction {s3_ms:.3f} ms || K4 (b) S2 + S1 fused {k4b_ms:.3f} ms | K4 (c) "
+        f"S1 from the aligned cache {num_ms:.3f} ms (the warm numeric phase) | K5 S3 {k5_ms:.3f} ms")
     p = profile_fn(lambda: ss.spgemm_slab_device(A, A, plan), repeats=3, warm=False)
     say(f"phase 5 profile, warm numeric (device ms per product, busy {p.total_device_ms:.3f}): by op: "
         + " | ".join(f"{src} {ms:.3f}" for src, ms in list(p.by_source().items())[:6])
@@ -478,8 +629,12 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
         ss._piece_exec = real
     require(n_first == 4, f"spgemm_slab_big ran {n_first} pieces, not 4")
     require(not calls, f"the resume recomputed {len(calls)} pieces")
+    moved = {k: n - launches0[k] for k, n in counters().items() if k in SPGEMM_KERNELS}
+    for kname, n in moved.items():
+        require(n > 0, f"kernel {kname} was not launched by the slab SpGEMM's entry points (phase 5)")
     say(f"phase 5 big path: 4 pieces {t_big:.1f} ms, peak {peak_big:.3f} GB, exact | resume "
-        f"{t_resume:.1f} ms, 0 pieces recomputed, exact | phase 5 took {time.perf_counter() - t_phase:.1f} s")
+        f"{t_resume:.1f} ms, 0 pieces recomputed, exact | K4 / K5 launches in phase 5 (timing repeats "
+        f"included) {moved} | phase 5 took {time.perf_counter() - t_phase:.1f} s")
     # what phase 9's attainable bounds need: the sizing and the times
     return ref, dict(sizing=sizing, out_nnz=ref.nnz, cold_ms=t_calls[0], warm_ms=num_ms,
                      chain_ms=chain_ms)
@@ -1695,6 +1850,8 @@ def main() -> int:
         PRIOR_MS["ordered sum k=128 stream"])
     results["segment_sum"] = r_seg
     del P6, view6, B6, contrib6, plan6
+    # K4 and K5, the slab SpGEMM's numeric phase, over the web-Google A×A
+    results.update(slab_kernel_rows(torch, A_web, dev, rng, bound, FP32_FLOPS))
 
     # ---- 4. main path ------------------------------------------------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1712,8 +1869,9 @@ def main() -> int:
         paths = {kname: [] for kname in counters()}
         t0 = time.perf_counter()
         rows: list = []
-        # the CLI multiplies twice (first call, timed call): one K2 launch each
-        rc = launched(paths, "cli.main --spmm 128 (ops.ell_spmm)", lambda: cli.main(
+        # the CLI multiplies twice (first call, timed call): one K2 launch
+        # each; its A×A is one cold ops.spgemm
+        rc = launched(paths, "cli.main --spgemm --spmm 128 (ops.spgemm, ops.ell_spmm)", lambda: cli.main(
             ["--dir", tmp, "--spgemm", "--spmm", "128", "--check", "--device", "cuda"], results=rows),
             {"ell_slab_spmm": 2, "bsr_spmm": 0})
         y_csr = launched(paths, "ops.spmm(CSR)", lambda: ops.spmm(A_web, B_csr),
@@ -1745,7 +1903,8 @@ def main() -> int:
             f"ops.spmm(CSR) differs from scipy: {err_csr:.3e}")
     _, rel_bsr = max_errs(y_bsr, bsr_kernel.bsr_spmm_reference(Ab, B_band))
     require(rel_bsr <= RTOL_F32, f"ops.spmm(BSR) differs from its plain version: {rel_bsr:.3e}")
-    for kname in ("ell_slab_spmm", "bsr_spmm"):
+    # the CLI's A×A is a cold ops.spgemm: K4 (b) per chunk, then K5
+    for kname in ("ell_slab_spmm", "bsr_spmm", "slab_fetch_merge", "slab_compact"):
         require(launches[kname] > 0, f"kernel {kname} was not launched on the main path")
 
     ref_C, spgemm_times = slab_phase(torch, A_web, dev, rng, cli_spgemm_ms=r["spgemm_ms"])
@@ -1762,13 +1921,15 @@ def main() -> int:
     reset_counters()
     launches7 = grad_phase(torch, A_web, E, Ab, A_band, P, view, dev, rng, paths, root)
     for kname, n in launches7.items():
-        require(n > 0, f"kernel {kname} was not launched on this slice's path (phase 7)")
+        require(n > 0 or kname in SPGEMM_KERNELS, f"kernel {kname} was not launched on this slice's path (phase 7)")
         launches[kname] += n
 
     # ---- 8. the distribution layer -----------------------------------------
     reset_counters()
     launches8 = dist_phase(torch, A_web, ref_C, dev, rng, paths, root)
     require(launches8["ell_slab_spmm"] >= 4, "K2 was not launched on every distributed SpMM (phase 8)")
+    for kname in SPGEMM_KERNELS:  # spmd / csr / big: K4 (b) and K5; plan: (a); exec: (c)
+        require(launches8[kname] > 0, f"kernel {kname} was not launched on the distributed SpGEMMs (phase 8a)")
     for kname, n in launches8.items():
         launches[kname] += n
 
@@ -1796,6 +1957,17 @@ def main() -> int:
         "segment_sum": ("spmm_tpu_torch/csrc/segment_sum.cu",
                         "spmm_tpu/ops/spmm.py:41 (no TPU kernel: the XLA segment_sum of the gather paths, "
                         "jax.ops.segment_sum; the ordered sum in place of atomic index_add_)"),
+        "slab_fetch": ("spmm_tpu_torch/csrc/slab_spgemm.cu",
+                       "spmm_tpu/ops/slab_spgemm.py:1012 (no TPU kernel: the XLA chunk fetch _chunk_fetch; "
+                       "K4 (a), the class-aligned cache)"),
+        "slab_fetch_merge": ("spmm_tpu_torch/csrc/slab_spgemm.cu",
+                             "spmm_tpu/ops/slab_spgemm.py:1012 + :1073 (no TPU kernel: the XLA _chunk_fetch and "
+                             "_merge_block, fused; K4 (b))"),
+        "slab_merge": ("spmm_tpu_torch/csrc/slab_spgemm.cu",
+                       "spmm_tpu/ops/slab_spgemm.py:1073 (no TPU kernel: the XLA sort-merge _merge_block of a "
+                       "cached slab; K4 (c))"),
+        "slab_compact": ("spmm_tpu_torch/csrc/slab_spgemm.cu",
+                         "spmm_tpu/ops/slab_spgemm.py:1280 (no TPU kernel: the XLA _compact_to_csr; K5)"),
     }
     report = [
         {"name": kname, "route": "cuda", "source": src, "replaces": rep,

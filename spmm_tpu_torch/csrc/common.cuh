@@ -8,12 +8,13 @@
 namespace spmm_tpu_torch {
 
 // dtype codes passed by the Python wrappers (kernels.F32, kernels.BF16,
-// kernels.F64, kernels.I32, kernels.I64)
+// kernels.F64, kernels.I32, kernels.I64, kernels.F16)
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 constexpr int kF64 = 2;
 constexpr int kI32 = 3;
 constexpr int kI64 = 4;
+constexpr int kF16 = 5;
 
 // a stored value widened to the accumulate type TA (float or double)
 template <typename TA> __device__ __forceinline__ TA to_acc(float x) { return static_cast<TA>(x); }

@@ -32,7 +32,7 @@ NVCC_FLAGS = [
 ]
 
 # dtype codes of the C entries
-F32, BF16, F64, I32, I64 = 0, 1, 2, 3, 4
+F32, BF16, F64, I32, I64, F16 = 0, 1, 2, 3, 4, 5
 
 _lib: ctypes.CDLL | None = None
 
@@ -92,6 +92,15 @@ def load(path: str) -> ctypes.CDLL:
     so.ell_slabs_sddmm_launch.argtypes = [P, P, LL, P, P, P, I, P, LL, LL, I, I, P, P]
     so.segment_sum_launch.restype = I
     so.segment_sum_launch.argtypes = [P, P, P, P, P, I, LL, LL, LL, I, I, I, I, P]
+    so.slab_fetch_launch.restype = I
+    so.slab_fetch_launch.argtypes = [P, P, I, P, P, I, P, LL, LL, LL, I, I, I, I, I, I, I, P, P, P]
+    so.slab_fetch_merge_launch.restype = I
+    so.slab_fetch_merge_launch.argtypes = [P, P, I, P, P, I, P, LL, LL, LL, I, I, I, I, I, I, I, I, I, I, LL,
+                                           P, P, P, P]
+    so.slab_merge_launch.restype = I
+    so.slab_merge_launch.argtypes = [P, P, I, I, I, I, I, I, I, LL, P, P, P, P]
+    so.slab_compact_launch.restype = I
+    so.slab_compact_launch.argtypes = [P, P, P, P, I, I, P, LL, LL, I, P, P, P]
     so.cuda_error_string.restype = ctypes.c_char_p
     so.cuda_error_string.argtypes = [I]
     return so

@@ -13,11 +13,16 @@ C = A @ B without a global sort of the partial products:
    row: that grouping is all ESC's global sort is for.  With ``expand=True``
    every class chunk's (R_pad, L) slab of partial products is gathered once
    into the class-aligned cache.
-3. **numeric**: per class chunk, one batched row sort of the slab and a
-   deterministic merge of duplicate columns — differences of compacted
-   inclusive prefix sums (run lengths in pattern mode), no atomics.
-4. **compaction** (``_compact_to_csr``): the chunks' unique columns go to a
-   device CSR; only its arrays cross to the host.
+3. **numeric**: per class chunk, a row sort of the slab and a deterministic
+   merge of duplicate columns, no atomics.  On the card K4
+   (``csrc/slab_spgemm.cu``, ``ops/slab_kernel.py``) fetches and merges a
+   chunk in one pass (``chunk_merge``), merges a cached slab
+   (``slab_merge``) or writes the slab for the cache (``chunk_fetch``),
+   summing each run directly in slot order; the plain versions (CPU tensors)
+   take differences of compacted inclusive prefix sums (run lengths in
+   pattern mode).
+4. **compaction** (``compact_to_csr``, K5 on the card): the chunks' unique
+   columns go to a device CSR; only its arrays cross to the host.
 
 Rows whose padded expansion exceeds the largest class go to the global-sort
 ESC (``ops/spgemm.py``).  Products whose padded expansion exceeds
@@ -27,10 +32,10 @@ piece-granular checkpoint/resume.
 The JAX package's layouts for the TPU's (8, 128) tiling — folded 128-lane
 tables, bit-cast value channels, set-scatter step functions, windowed
 extracts — are not carried over: B2 is a plain (nsegB_pad, W) table, the pa
-list a ``searchsorted`` expansion, a chunk fetch two gathers.  Every stage is
-a torch op; which one earns a hand-written kernel is for the card's profile
-to say (PERF.md).  Sizes, classes and the chunk schedule are the JAX
-package's, so both give the same chunks.
+list a ``searchsorted`` expansion.  The sizing and the tables are torch ops
+(and host numpy); the numeric phase and the compaction are K4 and K5 on CUDA
+tensors, their plain versions on CPU tensors.  Sizes, classes and the chunk
+schedule are the JAX package's, so both give the same chunks.
 """
 
 from __future__ import annotations
@@ -52,12 +57,14 @@ from spmm_tpu_torch import native
 from spmm_tpu_torch.formats.containers import (
     COO, CSR, Container, as_numpy, compute_device, to_coo, to_csr,
 )
+from spmm_tpu_torch.ops.slab_kernel import (  # noqa: F401  (the plain versions keep their names here)
+    _INT_MAX, _chunk_fetch, _chunk_meta, _compact_to_csr, _merge_block, _torch_dtype, check_class_limit,
+    chunk_fetch, chunk_merge, compact_to_csr, slab_merge,
+)
 from spmm_tpu_torch.ops.spgemm import spgemm_sorted
 from spmm_tpu_torch.ops.transform import _stable_argsort_smallint
 
 Array = Any
-
-_INT_MAX = int(np.iinfo(np.int32).max)
 
 #: padded-expansion bound of one product (or one piece of the big path): it
 #: keeps every pa and slab index in int32 and bounds the plan tables and slab
@@ -116,10 +123,6 @@ def _max_chunk(classes, slot_budget: int) -> int:
     """Most rows a chunk can span: rows_sorted and rowmeta are padded by this,
     so no chunk's slice runs past their end."""
     return _bucket_pow2(max(slot_budget // classes[0], 8))
-
-
-def _torch_dtype(dt) -> torch.dtype:
-    return dt if isinstance(dt, torch.dtype) else getattr(torch, np.dtype(dt).name)
 
 
 def _dtype_name(dt) -> str:
@@ -456,6 +459,7 @@ def spgemm_plan(
     if pattern is None:
         pattern = _is_pattern(A) and _is_pattern(B)
     dev = _device(A, device)
+    check_class_limit(classes, dev)
     if sizing is None:
         sizing = _sizing(A, B, W, classes)
     tables = _plan_tables(
@@ -468,9 +472,8 @@ def spgemm_plan(
         sched, _ = _chunk_schedule(classes, sizing.counts, slot_budget)
         cols, vals = [], []
         for L, R_pad, start, cnt in sched:
-            base, bm = _chunk_meta(tables.rowmeta, start, cnt, R_pad, L // W)
-            col, val = _chunk_fetch(tables, base, bm, L=L, R_pad=R_pad, W=W,
-                                    accum_dtype=accum_dtype, pattern=pattern)
+            col, val = chunk_fetch(tables, start, cnt, L=L, R_pad=R_pad, W=W, accum_dtype=accum_dtype,
+                                   pattern=pattern)
             cols.append(col)
             if val is not None:
                 vals.append(val)
@@ -547,115 +550,24 @@ def spgemm_plan_revalue(
 # ---------------------------------------------------------------------------
 
 
-def _chunk_meta(rowmeta, start: int, count: int, R_pad: int, nblk: int):
-    """(base, bm) of one chunk's row range: each row's first pa, and the
-    (R_pad, nblk) mask of its live pa blocks (rows past ``count`` have none)."""
-    mm = rowmeta[start : start + R_pad]
-    if mm.shape[0] != R_pad:
-        raise ValueError(f"chunk rows [{start}, {start + R_pad}) run past the plan's padding")
-    dev = rowmeta.device
-    in_chunk = torch.arange(R_pad, device=dev) < count
-    base = torch.where(in_chunk, mm[:, 0], 0)
-    nb = torch.where(in_chunk, mm[:, 1], 0)
-    bm = torch.arange(nblk, device=dev)[None, :] < nb[:, None]
-    return base, bm
-
-
-def _chunk_fetch(t, base, bm, *, L: int, R_pad: int, W: int, accum_dtype, pattern: bool):
-    """The gather half of a chunk: each row's pa entries, then their B2
-    segments.  Returns (col, val): (R_pad, L) columns with _INT_MAX pads and,
-    in value mode, the partial products in ``accum_dtype`` (zero at pads);
-    val is None in pattern mode."""
-    nblk = L // W
-    dev = base.device
-    npa_pad = t.pa_b2row.shape[0]
-    last_seg = t.b2_cols.shape[0] - 1
-    pa = (base.long()[:, None] + torch.arange(nblk, device=dev)).clamp_(0, npa_pad - 1)
-    # blocks of other rows and of padding read the never-written last
-    # segment, which is all _INT_MAX: the gather masks them
-    b2r = torch.where(bm, t.pa_b2row[pa].long().clamp_(0, last_seg), last_seg)
-    col = t.b2_cols[b2r].reshape(R_pad, L)
-    if pattern:
-        return col, None
-    acc = _torch_dtype(accum_dtype)
-    val = t.b2_vals[b2r].to(acc) * t.pa_aval[pa].to(acc)[:, :, None]
-    val = torch.where(col != _INT_MAX, val.reshape(R_pad, L), 0)
-    return col, val
-
-
-def _merge_block(col, val, *, accum_dtype, pattern: bool):
-    """The sort/merge half of a chunk: (R_pad, L) columns with _INT_MAX pads
-    (and values in value mode) → (cols_u, vals_u, nuniq): each row's unique
-    columns ascending in its first nuniq slots, with their summed values.
-
-    Duplicates merge without atomics: the last element of each run keeps the
-    inclusive prefix sum of the sorted values; a stable sort moves those to
-    the front, and a run's sum is the difference of consecutive ones.  In
-    pattern mode the prefix sum of ones is the position, so a run's value is
-    a difference of positions: exact integer counts."""
-    R_pad, L = col.shape
-    acc = _torch_dtype(accum_dtype)
-    if pattern:
-        col_s = torch.sort(col, dim=1, stable=True).values
-    else:
-        col_s, order = torch.sort(col, dim=1, stable=True)
-        val_s = val.gather(1, order)
-    last = torch.ones_like(col_s, dtype=torch.bool)
-    last[:, :-1] = col_s[:, 1:] != col_s[:, :-1]
-    live = last & (col_s != _INT_MAX)
-    p = torch.arange(L, dtype=torch.int32, device=col.device).expand(R_pad, L)
-    out_key = torch.where(live, p, _INT_MAX)
-    outk_s, order_u = torch.sort(out_key, dim=1, stable=True)
-    cols_u = col_s.gather(1, order_u)
-    nuniq = live.sum(dim=1, dtype=torch.int32)
-    if pattern:
-        csum_u = outk_s.to(acc) + 1  # the inclusive count of ones up to the run's end
-    else:
-        csum_u = torch.cumsum(val_s, dim=1).gather(1, order_u)
-    vals_u = torch.diff(csum_u, dim=1, prepend=csum_u.new_zeros((R_pad, 1)))
-    return cols_u, vals_u, nuniq
-
-
 def _chunk(t, start: int, count: int, *, L: int, R_pad: int, W: int, accum_dtype, pattern: bool):
-    """One (R_pad, L) slab chunk: (rows, cols_u, vals_u, nuniq)."""
+    """One (R_pad, L) slab chunk: (rows, cols_u, vals_u, nuniq), fetched and
+    merged in one pass (K4 b on the card)."""
     r = t.rows_sorted[start : start + R_pad]
-    base, bm = _chunk_meta(t.rowmeta, start, count, R_pad, L // W)
-    col, val = _chunk_fetch(t, base, bm, L=L, R_pad=R_pad, W=W, accum_dtype=accum_dtype,
-                            pattern=pattern)
-    return (r,) + _merge_block(col, val, accum_dtype=accum_dtype, pattern=pattern)
+    return (r,) + chunk_merge(t, start, count, L=L, R_pad=R_pad, W=W, accum_dtype=accum_dtype,
+                              pattern=pattern)
 
 
 def _numeric_aligned(plan: SpgemmPlan, sched, accum_dtype):
-    """Every chunk of an aligned-cache plan: sort and merge, no gathers."""
+    """Every chunk of an aligned-cache plan: sort and merge (K4 c on the
+    card), no gathers."""
     outs = []
     for i, (L, R_pad, start, _) in enumerate(sched):
         r = plan.rows_sorted[start : start + R_pad]
         val = None if plan.pattern else plan.aligned_vals[i]
-        outs.append((r,) + _merge_block(plan.aligned_cols[i], val, accum_dtype=accum_dtype,
-                                        pattern=plan.pattern))
+        outs.append((r,) + slab_merge(plan.aligned_cols[i], val, accum_dtype=accum_dtype,
+                                      pattern=plan.pattern))
     return outs
-
-
-def _compact_to_csr(outs, *, nrow: int, nnz_pad: int, dtype, device):
-    """Slab-compressed chunk outputs → device CSR arrays (data, indices,
-    indptr, nnz as a 0-d tensor).  A chunk's padded rows repeat ids of other
-    rows with nuniq 0, so row counts merge by max, and entries past a row's
-    nuniq (or past ``nnz_pad``) are written to one spare slot that is cut
-    off.  Every kept slot is written once: the result is deterministic."""
-    counts = torch.zeros(nrow, dtype=torch.int32, device=device)
-    for r, _, _, nu in outs:
-        counts.scatter_reduce_(0, r.long(), nu, reduce="amax")
-    indptr = torch.zeros(nrow + 1, dtype=torch.int64, device=device)
-    torch.cumsum(counts, 0, out=indptr[1:])
-    data = torch.zeros(nnz_pad + 1, dtype=_torch_dtype(dtype), device=device)
-    indices = torch.zeros(nnz_pad + 1, dtype=torch.int32, device=device)
-    for r, cols_u, vals_u, nu in outs:
-        pp = torch.arange(cols_u.shape[1], device=device)
-        dest = indptr[r.long()][:, None] + pp
-        dest = torch.where((pp < nu[:, None]) & (dest < nnz_pad), dest, nnz_pad).view(-1)
-        data.index_put_((dest,), vals_u.reshape(-1).to(data.dtype))
-        indices.index_put_((dest,), cols_u.reshape(-1))
-    return data[:nnz_pad], indices[:nnz_pad], indptr.to(torch.int32), indptr[-1]
 
 
 def spgemm_slab_device(
@@ -765,7 +677,7 @@ def spgemm_slab_csr(
 
 
 def _csr_of(outs, shape, nnz_pad: int, accum_dtype, device) -> CSR:
-    data, indices, indptr, knnz = _compact_to_csr(
+    data, indices, indptr, knnz = compact_to_csr(
         outs, nrow=shape[0], nnz_pad=nnz_pad, dtype=accum_dtype, device=device
     )
     k = int(knnz)
@@ -898,6 +810,7 @@ def spgemm_slab(
     structure whatever the values, and ``spgemm_plan_revalue`` /
     ``spgemm_dist_revalue`` rely on that."""
     dev = compute_device(device)
+    check_class_limit(_norm_classes(classes, seg_w), dev)
     if pattern is None:
         pattern = _is_pattern(A) and _is_pattern(B)
     if A.nnz == 0 or B.nnz == 0:
@@ -1207,6 +1120,7 @@ def spgemm_slab_big(
     dev = compute_device(device)
     W = seg_w
     classes = _norm_classes(classes, W)
+    check_class_limit(classes, dev)
     if pattern is None:
         pattern = _is_pattern(A) and _is_pattern(B)
 

@@ -41,6 +41,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from spmm_tpu_torch import native
 from spmm_tpu_torch.formats.containers import CSR, as_tensor
+from spmm_tpu_torch.ops.slab_kernel import check_class_limit, chunk_fetch, compact_to_csr, slab_merge
 from spmm_tpu_torch.ops.slab_spgemm import (
     DEFAULT_CLASSES,
     DEFAULT_SEG_W,
@@ -48,13 +49,9 @@ from spmm_tpu_torch.ops.slab_spgemm import (
     _BigCheckpoint,
     _bucket_pow2,
     _choose_pieces,
-    _chunk_fetch,
-    _chunk_meta,
-    _compact_to_csr,
     _dtype_name,
     _is_pattern,
     _local_csr,
-    _merge_block,
     _norm_classes,
     _piece_csr,
     _piece_exec,
@@ -370,6 +367,7 @@ class _Shard:
             raise ValueError(f"matrix has {S.n_shards} shards, mesh axis {axis} has {n}")
         self.n, self.W = n, W
         self.classes = _norm_classes(classes, W)
+        check_class_limit(self.classes, mesh_device(mesh))
         self.pattern = _detect_shard_pattern(S, B) if pattern is None else pattern
         A = S if halo is None else dataclasses.replace(S, indices=halo.rel)
         self.cls, self.counts, self.npa_max, _, _ = _per_shard_sizing(
@@ -538,7 +536,7 @@ def spgemm_dist_csr(
         )
     _, outs = _piece_exec(sh.sub.to(sh.dev), torch.from_numpy(sh.rows_sorted()).to(sh.dev), sh.sc,
                           Bh.to(sh.dev), **sh.kw(Bh.indptr, accum_dtype))
-    data, indices, indptr, knnz = _compact_to_csr(
+    data, indices, indptr, knnz = compact_to_csr(
         outs, nrow=S.rows_per_shard, nnz_pad=sh.nnz_pad, dtype=accum_dtype, device=sh.dev,
     )
     total = knnz.reshape(1).to(torch.int64)
@@ -670,9 +668,8 @@ def _build_plan(rb: _DistRebuild, sub: CSR, B_dev: CSR, pattern: bool, accum_dty
                      pattern=pattern)
     cols, vals = [], []
     for i, (L, R_pad) in enumerate(sh.sched):
-        base, bm = _chunk_meta(t.rowmeta, int(sh.sc[0, i]), int(sh.sc[1, i]), R_pad, L // sh.W)
-        col, val = _chunk_fetch(t, base, bm, L=L, R_pad=R_pad, W=sh.W, accum_dtype=accum_dtype,
-                                pattern=pattern)
+        col, val = chunk_fetch(t, int(sh.sc[0, i]), int(sh.sc[1, i]), L=L, R_pad=R_pad, W=sh.W,
+                               accum_dtype=accum_dtype, pattern=pattern)
         cols.append(col)
         if val is not None:
             vals.append(val)
@@ -774,8 +771,8 @@ def spgemm_dist_exec(plan: DistSpgemmPlan, mesh: DeviceMesh, *, as_csr: bool = T
         start = int(plan.sc[0, i])
         val = None if plan.pattern else plan.aligned_vals[i]
         outs.append((plan.rows_sorted[start : start + R_pad],)
-                    + _merge_block(plan.aligned_cols[i], val, accum_dtype=plan.accum_dtype,
-                                   pattern=plan.pattern))
+                    + slab_merge(plan.aligned_cols[i], val, accum_dtype=plan.accum_dtype,
+                                 pattern=plan.pattern))
     if not as_csr:
         return tuple(tuple(x[None] for x in o) for o in outs)
     dev = mesh_device(mesh)
@@ -872,6 +869,7 @@ def spgemm_dist_big(
     me, group, dev = mesh.get_local_rank(axis), mesh.get_group(axis), mesh_device(mesh)
     W = seg_w
     classes = _norm_classes(classes, W)
+    check_class_limit(classes, dev)
     Bh = _host_b(B, mesh)
     if pattern is None:
         pattern = _is_pattern(A) and _is_pattern(Bh)

@@ -1096,3 +1096,210 @@ def test_primitive_rates_probe_on_card(cuda):
         vals = [x for pt in v for x in pt] if isinstance(v, tuple) else [v]
         assert vals and all(math.isfinite(x) and x > 0 for x in vals), k
     MeasuredRates(**r)
+
+
+# ---- K4 and K5: the slab SpGEMM's numeric phase ------------------------------
+
+_INT_MAX = 2**31 - 1
+
+#: (L, W): every default class at W = 8 and the kernels' widest row, then
+#: narrow and wide classes at W = 1 and 4
+K4_CASES = ([(L, 8) for L in sorted({-(-c // 8) * 8 for c in (4, 8, 12, 16, 20, 24, 32, 40, 48, 64, 80, 96, 128,
+                                                              160, 192, 256, 320, 384, 512, 640, 768, 1024, 1280,
+                                                              1536, 2048, 2560, 3072, 4096, 5120, 6144, 8192)})]
+            + [(16384, 8)] + [(L, W) for W in (1, 4) for L in (4, 12, 40, 320, 5120, 16384)])
+K4_MODES = {"pattern": (None, torch.float32), "fp32": (torch.float32, torch.float32),
+            "fp64": (torch.float64, torch.float64), "bf16 B into fp32": (torch.bfloat16, torch.float32)}
+
+
+def _k4_tables(cuda, L, W, values, seed, a_values=None):
+    """A product's tables (``slab_spgemm._Tables``) made to hold every kind
+    of row, and one chunk of them: (tables, start, count, R_pad).  Columns
+    come from a range of L / 3, so rows hold runs of duplicates; a quarter of
+    the segments end in pads, segment 0 is one column repeated and the last
+    segment is all pads.  Chunk row 0 has no pa, row 1 reads segment 0 only
+    (one repeated column), row 2 reads past npa (all pads); the last three
+    rows are dead (count < R_pad).  ``a_values``: A's dtype when it is not
+    B's (``values``)."""
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    rng = np.random.default_rng(seed)
+    nblk = L // W
+    R_pad = max(8, min(1024, (1 << 16) // L))
+    nseg = 4 * nblk + 64
+    cols = rng.integers(0, max(4, L // 3), (nseg, W)).astype(np.int32)
+    for s in np.nonzero(rng.random(nseg) < 0.25)[0]:
+        cols[s, rng.integers(1, W + 1):] = _INT_MAX
+    cols[0] = 7
+    cols[-1] = _INT_MAX
+    npa = 3 * nblk + 50
+    npa_pad = -(-(npa + nblk + 1) // 1024) * 1024
+    pa_b2row = rng.integers(1, nseg - 1, npa_pad).astype(np.int32)
+    pa_b2row[npa:] = nseg - 1
+    pa_b2row[:nblk] = 0
+    start = 5
+    meta = np.stack([rng.integers(0, npa - nblk + 1, start + R_pad + 3),
+                     rng.integers(0, nblk + 1, start + R_pad + 3)], axis=1).astype(np.int32)
+    meta[start] = (0, 0)
+    meta[start + 1] = (0, nblk)
+    meta[start + 2] = (npa, nblk)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    if values is None:
+        b2_vals, pa_aval = up(np.zeros((0, W), np.float32)), up(np.zeros(0, np.float32))
+    else:
+        scale = 1 if values.is_floating_point else 3  # integer tables hold small integers
+        b2_vals = up(scale * rng.standard_normal((nseg, W))).to(values)
+        pa_aval = up(scale * rng.standard_normal(npa_pad)).to(a_values or values)
+    t = ss._Tables(up(cols), b2_vals, up(pa_b2row), pa_aval, up(meta), up(np.arange(len(meta), dtype=np.int32)))
+    return t, start, R_pad - 3, R_pad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(K4_MODES))
+@pytest.mark.parametrize("L,W", K4_CASES)
+def test_k4_k5_match_plain(cuda, L, W, mode):
+    """K4 (a) bit-equal to ``_chunk_fetch``; (b) and (c) equal to
+    ``_merge_block`` in columns and nuniq on the live slots, values within
+    1e-5 of max |ref| of the float64 merge and 2e-5 of the plain version in
+    fp32 (1e-12 in fp64; pattern counts exact), ``_INT_MAX`` / 0 past nuniq;
+    (b) twice and (c) on the slab (a) built bit-identical; K5 equal to
+    ``_compact_to_csr`` on (b)'s output, also when nnz_pad cuts it; one
+    launch per call."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    values, acc = K4_MODES[mode]
+    pattern = values is None
+    t, start, count, R_pad = _k4_tables(cuda, L, W, values, seed=L + W)
+    kw = dict(L=L, R_pad=R_pad, W=W, accum_dtype=acc, pattern=pattern)
+    base, bm = ss._chunk_meta(t.rowmeta, start, count, R_pad, L // W)
+    col_p, val_p = ss._chunk_fetch(t, base, bm, **kw)
+    e0 = dict(sk.slab_launches)
+    col, val = sk.chunk_fetch(t, start, count, **kw)
+    b1 = sk.chunk_merge(t, start, count, **kw)
+    b2 = sk.chunk_merge(t, start, count, **kw)
+    c = sk.slab_merge(col, val, accum_dtype=acc, pattern=pattern)
+    torch.cuda.synchronize()
+    assert {k: v - e0[k] for k, v in sk.slab_launches.items()} == {"fetch": 1, "fetch_merge": 2, "merge": 1}
+    assert torch.equal(col, col_p) and (pattern or torch.equal(val, val_p))
+    for x, y, z in zip(b1, b2, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
+    cols_u, vals_u, nuniq = b1
+    ref = ss._merge_block(col_p, val_p, accum_dtype=acc, pattern=pattern)
+    assert torch.equal(nuniq, ref[2])
+    assert int(nuniq[0]) == int(nuniq[2]) == 0 and int(nuniq[1]) == 1 and not nuniq[count:].any()
+    live = torch.arange(L, device=cuda)[None, :] < nuniq[:, None]
+    assert torch.equal(cols_u[live], ref[0][live])
+    assert bool((cols_u[~live] == _INT_MAX).all()) and not vals_u[~live].any()
+    if pattern:
+        assert torch.equal(vals_u[live], ref[1][live])
+        assert float(vals_u[1, 0]) == (L // W) * W  # one column repeated through the row
+    else:
+        exact = ss._merge_block(col_p, val_p.double(), accum_dtype=torch.float64, pattern=False)[1][live]
+        scale = float(exact.abs().max())
+        tol = 1e-12 if acc == torch.float64 else 1e-5
+        assert float((vals_u[live].double() - exact).abs().max()) <= tol * scale
+        assert float((vals_u[live] - ref[1][live]).abs().max()) <= (1e-12 if acc == torch.float64 else 2e-5) * scale
+    # K5 on (b)'s output: the dead rows repeat live rows' ids with nuniq 0
+    rows = torch.randperm(R_pad, generator=torch.Generator().manual_seed(L)).to(cuda, torch.int32)
+    rows[count:] = rows[:3]
+    outs = [(rows, cols_u, vals_u, nuniq)]
+    total = int(nuniq.sum())
+    for nnz_pad in (total, total // 2):
+        m0 = sk.compact_launches
+        got = sk.compact_to_csr(outs, nrow=R_pad, nnz_pad=nnz_pad, dtype=acc, device=cuda)
+        want = ss._compact_to_csr(outs, nrow=R_pad, nnz_pad=nnz_pad, dtype=acc, device=cuda)
+        assert sk.compact_launches == m0 + 1
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [24, 2048])
+@pytest.mark.parametrize("b_dtype,a_dtype,acc", [
+    (torch.float16, torch.float16, torch.float32), (torch.int64, torch.int32, torch.float64),
+    (torch.float32, torch.float64, torch.float32), (torch.float64, torch.bfloat16, torch.float64)])
+def test_k4_widens_every_table_dtype(cuda, L, b_dtype, a_dtype, acc):
+    """K4 reads the value tables in any dtype the entry points take, widened
+    to the accumulate type as torch's ``.to`` rounds them: (a) bit-equal to
+    ``_chunk_fetch``, (b) and (c) bit-identical and within the tolerance of
+    ``_merge_block``; a chunk with no live row (count 0) gives nuniq 0."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    W = 8
+    t, start, count, R_pad = _k4_tables(cuda, L, W, b_dtype, seed=L, a_values=a_dtype)
+    for cnt in (count, 0):
+        kw = dict(L=L, R_pad=R_pad, W=W, accum_dtype=acc, pattern=False)
+        col_p, val_p = ss._chunk_fetch(t, *ss._chunk_meta(t.rowmeta, start, cnt, R_pad, L // W), **kw)
+        col, val = sk.chunk_fetch(t, start, cnt, **kw)
+        b, c = sk.chunk_merge(t, start, cnt, **kw), sk.slab_merge(col, val, accum_dtype=acc, pattern=False)
+        ref = ss._merge_block(col_p, val_p, accum_dtype=acc, pattern=False)
+        torch.cuda.synchronize()
+        assert torch.equal(col, col_p) and torch.equal(val, val_p)
+        assert all(torch.equal(x, y) for x, y in zip(b, c)) and torch.equal(b[2], ref[2])
+        live = torch.arange(L, device=cuda)[None, :] < ref[2][:, None]
+        assert torch.equal(b[0][live], ref[0][live])
+        if cnt:
+            tol = 1e-12 if acc == torch.float64 else 2e-5
+            assert float((b[1][live] - ref[1][live]).abs().max()) <= tol * float(ref[1][live].abs().max())
+        else:
+            assert not b[2].any()  # every row dead
+
+
+@pytest.mark.cuda
+def test_slab_entry_points_run_only_the_kernels_on_card(cuda, monkeypatch):
+    """Every slab SpGEMM entry point on the card runs S1, S2 and S3 through
+    K4 and K5 only: with the plain versions made to fail, each product is
+    still exact against scipy, and the launch counters moved."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("_chunk_fetch", "_merge_block", "_compact_to_csr", "_chunk_meta"):
+        monkeypatch.setattr(sk, name, plain)
+    monkeypatch.setattr(ss, "AUTO_PLAN_MIN_NNZ", 1)
+    A = tsyn.webgraph_like(4000, 24000, seed=3)
+    S = A.to_scipy()
+    ref = (S @ S).tocsr()
+    ref.sum_duplicates()
+    ref.sort_indices()
+
+    def exact(C):
+        np.testing.assert_array_equal(np.asarray(C.indptr, np.int64), ref.indptr)
+        np.testing.assert_array_equal(np.asarray(C.indices[: C.nnz]), ref.indices)
+        np.testing.assert_array_equal(np.asarray(C.data[: C.nnz]), ref.data)
+
+    m0, e0 = sk.compact_launches, dict(sk.slab_launches)
+    ss._PLAN_SEEN.clear()
+    ss._PLAN_CACHE.clear()
+    for _ in range(3):  # cold, plan build, plan reuse
+        exact(ops.spgemm(A, A, device=cuda))
+    plan = ss.spgemm_plan(A, A, device=cuda)
+    for outs in (ss.spgemm_slab_device(A, A, plan)[0], ss.spgemm_chain_device(plan, 2),
+                 ss.spgemm_slab_device(A, A, device=cuda)[0]):
+        exact(ss._csr_to_host(ss._csr_of(outs, A.shape, ss._round_up(plan.npa * 8, 1024), torch.float32, cuda)))
+    exact(ss._csr_to_host(ss.spgemm_slab_csr(A, A, device=cuda)))
+    exact(ss.spgemm_slab_big(A, A, pieces=2, device=cuda))
+    moved = {k: v - e0[k] for k, v in sk.slab_launches.items()}
+    assert all(n > 0 for n in moved.values()) and sk.compact_launches > m0, moved
+    ss._PLAN_SEEN.clear()
+    ss._PLAN_CACHE.clear()
+
+
+@pytest.mark.cuda
+def test_class_above_the_kernel_limit_raises_on_card(cuda):
+    """A class wider than ``slab_kernel.MAX_L`` raises up front on CUDA
+    operands, naming the limit (no torch fallback)."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    A = tsyn.webgraph_like(500, 3000, seed=1)
+    wide = (8, 64, 2 * sk.MAX_L)
+    for call in (lambda: ops.spgemm(A, A, classes=wide, device=cuda),
+                 lambda: ss.spgemm_plan(A, A, classes=wide, device=cuda),
+                 lambda: ss.spgemm_slab_big(A, A, pieces=2, classes=wide, device=cuda)):
+        with pytest.raises(ValueError, match=str(sk.MAX_L)):
+            call()

@@ -285,4 +285,4 @@ def test_kernel_build_needs_nvcc():
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.build(force=True)
     assert [os.path.basename(s) for s in kernels.sources()] == [
-        "bsr_spmm.cu", "ell_slab_sddmm.cu", "ell_slab_spmm.cu", "errors.cu", "segment_sum.cu"]
+        "bsr_spmm.cu", "ell_slab_sddmm.cu", "ell_slab_spmm.cu", "errors.cu", "segment_sum.cu", "slab_spgemm.cu"]
