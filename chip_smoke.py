@@ -169,7 +169,9 @@ TRI_N = 49_152
 PRIOR_MS = {"K2 k=128": 2.8529, "K2 k=32": 2.6395, "K1 fp32": 0.8087,
             "K1 on Aᵀ": "0.7702 / 0.7821", "K2 on Aᵀ": "1.5371-1.5782", "K2 on Aᵀ k=32": "0.9919-1.0138",
             "K3 k=128": "0.7775 / 0.8962", "K3 k=32": "not measured",
-            "ordered sum Pᵀ": "0.0688 / 0.0826", "ordered sum k=128 stream": "0.21 (profile)"}
+            "ordered sum Pᵀ": "0.0688 / 0.0826", "ordered sum k=128 stream": "0.21 (profile)",
+            "slab_fetch_merge": "1.9415 / 1.6763", "slab_merge": "1.8336 / 1.7842",
+            "slab_compact": "1.5029 / 1.0814", "slab_fetch": "1.6036 / 0.7294"}
 
 
 def fail(msg: str) -> None:
@@ -362,13 +364,17 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
     against its plain version on the same inputs -- K4 (a) bit-equal to
     ``_chunk_fetch``, (b) and (c) equal to ``_merge_block`` in columns and
     nuniq on the live slots, values within 1e-5 of max of the fp64 plain
-    merge (2e-5 of the fp32 one; pattern counts exact), (b) bit-identical to
-    itself and to (c) on the slab (a) built, K5 equal to ``_compact_to_csr``
-    and its CSR to scipy's -- then each timed over the whole product (CUDA
-    events: all 23 chunks, mean of 5; the plain versions mean of 3) beside
-    the bound of the bytes it must move (each input once, each output once:
-    the live entries; ``ops.roofline.Roofline``).  No single PyTorch call
-    computes these functions, so ``library_ms`` is null.  Returns the
+    merge (2e-5 of the fp32 one; pattern counts exact), (b) over the
+    product, (b) chunk by chunk and (c) on the slabs (a) built
+    bit-identical, K5 equal to ``_compact_to_csr`` and its CSR to scipy's
+    -- then each timed over the whole product (CUDA events: (b) and (c) one
+    launch per block-size group, (a) one per chunk, mean of 5; the plain
+    versions mean of 3) beside the bound of the bytes it must move (each
+    input once, each output once: the live entries;
+    ``ops.roofline.Roofline``) and its time before the redesign
+    (``PRIOR_MS``), and chunk by chunk ((b), (c) and K5 alone on each
+    chunk: L, rows, tiles, live partial products, ms).  No single PyTorch
+    call computes these functions, so ``library_ms`` is null.  Returns the
     kernels line's four entries (value mode; pattern mode beside)."""
     from spmm_tpu_torch.ops import slab_kernel as sk
     from spmm_tpu_torch.ops import slab_spgemm as ss
@@ -394,15 +400,21 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
         fetch_k = lambda: [sk.chunk_fetch(plan, st, c, **kw) for (st, c), kw in zip(where, kws)]
         fetch_p = lambda: [sk._chunk_fetch(plan, *sk._chunk_meta(plan.rowmeta, st, c, kw["R_pad"], kw["L"] // W),
                                            **kw) for (st, c), kw in zip(where, kws)]
-        fused_k = lambda: [sk.chunk_merge(plan, st, c, **kw) for (st, c), kw in zip(where, kws)]
-        merge_k = lambda: [sk.slab_merge(col, v, accum_dtype=acc, pattern=pattern)
-                           for col, v in zip(plan.aligned_cols, vals)]
+        fused_k = lambda: sk.chunk_merge_all(plan, sched, W=W, accum_dtype=acc, pattern=pattern)
+        fused_each = lambda: [sk.chunk_merge(plan, st, c, **kw) for (st, c), kw in zip(where, kws)]
+        merge_k = lambda: sk.slab_merge_all(plan.aligned_cols, vals, accum_dtype=acc, pattern=pattern)
         merge_p = lambda: [sk._merge_block(col, v, accum_dtype=acc, pattern=pattern)
                            for col, v in zip(plan.aligned_cols, vals)]
         fk, fp = fetch_k(), fetch_p()
-        b1, b2, c = fused_k(), fused_k(), merge_k()
+        before = counters()
+        b1, b2, c = fused_k(), fused_each(), merge_k()
         mp = merge_p()
         torch.cuda.synchronize()
+        groups = len(sk.merge_plan([(L, R) for L, R, _, _ in sched], acc).launches)
+        got = {k: counters()[k] - before[k] for k in ("slab_fetch_merge", "slab_merge")}
+        require(got == {"slab_fetch_merge": groups + len(sched), "slab_merge": groups},
+                f"K4 launches {got}: expected one per block-size group ({groups}) per product, one per chunk "
+                f"call ({len(sched)})")
         err = 0.0
         live_pp = 0
         for i, ((ck, vk), (cp, vp)) in enumerate(zip(fk, fp)):
@@ -411,7 +423,8 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
                     f"K4 (a) differs from _chunk_fetch in chunk {i} ({mode} mode)")
             live_pp += int((cp != ss._INT_MAX).sum())
             require(all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(b1[i], b2[i], c[i])),
-                    f"K4 (b) twice and (c) on the slab (a) built differ in their bits in chunk {i} ({mode} mode)")
+                    f"K4 (b) over the product, (b) chunk by chunk and (c) on the slab (a) built differ in their "
+                    f"bits in chunk {i} ({mode} mode)")
             cols_u, vals_u, nuniq = b1[i]
             require(torch.equal(nuniq, mp[i][2]), f"K4 nuniq differs from _merge_block in chunk {i} ({mode} mode)")
             live = torch.arange(cols_u.shape[1], device=dev)[None, :] < nuniq[:, None]
@@ -426,7 +439,9 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
                         f"K4 values in chunk {i}: rel {r64:.3e} from the fp64 merge, {r32:.3e} from the plain one")
                 err = max(err, e64)
         outs = [(r,) + o for r, o in zip(rids, b1)]
+        before = counters()["slab_compact"]
         ck5 = sk.compact_to_csr(outs, nrow=nrow, nnz_pad=nnz_pad, dtype=acc, device=dev)
+        require(counters()["slab_compact"] == before + 1, "K5 is not one launch pair per product")
         cp5 = sk._compact_to_csr(outs, nrow=nrow, nnz_pad=nnz_pad, dtype=acc, device=dev)
         torch.cuda.synchronize()
         require(all(torch.equal(x, y) for x, y in zip(ck5, cp5)), f"K5 differs from _compact_to_csr ({mode} mode)")
@@ -462,13 +477,37 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
             else:
                 rows[name]["pattern"] = row
             line.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f}; bound {b[0]:.4f}, {b[1]}, "
-                        f"{nbytes / 1e6:.1f} MB, share {b[0] / ms:.1%})")
+                        f"{nbytes / 1e6:.1f} MB, share {b[0] / ms:.1%}; before the redesign, value / pattern: "
+                        f"{PRIOR_MS[name]} ms, PERF.md)")
         say(f"phase 3 K4 / K5 over the web-Google A×A in {mode} mode ({len(sched)} chunks, {slots} slots, "
-            f"{live_pp} partial products, {out_nnz} out nnz): (a) bit-equal to _chunk_fetch, (b) and (c) equal "
-            f"to _merge_block on the live slots" + ("" if pattern else f" (max_abs_err {err:.3e} from the fp64 "
-            f"merge, tol {RTOL_F32:g} of max)") + ", (b) twice and (c) bit-identical, K5 equal to "
-            f"_compact_to_csr and to scipy | CUDA events, whole product: " + " | ".join(line)
+            f"{live_pp} partial products, {out_nnz} out nnz; K4 (b) and (c) {groups} launches per product): "
+            f"(a) bit-equal to _chunk_fetch, (b) and (c) equal to _merge_block on the live slots"
+            + ("" if pattern else f" (max_abs_err {err:.3e} from the fp64 merge, tol {RTOL_F32:g} of max)")
+            + ", (b) over the product, (b) chunk by chunk and (c) bit-identical, K5 equal to _compact_to_csr and "
+            f"to scipy | CUDA events, whole product: " + " | ".join(line)
             + " | library: none (no single PyTorch call computes these)")
+        # chunk by chunk: each kernel alone on one chunk (K5 over that
+        # chunk's rows, nnz_pad its own entries)
+        per = []
+        plan_m = sk.merge_plan([(L, R) for L, R, _, _ in sched], acc)
+        tiles = {}
+        for x in plan_m.launches:
+            for k, i in enumerate(x.chunks):
+                rows_t = int(x.table[k, sk.MERGE_FIELDS.index("rows_t")])
+                tiles[i] = (x.threads, x.items, rows_t, -(-sched[i][1] // rows_t))
+        for i, ((L, R, st, c), kw) in enumerate(zip(sched, kws)):
+            one = [outs[i]]
+            nnz_i = int(outs[i][3].sum())
+            tb = cuda_ms(torch, lambda: sk.chunk_merge(plan, st, c, **kw), iters=5, warmup=1)
+            tc = cuda_ms(torch, lambda: sk.slab_merge(plan.aligned_cols[i], vals[i], accum_dtype=acc,
+                                                      pattern=pattern), iters=5, warmup=1)
+            t5 = cuda_ms(torch, lambda: sk.compact_to_csr(one, nrow=nrow, nnz_pad=nnz_i, dtype=acc, device=dev),
+                         iters=5, warmup=1)
+            nt, items, rows_t, ntile = tiles[i]
+            live_i = int((plan.aligned_cols[i] != ss._INT_MAX).sum())
+            per.append(f"L {L} rows {R} ({c} live) tiles {ntile} x {rows_t} rows ({nt} threads x {items}) "
+                       f"pp {live_i} nnz {nnz_i}: b {tb:.4f} c {tc:.4f} K5 {t5:.4f}")
+        say(f"phase 3 K4 / K5 chunk by chunk ({mode} mode, ms, CUDA events, mean of 5): " + " | ".join(per))
         del plan, outs, ck5
     return rows
 
@@ -484,6 +523,7 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     sizing and times of the cold call, the warm numeric phase and the chain
     (phase 9's attainable shares)."""
     from spmm_tpu_torch import ops
+    from spmm_tpu_torch.ops import slab_kernel as sk
     from spmm_tpu_torch.ops import slab_spgemm as ss
     from spmm_tpu_torch.utils.profiling import profile_fn
 
@@ -524,8 +564,14 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     Ch, t_d2h = timed(lambda: ss._csr_to_host(Cd))
     held_against(Ch, ref, "plan numeric")
     peak_plan = peak_since(base)
-    held_against(ss._csr_of(ss.spgemm_chain_device(plan, 2), (A.nrow, A.ncol), nnz_pad,
-                            torch.float32, dev), ref, "spgemm_chain_device")
+    groups = len(sk.merge_plan([(L, R) for L, R, _, _ in sched], torch.float32).launches)
+    before = counters()
+    chain2 = ss.spgemm_chain_device(plan, 2)
+    got = {k: counters()[k] - before[k] for k in SPGEMM_KERNELS}
+    require(got == {"slab_fetch": 0, "slab_fetch_merge": 0, "slab_merge": 2 * groups, "slab_compact": 0},
+            f"a chain of 2 products took {got} launches, not {groups} K4 (c) per product")
+    held_against(ss._csr_of(chain2, (A.nrow, A.ncol), nnz_pad, torch.float32, dev), ref, "spgemm_chain_device")
+    del chain2
     say(f"phase 5 plan: build {t_plan:.1f} ms (first {t_plan_first:.1f}), tables + aligned cache "
         f"{plan_gb:.3f} GB | numeric {num_ms:.3f} ms (CUDA events, first {t_num_first:.1f} ms host) | "
         f"chain {chain_ms:.3f} ms/product (8, one sync) | compaction {t_compact:.1f} ms | "
@@ -543,8 +589,7 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
                             pattern=plan.pattern)
 
     def fused_all():
-        for L, R_pad, start, cnt in sched:
-            ss._chunk(plan, start, cnt, L=L, R_pad=R_pad, W=W, accum_dtype=torch.float32, pattern=plan.pattern)
+        ss._chunks(plan, sched, W=W, accum_dtype=torch.float32, pattern=plan.pattern)
 
     def merge_plain():
         for col in plan.aligned_cols:
@@ -1475,7 +1520,7 @@ def main() -> int:
         banded_random, csr_to_bsr, ell_pack, to_coo, webgraph_like, write_mtx,
     )
     from spmm_tpu_torch.native.build import build as build_native
-    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
+    from spmm_tpu_torch.ops import bsr_kernel, ell_kernel, slab_kernel
     from spmm_tpu_torch.ops.ell_spmm import slab_row_keys
     from spmm_tpu_torch.ops import segments
     from spmm_tpu_torch.ops.roofline import Roofline, detect_chip
@@ -1903,9 +1948,13 @@ def main() -> int:
             f"ops.spmm(CSR) differs from scipy: {err_csr:.3e}")
     _, rel_bsr = max_errs(y_bsr, bsr_kernel.bsr_spmm_reference(Ab, B_band))
     require(rel_bsr <= RTOL_F32, f"ops.spmm(BSR) differs from its plain version: {rel_bsr:.3e}")
-    # the CLI's A×A is a cold ops.spgemm: K4 (b) per chunk, then K5
+    # the CLI's A×A is one cold ops.spgemm: K4 (b), one launch per
+    # block-size group of its chunks, then K5
     for kname in ("ell_slab_spmm", "bsr_spmm", "slab_fetch_merge", "slab_compact"):
         require(launches[kname] > 0, f"kernel {kname} was not launched on the main path")
+    require(launches["slab_fetch_merge"] <= len(slab_kernel.MERGE_GROUPS) and launches["slab_compact"] == 1,
+            f"the CLI's A×A took {launches['slab_fetch_merge']} K4 (b) launches (at most one per block-size "
+            f"group, {len(slab_kernel.MERGE_GROUPS)}) and {launches['slab_compact']} K5 (one)")
 
     ref_C, spgemm_times = slab_phase(torch, A_web, dev, rng, cli_spgemm_ms=r["spgemm_ms"])
 

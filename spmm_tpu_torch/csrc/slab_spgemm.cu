@@ -5,51 +5,62 @@
 // _compact_to_csr (:1280) -- which the port first wrote as torch ops (their
 // plain versions, ops/slab_kernel.py).
 //
-// K4, one class chunk of (R_pad, L) partial-product slots (L a multiple of the
-// segment width W; row i of the chunk is row start + i of rowmeta):
-// - (a) slab_fetch_launch: the chunk's slots written to device memory, columns
+// K4, class chunks of (R_pad, L) partial-product slots (L a multiple of the
+// segment width W; row i of a chunk is row start + i of rowmeta):
+// - (a) slab_fetch_launch: one chunk's slots written to device memory, columns
 //   with _INT_MAX pads and the values b2_vals * pa_aval in the accumulate
 //   type, 0 at pads -- bit-identical to _chunk_fetch (the class-aligned cache
 //   of spgemm_plan(expand=True)).
-// - (b) slab_fetch_merge_launch: the same slots made in shared memory and
-//   never written out, then each row sorted by column and its runs of equal
-//   columns merged: (cols_u, vals_u, nuniq) under _merge_block's contract.
-// - (c) slab_merge_launch: the same merge reading a cached (R_pad, L) slab.
-// K5, slab_compact_launch: one chunk's merged rows copied to their CSR rows.
+// - (b) slab_merge_launch with the tables: every chunk of a product fetched
+//   into shared memory (never written out), then each row sorted by column
+//   and its runs of equal columns merged: (cols_u, vals_u, nuniq) under
+//   _merge_block's contract.
+// - (c) slab_merge_launch without them: the same merge reading cached slabs.
+// K5, slab_compact_counts_launch + slab_compact_launch: the chunks' merged
+// rows copied to their CSR rows.
 //
 // What bounds them on this card: bytes.  K4 (b) reads the rows' metadata, the
 // pa tables and each live pa's B2 segment once and writes the merged rows;
-// K4 (c) reads the slab and writes the merged rows; K5 reads and writes the
-// live entries.  The work that stood in the way was the torch route's two
-// batched sorts per chunk, its gathers and its prefix sums: every slot went
-// through device memory four to six times.
+// K4 (c) reads the slabs and writes the merged rows; K5 reads and writes the
+// live entries and zeroes the CSR's padding.
 //
-// Design:
-// - A CTA takes a tile of consecutive rows of one chunk, each row padded to
-//   Lp = L rounded up to a power of two: Tp / Lp rows for a tile of Tp slots
-//   (4,096 in fp32 and pattern mode, 2,048 in fp64), one row when Lp >= Tp.
-//   The host computes the layout (ops/slab_kernel.py: tile_layout).
-// - Staging: (b) loads each row's (first pa, pa count) and each live pa's B2
-//   segment (16-byte loads of the columns where W allows), routing blocks past
-//   the row's count, rows past the chunk's count and slots past L to pads;
-//   (c) reads the slab, coalesced.  Shared memory holds a column key and a
-//   16-bit slot index per padded slot, and the values in slot order.
-// - Sort: a bitonic network over each row on the key (column, slot), so equal
-//   columns keep their slot order, as the plain version's stable sort does;
-//   the last merge stage runs every row ascending.  Each thread holds 16
-//   consecutive padded slots as 64-bit keys in registers: partners in one
-//   thread compare in registers, partners in one warp by shuffles, and only
-//   rows of 1,024 slots and more take passes through shared memory, one
-//   barrier each.
-// - Merge: a run starts where the column changes; the live starts (not
-//   _INT_MAX) are counted per thread over its 16 slots, one block-wide scan
-//   gives each its output position, and the thread holding a run's start
-//   sums the run directly in slot order, on into the next threads' slots
-//   while the column lasts (pattern mode: its length, an exact count).  Slots past a row's nuniq are written _INT_MAX / 0, so the
-//   whole output is deterministic.  No atomics: the same inputs give the same
-//   bits, and (b) on the tables gives the bits of (c) on the slab (a) built.
-// - K5: one warp per merged row, its first nuniq entries copied to
-//   indptr[row] on (coalesced); entries at or past nnz_pad are dropped.
+// Design of the merge (one launch per product and block size):
+// - The host's chunk table (ops/slab_kernel.py: merge_plan) gives each chunk
+//   its tiles: rows_t consecutive rows of L slots, rows_t = T / L for a tile
+//   of T = NT * E slots (2,048 for L <= 2,048, 4,096 up to 4,096, 16,384
+//   above).  The table travels as a kernel parameter; a CTA finds its chunk
+//   in it and stages its rows unpadded, in slot order: (c) by 16-byte loads
+//   of the contiguous slab rows, (b) by its rows' (first pa, pa count), then
+//   each live pa's B2 segment.  Shared memory holds the columns, the values
+//   and a 16-bit run start per slot: 14 B a slot in fp64, 229,376 of a CTA's
+//   232,448 B at 16,384 slots.
+// - Sort: a row's slots are ascending runs (one per B row, when B's rows
+//   ascend).  A run starts at a row's first slot and wherever a column is
+//   below its predecessor; a row's live length ends after its last
+//   non-_INT_MAX slot.  One block-wide scan lists each row's run starts;
+//   merge round r then merges runs [g 2^r, g 2^r + 2^(r-1)) with the next
+//   2^(r-1) runs, ceil(log2(runs)) rounds for the tile's most divided row.
+//   Each thread holds E consecutive slots in registers, finds the merge of
+//   its first slot by a binary search over the row's groups and its place in
+//   it by a merge-path search on the diagonal, and merges on into later
+//   groups and rows; ties go to the left run, so equal columns keep their
+//   slot order with the column alone as the key.  Rows of one run move not
+//   at all.
+// - Merge of equal columns: a run of a column starts where the column
+//   changes; one block-wide scan of the starts gives each its output place,
+//   the thread holding a start sums the run directly in slot order (pattern
+//   mode: its length, an exact count), on into the next threads' slots while
+//   the column lasts.  The merged rows, _INT_MAX / 0 past nuniq, are laid
+//   out in shared memory and written back as one contiguous, 16-byte-stored
+//   block.  No atomics on the outputs: the same inputs give the same bits,
+//   (b) on the tables gives the bits of (c) on the slab (a) built, and both
+//   give the bits of a sort on (column, slot).
+// - K5: a count pass (each merged row with entries stores its count at its
+//   row id), the indptr scan (torch), then one copy pass over every chunk,
+//   a thread per slot of a merged row: the slots past the row's nuniq exit
+//   at once, and a warp's lanes copy consecutive entries of a row (coalesced
+//   loads and stores).  The same pass zeroes the CSR's padding [nnz,
+//   nnz_pad) by 16-byte stores; entries at or past nnz_pad are dropped.
 
 #include <cuda_fp16.h>
 
@@ -155,276 +166,613 @@ __global__ void slab_fetch_kernel(Tables t, int L, long long nblocks, int* __res
   }
 }
 
-// slots per thread of the merge: a tile of Tp slots takes Tp / kPer threads
-constexpr int kPer = 16;
 
-// a slot's sort key, (column, slot index) as one integer: the column in bits
-// 16-46, the slot (< 2^16) below
-__device__ __forceinline__ unsigned long long pack(int col, int slot) {
-  return (static_cast<unsigned long long>(static_cast<unsigned>(col)) << 16) | static_cast<unsigned>(slot);
+// the fields of a launch's host chunk table, one int64 row per chunk
+// (ops/slab_kernel.py: MERGE_FIELDS, COMPACT_FIELDS)
+enum MergeField { kColPtr, kValPtr, kStart, kCount, kRpad, kL, kOutSlot, kOutRow, kTile0, kRowsT, kMergeFields };
+enum CompactField { kRowsPtr, kColsPtr, kValsPtr, kNuPtr, kCRpad, kCL, kRow0, kSlot0, kCompactFields };
+
+// chunks one launch takes: its chunk table travels as a kernel parameter
+// (within the 4 KB a launch's parameters may hold), so a launch needs no
+// device allocation and no copy
+constexpr int kMaxChunks = 64;
+
+// one chunk of a merge launch: (c) its slab, (b) its first row in rowmeta
+// and its live rows (rows [count, R_pad) have no pa), where its outputs go
+// (first slot of cols_u / vals_u, first row of nuniq), its first tile in the
+// launch and its rows per tile
+struct MergeChunk {
+  const void* col;
+  const void* val;
+  long long out_slot;
+  int start, count, R_pad, L, out_row, tile0, rows_t, pad_;
+};
+struct MergeTab {
+  int n;
+  MergeChunk c[kMaxChunks];
+};
+
+// one chunk of K5: its outputs, its first row and first slot over the
+// launch's chunks
+struct CompactChunk {
+  const int* rows;
+  const int* cols;
+  const void* vals;
+  const int* nu;
+  long long row0, slot0;
+  int R_pad, L;
+};
+struct CompactTab {
+  int n;
+  CompactChunk c[kMaxChunks];
+};
+
+// the last chunk whose first item (tile, row or piece: `first`) is <= x
+template <typename Tab, typename F>
+__device__ __forceinline__ int chunk_of(const Tab& tab, long long x, F first) {
+  int lo = 0, hi = tab.n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (first(tab.c[mid]) <= x)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return lo;
 }
-__device__ __forceinline__ int col_of(unsigned long long k) { return static_cast<int>(k >> 16); }
-__device__ __forceinline__ int slot_of(unsigned long long k) { return static_cast<int>(k & 0xffffu); }
 
-// a thread's kPer keys to and from shared memory (columns, slot indices),
-// 16-byte accesses
-__device__ __forceinline__ void store_keys(const unsigned long long (&r)[kPer], int* sk, unsigned short* si,
-                                           int s0) {
+// n elements from device memory to shared memory by the CTA's NT threads:
+// 16-byte loads where src is aligned, four in flight per thread
+template <int NT, typename T>
+__device__ __forceinline__ void stage_copy(T* __restrict__ dst, const T* __restrict__ src, int n) {
+  constexpr int V = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int nv = n / V;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (int b = 0; b < nv; b += 4 * NT) {
+      uint4 r[4];
 #pragma unroll
-  for (int x = 0; x < kPer; x += 4) {
-    reinterpret_cast<int4*>(sk + s0)[x / 4] =
-        make_int4(col_of(r[x]), col_of(r[x + 1]), col_of(r[x + 2]), col_of(r[x + 3]));
-  }
-#pragma unroll
-  for (int x = 0; x < kPer; x += 8) {
-    uint4 u;
-    u.x = slot_of(r[x]) | (slot_of(r[x + 1]) << 16);
-    u.y = slot_of(r[x + 2]) | (slot_of(r[x + 3]) << 16);
-    u.z = slot_of(r[x + 4]) | (slot_of(r[x + 5]) << 16);
-    u.w = slot_of(r[x + 6]) | (slot_of(r[x + 7]) << 16);
-    reinterpret_cast<uint4*>(si + s0)[x / 8] = u;
-  }
-}
-
-__device__ __forceinline__ void load_keys(unsigned long long (&r)[kPer], const int* sk, const unsigned short* si,
-                                          int s0) {
-#pragma unroll
-  for (int x = 0; x < kPer; x += 8) {
-    const int4 c0 = reinterpret_cast<const int4*>(sk + s0)[x / 4];
-    const int4 c1 = reinterpret_cast<const int4*>(sk + s0)[x / 4 + 1];
-    const uint4 u = reinterpret_cast<const uint4*>(si + s0)[x / 8];
-    r[x] = pack(c0.x, u.x & 0xffffu);
-    r[x + 1] = pack(c0.y, u.x >> 16);
-    r[x + 2] = pack(c0.z, u.y & 0xffffu);
-    r[x + 3] = pack(c0.w, u.y >> 16);
-    r[x + 4] = pack(c1.x, u.z & 0xffffu);
-    r[x + 5] = pack(c1.y, u.z >> 16);
-    r[x + 6] = pack(c1.z, u.w & 0xffffu);
-    r[x + 7] = pack(c1.w, u.w >> 16);
-  }
-}
-
-// K4 (b) with FETCH, (c) without: one tile of rows_t rows per CTA, kPer
-// consecutive padded slots per thread.  Shared memory: values (Tp, TA; none in
-// pattern mode), columns (Tp int32), slot indices (Tp uint16), the rows' output
-// offsets (rows_t + 1) and 32 warp totals.
-template <typename TA, bool PATTERN, bool FETCH>
-__global__ void __launch_bounds__(1024) slab_merge_kernel(
-    Tables t, const int* __restrict__ col_in, const TA* __restrict__ val_in, int R_pad, int L,
-    int lp_log2, int rows_t, int* __restrict__ cols_u, TA* __restrict__ vals_u, int* __restrict__ nuniq) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int Lp = 1 << lp_log2;
-  const int Tp = rows_t << lp_log2;
-  TA* sv = reinterpret_cast<TA*>(smem);
-  int* sk = reinterpret_cast<int*>(smem + (PATTERN ? 0 : static_cast<size_t>(Tp) * sizeof(TA)));
-  unsigned short* si = reinterpret_cast<unsigned short*>(sk + Tp);
-  int* sbase = reinterpret_cast<int*>(si + Tp);
-  int* swarp = sbase + rows_t + 1;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int r0 = blockIdx.x * rows_t;
-  const int s0 = tid * kPer;
-
-  // 1. stage the tile: the column and value of every padded slot (a slot's
-  //    index is its place in its row)
-  for (int s = tid; s < Tp; s += nt) {
-    const int row = s >> lp_log2, e = s & (Lp - 1);
-    if (e >= L || r0 + row >= R_pad) {
-      sk[s] = kIntMax;
-    } else if (!FETCH) {
-      const long long g = static_cast<long long>(r0 + row) * L + e;
-      sk[s] = __ldg(col_in + g);
-      if (!PATTERN) sv[s] = __ldg(val_in + g);
-    }
-  }
-  if (FETCH) {
-    const int nblk = L / t.W;
-    for (int q = tid; q < rows_t * nblk; q += nt) {
-      const int row = q / nblk, j = q % nblk;
-      if (r0 + row >= R_pad) continue;
-      const int o = (row << lp_log2) + j * t.W;
-      fetch_block<TA, PATTERN>(t, r0 + row, j, [&](int w, int c, TA v) {
-        sk[o + w] = c;
-        if (!PATTERN) sv[o + w] = v;
-      });
-    }
-  }
-  __syncthreads();
-
-  // 2. bitonic sort of every row on (column, slot), the keys in registers:
-  //    partners within a thread compare in registers, within a warp by
-  //    shuffles, further apart (rows of 1,024 slots and more) through shared
-  //    memory; the last stage runs every row ascending
-  unsigned long long r[kPer];
-#pragma unroll
-  for (int x = 0; x < kPer; x += 4) {
-    const int4 c = reinterpret_cast<const int4*>(sk + s0)[x / 4];
-    r[x] = pack(c.x, (s0 + x) & (Lp - 1));
-    r[x + 1] = pack(c.y, (s0 + x + 1) & (Lp - 1));
-    r[x + 2] = pack(c.z, (s0 + x + 2) & (Lp - 1));
-    r[x + 3] = pack(c.w, (s0 + x + 3) & (Lp - 1));
-  }
-  for (int k = 2; k <= Lp; k <<= 1) {
-    int j = k >> 1;
-    if (j >= 32 * kPer) {
-      store_keys(r, sk, si, s0);
-      __syncthreads();
-      for (; j >= 32 * kPer; j >>= 1) {
-        for (int u = tid; u < (Tp >> 1); u += nt) {
-          const int a = 2 * u - (u & (j - 1)), b = a + j;
-          const bool up = k == Lp || (a & k) == 0;
-          const int ka = sk[a], kb = sk[b];
-          const unsigned short ia = si[a], ib = si[b];
-          if ((ka > kb || (ka == kb && ia > ib)) == up) {
-            sk[a] = kb;
-            sk[b] = ka;
-            si[a] = ib;
-            si[b] = ia;
-          }
-        }
-        __syncthreads();
+      for (int u = 0; u < 4; ++u) {
+        const int i = b + u * NT + threadIdx.x;
+        if (i < nv) r[u] = __ldg(s4 + i);
       }
-      load_keys(r, sk, si, s0);
-    }
-    for (; j >= kPer; j >>= 1) {
-      const bool lower = (s0 & j) == 0;
-      const bool up = k == Lp || (s0 & k) == 0;
 #pragma unroll
-      for (int x = 0; x < kPer; ++x) {
-        const unsigned long long o = __shfl_xor_sync(0xffffffffu, r[x], j / kPer);
-        r[x] = (lower == up) == (o < r[x]) ? o : r[x];
+      for (int u = 0; u < 4; ++u) {
+        const int i = b + u * NT + threadIdx.x;
+        if (i < nv) d4[i] = r[u];
       }
     }
-#pragma unroll
-    for (int jj = kPer / 2; jj >= 1; jj >>= 1) {
-      if (jj < k) {
-#pragma unroll
-        for (int x = 0; x < kPer; ++x) {
-          if ((x & jj) == 0) {
-            const bool up = k == Lp || ((s0 + x) & k) == 0;
-            const unsigned long long a = r[x], b = r[x | jj];
-            if ((a > b) == up) {
-              r[x] = b;
-              r[x | jj] = a;
-            }
-          }
-        }
-      }
-    }
+    done = nv * V;
   }
-  store_keys(r, sk, si, s0);
-  __syncthreads();
+  for (int i = done + threadIdx.x; i < n; i += NT) dst[i] = __ldg(src + i);
+}
 
-  // 3. output positions: the live run starts among the thread's slots, one
-  //    block-wide exclusive scan of their counts, each row's offset
-  const int lane = tid & 31, warp = tid >> 5;
-  unsigned starts = 0;
-  {
-    int prev = s0 > 0 ? sk[s0 - 1] : kIntMax;
-#pragma unroll
-    for (int x = 0; x < kPer; ++x) {
-      const int c = col_of(r[x]);
-      if (c != kIntMax && (((s0 + x) & (Lp - 1)) == 0 || c != prev)) starts |= 1u << x;
-      prev = c;
-    }
+// n elements from shared memory to device memory, 16-byte stores where dst is
+// aligned
+template <int NT, typename T>
+__device__ __forceinline__ void unstage_copy(T* __restrict__ dst, const T* __restrict__ src, int n) {
+  constexpr int V = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int nv = n / V;
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < nv; i += NT) d4[i] = s4[i];
+    done = nv * V;
   }
-  const int cnt = __popc(starts);
+  for (int i = done + threadIdx.x; i < n; i += NT) dst[i] = src[i];
+}
+
+// an exclusive block-wide scan of one count per thread; returns the thread's
+// offset, and the block's total in *total.  sw: 33 ints of shared memory.
+template <int NT>
+__device__ __forceinline__ int block_scan(int cnt, int* sw, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int incl = cnt;
+#pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const int x = __shfl_up_sync(0xffffffffu, incl, d);
     if (lane >= d) incl += x;
   }
-  if (lane == 31) swarp[warp] = incl;
+  if (lane == 31) sw[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    int w = lane < (nt >> 5) ? swarp[lane] : 0;
+    int w = lane < NT / 32 ? sw[lane] : 0;
+#pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int x = __shfl_up_sync(0xffffffffu, w, d);
       if (lane >= d) w += x;
     }
-    swarp[lane] = w;
+    sw[lane] = w;
   }
   __syncthreads();
-  const int off = (warp > 0 ? swarp[warp - 1] : 0) + incl - cnt;
-  int run = off;
-#pragma unroll
-  for (int x = 0; x < kPer; ++x) {
-    if (((s0 + x) & (Lp - 1)) == 0) sbase[(s0 + x) >> lp_log2] = run;
-    run += (starts >> x) & 1;
-  }
-  if (tid == nt - 1) sbase[rows_t] = run;
-  __syncthreads();
+  *total = sw[NT / 32 - 1];
+  return (warp > 0 ? sw[warp - 1] : 0) + incl - cnt;
+}
 
-  // 4. each run summed in slot order by the thread holding its start: one
-  //    pass over the thread's slots, the last run followed on into the next
-  //    threads' slots while its column lasts
-  run = off;
-  long long g = -1;  // the open run's output slot
-  int cc = 0, crb = 0;
-  TA sum = TA(0);
+// E consecutive slots of shared memory to and from registers, 16-byte
+// accesses (E a multiple of 4; p 16-byte aligned)
+template <int E>
+__device__ __forceinline__ void load_items(int (&key)[E], const int* sk, int p) {
 #pragma unroll
-  for (int x = 0; x < kPer; ++x) {
-    const int c = col_of(r[x]);
-    if ((starts >> x) & 1) {
-      if (g >= 0) {
-        cols_u[g] = cc;
-        vals_u[g] = sum;
-      }
-      const int row = (s0 + x) >> lp_log2;
-      crb = row << lp_log2;
-      g = static_cast<long long>(r0 + row) * L + (run - sbase[row]);
-      ++run;
-      cc = c;
-      sum = PATTERN ? TA(1) : sv[crb + slot_of(r[x])];
-    } else if (g >= 0 && c == cc) {
-      sum = sum + (PATTERN ? TA(1) : sv[crb + slot_of(r[x])]);
-    } else if (g >= 0) {
-      cols_u[g] = cc;
-      vals_u[g] = sum;
-      g = -1;
-    }
-  }
-  if (g >= 0) {
-    for (int q = s0 + kPer; q < crb + Lp && sk[q] == cc; ++q) sum = sum + (PATTERN ? TA(1) : sv[crb + si[q]]);
-    cols_u[g] = cc;
-    vals_u[g] = sum;
-  }
-
-  // 5. nuniq, and the slots past it
-  for (int s = tid; s < Tp; s += nt) {
-    const int row = s >> lp_log2, e = s & (Lp - 1), i = r0 + row;
-    if (e >= L || i >= R_pad) continue;
-    const int nu = sbase[row + 1] - sbase[row];
-    if (e == 0) nuniq[i] = nu;
-    if (e >= nu) {
-      const long long g = static_cast<long long>(i) * L + e;
-      cols_u[g] = kIntMax;
-      vals_u[g] = TA(0);
-    }
+  for (int x = 0; x < E; x += 4) {
+    const int4 c = *reinterpret_cast<const int4*>(sk + p + x);
+    key[x] = c.x;
+    key[x + 1] = c.y;
+    key[x + 2] = c.z;
+    key[x + 3] = c.w;
   }
 }
 
-// K5: merged row i of a chunk (class-order row id rows[i]) to its CSR row
+template <int E>
+__device__ __forceinline__ void store_items(const int (&key)[E], int* sk, int p) {
+#pragma unroll
+  for (int x = 0; x < E; x += 4)
+    *reinterpret_cast<int4*>(sk + p + x) = make_int4(key[x], key[x + 1], key[x + 2], key[x + 3]);
+}
+
+template <int E>
+__device__ __forceinline__ void load_items(float (&val)[E], const float* sv, int p) {
+#pragma unroll
+  for (int x = 0; x < E; x += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(sv + p + x);
+    val[x] = v.x;
+    val[x + 1] = v.y;
+    val[x + 2] = v.z;
+    val[x + 3] = v.w;
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void store_items(const float (&val)[E], float* sv, int p) {
+#pragma unroll
+  for (int x = 0; x < E; x += 4)
+    *reinterpret_cast<float4*>(sv + p + x) = make_float4(val[x], val[x + 1], val[x + 2], val[x + 3]);
+}
+
+template <int E>
+__device__ __forceinline__ void load_items(double (&val)[E], const double* sv, int p) {
+#pragma unroll
+  for (int x = 0; x < E; x += 2) {
+    const double2 v = *reinterpret_cast<const double2*>(sv + p + x);
+    val[x] = v.x;
+    val[x + 1] = v.y;
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void store_items(const double (&val)[E], double* sv, int p) {
+#pragma unroll
+  for (int x = 0; x < E; x += 2) *reinterpret_cast<double2*>(sv + p + x) = make_double2(val[x], val[x + 1]);
+}
+
+// four consecutive slots' columns and values into shared memory (o a
+// multiple of 4)
 template <typename TA>
-__global__ void slab_compact_kernel(const int* __restrict__ rows, const int* __restrict__ cols_u,
-                                    const TA* __restrict__ vals_u, const int* __restrict__ nuniq, int R_pad,
-                                    int L, const long long* __restrict__ indptr, long long nrow,
-                                    long long nnz_pad, TA* __restrict__ data, int* __restrict__ indices) {
-  const int lane = threadIdx.x & 31;
-  const long long nwarps = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
-  for (long long i = (blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x) >> 5; i < R_pad;
-       i += nwarps) {
-    const int nu = __ldg(nuniq + i);
-    const long long r = __ldg(rows + i);
-    if (nu <= 0 || r < 0 || r >= nrow) continue;
-    const long long base = __ldg(indptr + r);
-    const long long src = i * L;
-    for (int p = lane; p < nu; p += 32) {
-      const long long d = base + p;
-      if (d < nnz_pad) {
-        indices[d] = __ldg(cols_u + src + p);
-        data[d] = __ldg(vals_u + src + p);
+__device__ __forceinline__ void put4(int* sk, TA* sv, int o, int4 c, const TA (&v)[4], bool values) {
+  *reinterpret_cast<int4*>(sk + o) = c;
+  if (!values) return;
+  if constexpr (sizeof(TA) == 4) {
+    *reinterpret_cast<float4*>(sv + o) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<double2*>(sv + o) = make_double2(v[0], v[1]);
+    *reinterpret_cast<double2*>(sv + o + 2) = make_double2(v[2], v[3]);
+  }
+}
+
+// K4 (b) with FETCH, (c) without: one tile of rows per CTA, E consecutive
+// slots per thread.  Shared memory: values (T, TA; in pattern mode only the
+// output counts),
+// columns (T int32), run starts (T uint16), three arrays of rows_cap + 1
+// ints (live lengths; run / output bases; (b) the rows' first pa) and 33
+// ints for the scans.
+template <typename TA, bool PATTERN, bool FETCH, int NT, int E, int MINB>
+__global__ void __launch_bounds__(NT, MINB) slab_merge_kernel(Tables t, const __grid_constant__ MergeTab tab, int rows_cap,
+                                                              int* __restrict__ cols_u, TA* __restrict__ vals_u,
+                                                              int* __restrict__ nuniq) {
+  constexpr int T = NT * E;
+  extern __shared__ __align__(16) unsigned char smem[];
+  TA* sv = reinterpret_cast<TA*>(smem);
+  int* sk = reinterpret_cast<int*>(smem + static_cast<size_t>(T) * sizeof(TA));
+  unsigned short* rs = reinterpret_cast<unsigned short*>(sk + T);
+  int* s_n = reinterpret_cast<int*>(rs + T);
+  int* s_base = s_n + rows_cap + 1;
+  int* s_aux = s_base + rows_cap + 1;
+  int* s_w = s_aux + rows_cap + 1;  // 32 warp totals, then the tile's most runs in a row
+  const int tid = threadIdx.x;
+
+  const MergeChunk& ch = tab.c[chunk_of(tab, blockIdx.x, [](const MergeChunk& c) { return c.tile0; })];
+  const int L = ch.L, R_pad = ch.R_pad, rows_t = ch.rows_t;
+  const int r0 = (static_cast<int>(blockIdx.x) - ch.tile0) * rows_t;
+  const int rows = min(rows_t, R_pad - r0);
+  const int S = rows * L;
+  const long long gout = ch.out_slot + static_cast<long long>(r0) * L;
+
+  // 1. stage the tile: every slot's column and value, rows unpadded
+  for (int r = tid; r < rows; r += NT) s_n[r] = 0;
+  if (tid == 0) s_w[32] = 0;
+  if (FETCH) {
+    const int start = ch.start, count = ch.count;
+    for (int r = tid; r < rows; r += NT) {
+      const int i = r0 + r;
+      const long long m = 2 * (static_cast<long long>(start) + i);
+      s_aux[r] = i < count ? __ldg(t.rowmeta + m) : 0;
+      s_base[r] = i < count ? __ldg(t.rowmeta + m + 1) : 0;
+    }
+    __syncthreads();
+    const int W = t.W, nblk = L / W, nq = rows * nblk;
+    for (int b = 0; b < nq; b += 4 * NT) {
+      long long seg[4];
+      TA av[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int q = b + u * NT + tid;
+        seg[u] = -1;
+        av[u] = TA(0);
+        if (q < nq) {
+          const int r = q / nblk, j = q - r * nblk;
+          if (j < s_base[r]) {
+            const long long pa = min(max(static_cast<long long>(s_aux[r]) + j, 0LL), t.npa_pad - 1);
+            seg[u] = min(max(static_cast<long long>(__ldg(t.pa_b2row + pa)), 0LL), t.last_seg);
+            if (!PATTERN) av[u] = widen<TA>(t.pa_aval, t.a_code, pa);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int q = b + u * NT + tid;
+        if (q >= nq) continue;
+        const int r = q / nblk, o = r * L + (q - r * nblk) * W;
+        const long long sg = seg[u];
+        const TA a = av[u];
+        const int* cp = t.b2_cols + sg * W;
+        auto value = [&](int w, int c) {
+          return c != kIntMax ? mul_rn(widen<TA>(t.b2_vals, t.b_code, sg * W + w), a) : TA(0);
+        };
+        if (t.vec4) {  // W % 4 == 0: o too
+          for (int w = 0; w < W; w += 4) {
+            const int4 c4 = sg < 0 ? make_int4(kIntMax, kIntMax, kIntMax, kIntMax)
+                                   : __ldg(reinterpret_cast<const int4*>(cp + w));
+            TA v[4] = {TA(0), TA(0), TA(0), TA(0)};
+            if (!PATTERN && sg >= 0 && t.b_code == kF32) {  // 16-byte loads of fp32 B values
+              const float4 b4 = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(t.b2_vals) + sg * W + w));
+              v[0] = c4.x != kIntMax ? mul_rn(static_cast<TA>(b4.x), a) : TA(0);
+              v[1] = c4.y != kIntMax ? mul_rn(static_cast<TA>(b4.y), a) : TA(0);
+              v[2] = c4.z != kIntMax ? mul_rn(static_cast<TA>(b4.z), a) : TA(0);
+              v[3] = c4.w != kIntMax ? mul_rn(static_cast<TA>(b4.w), a) : TA(0);
+            } else if (!PATTERN && sg >= 0) {
+              v[0] = value(w, c4.x);
+              v[1] = value(w + 1, c4.y);
+              v[2] = value(w + 2, c4.z);
+              v[3] = value(w + 3, c4.w);
+            }
+            put4(sk, sv, o + w, c4, v, !PATTERN);
+          }
+        } else {
+          for (int w = 0; w < W; ++w) {
+            const int c = sg < 0 ? kIntMax : __ldg(cp + w);
+            sk[o + w] = c;
+            if (!PATTERN) sv[o + w] = sg < 0 ? TA(0) : value(w, c);
+          }
+        }
       }
     }
+  } else {
+    const long long g = static_cast<long long>(r0) * L;
+    stage_copy<NT>(sk, static_cast<const int*>(ch.col) + g, S);
+    if (!PATTERN) stage_copy<NT>(sv, static_cast<const TA*>(ch.val) + g, S);
+  }
+  __syncthreads();
+
+  // 2. the runs: a run starts at a row's first slot and below a column's
+  //    predecessor; each row's live length (after its last non-pad slot);
+  //    one block-wide scan lists each row's run starts in rs[row * L ...]
+  const int o = tid * E;
+  const int row0 = min(o, S) / L, e0 = min(o, S) - row0 * L;
+  int key[E];
+  TA val[E];
+  if (o < S) {
+    load_items(key, sk, o);
+    if (!PATTERN) load_items(val, sv, o);
+  } else {
+#pragma unroll
+    for (int x = 0; x < E; ++x) key[x] = kIntMax;
+  }
+  unsigned starts = 0;
+  {
+    int prev = e0 > 0 ? sk[o - 1] : kIntMax, row = row0, e = e0, trow = -1, tlen = 0;
+#pragma unroll
+    for (int x = 0; x < E; ++x) {
+      if (o + x < S) {
+        if (e == 0 || key[x] < prev) starts |= 1u << x;
+        if (key[x] != kIntMax) {
+          if (row != trow) {
+            if (trow >= 0) atomicMax(s_n + trow, tlen);
+            trow = row;
+          }
+          tlen = e + 1;
+        }
+        prev = key[x];
+        if (++e == L) {
+          e = 0;
+          ++row;
+        }
+      }
+    }
+    if (trow >= 0) atomicMax(s_n + trow, tlen);
+  }
+  int total;
+  const int roff = block_scan<NT>(__popc(starts), s_w, &total);
+  {
+    int run = roff, row = row0, e = e0;
+#pragma unroll
+    for (int x = 0; x < E; ++x) {
+      if (o + x < S && e == 0) s_base[row] = run;
+      run += (starts >> x) & 1;
+      if (++e == L) {
+        e = 0;
+        ++row;
+      }
+    }
+    if (tid == NT - 1) s_base[rows] = total;
+  }
+  __syncthreads();
+  {
+    int run = roff, row = row0, e = e0;
+#pragma unroll
+    for (int x = 0; x < E; ++x) {
+      if ((starts >> x) & 1) {
+        rs[row * L + run - s_base[row]] = static_cast<unsigned short>(e);
+        if (e == 0) atomicMax(s_w + 32, s_base[row + 1] - s_base[row]);
+        ++run;
+      }
+      if (++e == L) {
+        e = 0;
+        ++row;
+      }
+    }
+  }
+  __syncthreads();
+  const int most = s_w[32];
+  const int rounds = most <= 1 ? 0 : 32 - __clz(most - 1);
+
+  // 3. merge rounds: round r merges each row's runs [g 2^r, g 2^r + 2^(r-1))
+  //    with the next 2^(r-1), stably (ties to the left); a thread's slots
+  //    take their items from the merges they fall in
+  for (int r = 1; r <= rounds; ++r) {
+    bool moved = false;
+    // the thread's slots, segment by segment: a group of the round (merged
+    // or, one run alone, kept) or a row's dead tail (kept)
+    for (int x0 = 0; x0 < E && o + x0 < S;) {
+      const int p = o + x0, row = p / L, rb = row * L, e = p - rb, n = s_n[row];
+      int end = rb + L;  // a row's dead tail stays
+      if (e < n) {
+        const int m = s_base[row + 1] - s_base[row];
+        const unsigned short* rr = rs + rb;
+        int lo = 0, hi = (m - 1) >> r;
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (rr[mid << r] <= e)
+            lo = mid;
+          else
+            hi = mid - 1;
+        }
+        const int i0 = lo << r, im = i0 + (1 << (r - 1)), i1 = i0 + (1 << r);
+        const int gs = rr[i0], gm = im < m ? rr[im] : n, ge = i1 < m ? rr[i1] : n;
+        end = rb + ge;
+        if (gm < ge) {  // a merge; a group of one run stays
+          const int d = e - gs, A = rb + gs, B = rb + gm;
+          int a = max(0, d - (ge - gm)), ah = min(d, gm - gs);
+          while (a < ah) {
+            const int mid = (a + ah) >> 1;
+            if (sk[B + d - 1 - mid] < sk[A + mid])
+              ah = mid;
+            else
+              a = mid + 1;
+          }
+          int ia = A + a, ib = B + d - a;
+          const int ea = B, eb = end, x1 = min(E, end - o);
+          int ka = ia < ea ? sk[ia] : 0, kb = ib < eb ? sk[ib] : 0;
+          moved = true;
+#pragma unroll
+          for (int x = 0; x < E; ++x) {
+            if (x >= x0 && x < x1) {
+              if (ib < eb && (ia >= ea || kb < ka)) {
+                key[x] = kb;
+                if (!PATTERN) val[x] = sv[ib];
+                ++ib;
+                kb = ib < eb ? sk[ib] : 0;
+              } else {
+                key[x] = ka;
+                if (!PATTERN) val[x] = sv[ia];
+                ++ia;
+                ka = ia < ea ? sk[ia] : 0;
+              }
+            }
+          }
+        }
+      }
+      x0 = min(E, end - o);
+    }
+    __syncthreads();
+    if (moved) {
+      store_items(key, sk, o);
+      if (!PATTERN) store_items(val, sv, o);
+    }
+    __syncthreads();
+  }
+
+  // 4. runs of equal columns: a start where the column changes (or a row
+  //    begins), one block-wide scan of the starts, each row's output base
+  unsigned ust = 0;
+  {
+    int prev = e0 > 0 ? sk[o - 1] : kIntMax, row = row0, e = e0;
+#pragma unroll
+    for (int x = 0; x < E; ++x) {
+      if (o + x < S && key[x] != kIntMax && (e == 0 || key[x] != prev)) ust |= 1u << x;
+      prev = key[x];
+      if (++e == L) {
+        e = 0;
+        ++row;
+      }
+    }
+  }
+  const int uoff = block_scan<NT>(__popc(ust), s_w, &total);
+  {
+    int run = uoff, row = row0, e = e0;
+#pragma unroll
+    for (int x = 0; x < E; ++x) {
+      if (o + x < S && e == 0) s_base[row] = run;
+      run += (ust >> x) & 1;
+      if (++e == L) {
+        e = 0;
+        ++row;
+      }
+    }
+    if (tid == NT - 1) s_base[rows] = total;
+  }
+
+  // 5. each run summed in slot order by the thread holding its start, the sum
+  //    kept in the register of the run's last slot in the thread (uend); the
+  //    last open run followed on into the next threads' slots
+  unsigned uend = 0;
+  {
+    bool open = false;
+    int cc = 0, orow = 0, row = row0, e = e0;
+    TA sum = TA(0);
+#pragma unroll
+    for (int x = 0; x < E; ++x) {
+      const TA v = PATTERN ? TA(1) : val[x];
+      if ((ust >> x) & 1) {
+        if (open && x > 0) {
+          val[x - 1] = sum;
+          uend |= 1u << (x - 1);
+        }
+        open = true;
+        cc = key[x];
+        orow = row;
+        sum = v;
+      } else if (open && key[x] == cc && o + x < S) {
+        sum = sum + v;
+      } else if (open) {
+        if (x > 0) {
+          val[x - 1] = sum;
+          uend |= 1u << (x - 1);
+        }
+        open = false;
+      }
+      if (++e == L) {
+        e = 0;
+        ++row;
+      }
+    }
+    if (open) {
+      const int end = orow * L + L;
+      for (int q = o + E; q < end && sk[q] == cc; ++q) sum = sum + (PATTERN ? TA(1) : sv[q]);
+      val[E - 1] = sum;
+      uend |= 1u << (E - 1);
+    }
+  }
+  __syncthreads();
+
+  // 6. the merged rows laid out in shared memory, _INT_MAX / 0 past nuniq,
+  //    then written back as one block; nuniq per row
+  {
+    int run = uoff, row = row0, e = e0;
+#pragma unroll
+    for (int x = 0; x < E; ++x) {
+      const int p = o + x;
+      run += (ust >> x) & 1;
+      if (p < S) {
+        const int rb = row * L;
+        if ((uend >> x) & 1) {
+          const int q = rb + run - 1 - s_base[row];
+          sk[q] = key[x];
+          sv[q] = val[x];
+        }
+        if (e >= s_base[row + 1] - s_base[row]) {
+          sk[p] = kIntMax;
+          sv[p] = TA(0);
+        }
+      }
+      if (++e == L) {
+        e = 0;
+        ++row;
+      }
+    }
+  }
+  __syncthreads();
+  unstage_copy<NT>(cols_u + gout, sk, S);
+  unstage_copy<NT>(vals_u + gout, sv, S);
+  const long long orow = static_cast<long long>(ch.out_row) + r0;
+  for (int r = tid; r < rows; r += NT) nuniq[orow + r] = s_base[r + 1] - s_base[r];
+}
+
+// K5's count pass: each chunk row g with entries stores its nuniq at its row
+// id (a chunk's padded rows repeat other rows' ids with nuniq 0)
+__global__ void slab_count_kernel(const __grid_constant__ CompactTab tab, long long rtot, long long nrow, int* __restrict__ counts) {
+  for (long long g = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; g < rtot;
+       g += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const CompactChunk& ch = tab.c[chunk_of(tab, g, [](const CompactChunk& c) { return c.row0; })];
+    const long long i = g - ch.row0;
+    const int nu = __ldg(ch.nu + i);
+    const long long r = __ldg(ch.rows + i);
+    if (nu > 0 && r >= 0 && r < nrow) counts[r] = nu;
+  }
+}
+
+// K5's copy pass: a thread per slot of a merged row, the slots below the
+// row's nuniq copied to indptr[row id] on (a warp's lanes take consecutive
+// slots: coalesced loads and stores); then, with `tail`, the CSR's padding
+// [nnz, nnz_pad) zeroed by 16-byte stores
+template <typename TA>
+__global__ void slab_compact_kernel(const __grid_constant__ CompactTab tab, long long stot,
+                                    const long long* __restrict__ indptr, long long nrow, long long nnz_pad, int tail,
+                                    TA* __restrict__ data, int* __restrict__ indices) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t0 = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  for (long long b = t0 - lane; b < stot; b += stride) {  // b: the warp's first slot, the same in every lane
+    // the warp's chunk, looked up once by lane 0; a lane past its end looks
+    // up its own
+    int c = lane == 0 ? chunk_of(tab, b, [](const CompactChunk& x) { return x.slot0; }) : 0;
+    c = __shfl_sync(0xffffffffu, c, 0);
+    const long long q = b + lane;
+    if (q >= stot) continue;
+    if (q >= tab.c[c].slot0 + static_cast<long long>(tab.c[c].R_pad) * tab.c[c].L)
+      c = chunk_of(tab, q, [](const CompactChunk& x) { return x.slot0; });
+    const CompactChunk& ch = tab.c[c];
+    const int local = static_cast<int>(q - ch.slot0), i = local / ch.L, e = local - i * ch.L;
+    if (e >= __ldg(ch.nu + i)) continue;
+    const long long r = __ldg(ch.rows + i);
+    if (r < 0 || r >= nrow) continue;
+    const long long d = __ldg(indptr + r) + e;
+    if (d < nnz_pad) {
+      indices[d] = __ldg(ch.cols + local);
+      data[d] = __ldg(static_cast<const TA*>(ch.vals) + local);
+    }
+  }
+  if (!tail) return;
+  const long long nnz = __ldg(indptr + nrow);
+  const long long a = min(nnz_pad, (nnz + 3) & ~3LL), b = max(a, nnz_pad & ~3LL);
+  if (t0 < a - nnz) {
+    indices[nnz + t0] = 0;
+    data[nnz + t0] = TA(0);
+  }
+  for (long long q = a + 4 * t0; q < b; q += 4 * stride) {
+    *reinterpret_cast<int4*>(indices + q) = make_int4(0, 0, 0, 0);
+    if constexpr (sizeof(TA) == 4) {
+      *reinterpret_cast<float4*>(data + q) = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      *reinterpret_cast<double2*>(data + q) = make_double2(0., 0.);
+      *reinterpret_cast<double2*>(data + q + 2) = make_double2(0., 0.);
+    }
+  }
+  if (t0 < nnz_pad - b) {
+    indices[b + t0] = 0;
+    data[b + t0] = TA(0);
   }
 }
 
@@ -457,43 +805,88 @@ unsigned grid_of(long long items, int per_cta) {
   return static_cast<unsigned>(std::min<long long>(std::max<long long>(g, 1), 132LL * 32));
 }
 
-template <typename TA, bool PATTERN, bool FETCH>
-cudaError_t launch_merge(const Tables& t, const void* col_in, const void* val_in, int R_pad, int L,
-                         int lp_log2, int rows_t, int threads, long long smem, void* cols_u, void* vals_u,
-                         void* nuniq, cudaStream_t s) {
-  auto kern = slab_merge_kernel<TA, PATTERN, FETCH>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+// a host chunk table (int64 rows of MergeField) as a launch parameter
+bool merge_tab(const long long* rows, int n, MergeTab* tab) {
+  if (n <= 0 || n > kMaxChunks) return false;
+  tab->n = n;
+  for (int k = 0; k < n; ++k) {
+    const long long* r = rows + static_cast<long long>(k) * kMergeFields;
+    MergeChunk& c = tab->c[k];
+    c.col = reinterpret_cast<const void*>(r[kColPtr]);
+    c.val = reinterpret_cast<const void*>(r[kValPtr]);
+    c.out_slot = r[kOutSlot];
+    c.start = static_cast<int>(r[kStart]);
+    c.count = static_cast<int>(r[kCount]);
+    c.R_pad = static_cast<int>(r[kRpad]);
+    c.L = static_cast<int>(r[kL]);
+    c.out_row = static_cast<int>(r[kOutRow]);
+    c.tile0 = static_cast<int>(r[kTile0]);
+    c.rows_t = static_cast<int>(r[kRowsT]);
+    c.pad_ = 0;
+    if (c.L <= 0 || c.R_pad <= 0 || c.rows_t <= 0) return false;
   }
-  const long long tiles = (R_pad + rows_t - 1) / rows_t;
-  kern<<<static_cast<unsigned>(tiles), threads, static_cast<size_t>(smem), s>>>(
-      t, static_cast<const int*>(col_in), static_cast<const TA*>(val_in), R_pad, L, lp_log2, rows_t,
-      static_cast<int*>(cols_u), static_cast<TA*>(vals_u), static_cast<int*>(nuniq));
-  return cudaGetLastError();
+  return true;
+}
+
+bool compact_tab(const long long* rows, int n, CompactTab* tab) {
+  if (n < 0 || n > kMaxChunks) return false;
+  tab->n = n;
+  for (int k = 0; k < n; ++k) {
+    const long long* r = rows + static_cast<long long>(k) * kCompactFields;
+    CompactChunk& c = tab->c[k];
+    c.rows = reinterpret_cast<const int*>(r[kRowsPtr]);
+    c.cols = reinterpret_cast<const int*>(r[kColsPtr]);
+    c.vals = reinterpret_cast<const void*>(r[kValsPtr]);
+    c.nu = reinterpret_cast<const int*>(r[kNuPtr]);
+    c.R_pad = static_cast<int>(r[kCRpad]);
+    c.L = static_cast<int>(r[kCL]);
+    c.row0 = r[kRow0];
+    c.slot0 = r[kSlot0];
+    if (c.L <= 0 || c.R_pad <= 0) return false;
+  }
+  return true;
+}
+
+// the merge's block sizes (ops/slab_kernel.py: MERGE_GROUPS), each at 64
+// registers a thread: 256 threads of 8 slots for rows of up to 2,048 slots
+// (four CTAs an SM, whose barriers overlap), 512 of 8 up to 4,096, 1,024 of
+// 16 above
+template <typename TA, bool PATTERN, bool FETCH>
+cudaError_t launch_merge(int group, const Tables& t, const MergeTab& tab, int tiles, int rows_cap, long long smem,
+                         void* cols_u, void* vals_u, void* nuniq, cudaStream_t s) {
+  auto run = [&](auto kern, int nt) {
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    kern<<<static_cast<unsigned>(tiles), nt, static_cast<size_t>(smem), s>>>(
+        t, tab, rows_cap, static_cast<int*>(cols_u), static_cast<TA*>(vals_u), static_cast<int*>(nuniq));
+    return cudaGetLastError();
+  };
+  if (group == 0) return run(slab_merge_kernel<TA, PATTERN, FETCH, 256, 8, 4>, 256);
+  if (group == 1) return run(slab_merge_kernel<TA, PATTERN, FETCH, 512, 8, 2>, 512);
+  return run(slab_merge_kernel<TA, PATTERN, FETCH, 1024, 16, 1>, 1024);
 }
 
 template <bool FETCH>
-int merge_entry(const Tables& t, const void* col_in, const void* val_in, int R_pad, int L, int acc_code,
-                int pattern, int lp_log2, int rows_t, int threads, long long smem, void* cols_u, void* vals_u,
-                void* nuniq, cudaStream_t s) {
-  const int Tp = rows_t << lp_log2;
-  if (R_pad <= 0 || L <= 0 || L > (1 << lp_log2) || lp_log2 > 16 || threads < 32 || threads > 1024 ||
-      threads % 32 != 0 || Tp != kPer * threads || smem > 232448 || (FETCH && (t.W <= 0 || L % t.W != 0))) {
+int merge_entry(const Tables& t, const void* tab_rows, int nchunks, int tiles, int group, int rows_cap,
+                long long smem, int acc_code, int pattern, void* cols_u, void* vals_u, void* nuniq, cudaStream_t s) {
+  MergeTab tab;
+  if (tiles <= 0 || rows_cap <= 0 || group < 0 || group > 2 || smem > 232448 || (FETCH && t.W <= 0) ||
+      !merge_tab(static_cast<const long long*>(tab_rows), nchunks, &tab)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err;
   if (acc_code == kF32)
-    err = pattern ? launch_merge<float, true, FETCH>(t, col_in, val_in, R_pad, L, lp_log2, rows_t, threads, smem,
-                                                     cols_u, vals_u, nuniq, s)
-                  : launch_merge<float, false, FETCH>(t, col_in, val_in, R_pad, L, lp_log2, rows_t, threads,
-                                                      smem, cols_u, vals_u, nuniq, s);
+    err = pattern ? launch_merge<float, true, FETCH>(group, t, tab, tiles, rows_cap, smem, cols_u, vals_u, nuniq, s)
+                  : launch_merge<float, false, FETCH>(group, t, tab, tiles, rows_cap, smem, cols_u, vals_u, nuniq,
+                                                      s);
   else if (acc_code == kF64)
-    err = pattern ? launch_merge<double, true, FETCH>(t, col_in, val_in, R_pad, L, lp_log2, rows_t, threads,
-                                                      smem, cols_u, vals_u, nuniq, s)
-                  : launch_merge<double, false, FETCH>(t, col_in, val_in, R_pad, L, lp_log2, rows_t, threads,
-                                                       smem, cols_u, vals_u, nuniq, s);
+    err = pattern ? launch_merge<double, true, FETCH>(group, t, tab, tiles, rows_cap, smem, cols_u, vals_u, nuniq,
+                                                      s)
+                  : launch_merge<double, false, FETCH>(group, t, tab, tiles, rows_cap, smem, cols_u, vals_u, nuniq,
+                                                       s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
@@ -504,11 +897,11 @@ int merge_entry(const Tables& t, const void* col_in, const void* val_in, int R_p
 
 // The tables of one product (int32 b2_cols (nseg_pad, W), pa_b2row (npa_pad,),
 // rowmeta (nrow_pad, 2); b2_vals / pa_aval of dtypes b_code / a_code, null in
-// pattern mode; all contiguous) and one chunk of it: rows [start, start +
-// R_pad) of rowmeta, of which the first `count` are live, L slots each.
-// acc_code: float32 or float64.
+// pattern mode; all contiguous).  acc_code: float32 or float64.
 
-// K4 (a): col (R_pad, L) int32 and, unless pattern, val (R_pad, L) in acc.
+// K4 (a): one chunk, rows [start, start + R_pad) of rowmeta of which the first
+// `count` are live, L slots each: col (R_pad, L) int32 and, unless pattern,
+// val (R_pad, L) in acc.
 extern "C" int slab_fetch_launch(const void* b2_cols, const void* b2_vals, int b_code, const void* pa_b2row,
                                  const void* pa_aval, int a_code, const void* rowmeta, long long npa_pad,
                                  long long nseg_pad, long long start, int count, int R_pad, int L, int W,
@@ -541,59 +934,77 @@ extern "C" int slab_fetch_launch(const void* b2_cols, const void* b2_vals, int b
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4 (b): the chunk fetched and merged in one pass.  Outputs cols_u (R_pad, L)
-// int32, vals_u (R_pad, L) in acc, nuniq (R_pad,) int32.  The tile layout
-// (lp_log2, rows_t, threads, smem bytes) is ops/slab_kernel.py: tile_layout's.
-extern "C" int slab_fetch_merge_launch(const void* b2_cols, const void* b2_vals, int b_code,
-                                       const void* pa_b2row, const void* pa_aval, int a_code,
-                                       const void* rowmeta, long long npa_pad, long long nseg_pad,
-                                       long long start, int count, int R_pad, int L, int W, int vec4,
-                                       int acc_code, int pattern, int lp_log2, int rows_t, int threads,
-                                       long long smem, void* cols_u, void* vals_u, void* nuniq, void* stream) {
+// K4 (b) and (c): one launch over up to 64 chunks of one block-size group.
+// tab: the host chunk table (nchunks, 10) int64 (ops/slab_kernel.py:
+// merge_plan), passed to the kernel as a parameter; tiles CTAs of the group's
+// size (group 0 rows of up to 4,096 slots, 1 wider); rows_cap: the most rows
+// a tile holds; smem: bytes of dynamic shared memory.  With b2_cols (b): the
+// chunks' rows fetched from the tables; with it null (c): each chunk's slab
+// read at its kColPtr / kValPtr.  Outputs cols_u and vals_u (the chunks'
+// (R_pad, L) slabs, in acc) and nuniq (the chunks' rows), at each chunk's
+// kOutSlot / kOutRow.
+extern "C" int slab_merge_launch(const void* b2_cols, const void* b2_vals, int b_code, const void* pa_b2row,
+                                 const void* pa_aval, int a_code, const void* rowmeta, long long npa_pad,
+                                 long long nseg_pad, int W, int vec4, const void* tab, int nchunks, int tiles,
+                                 int group, int rows_cap, long long smem, int acc_code, int pattern, void* cols_u,
+                                 void* vals_u, void* nuniq, void* stream) {
   using namespace spmm_tpu_torch;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b2_cols == nullptr) {
+    Tables t{};
+    return merge_entry<false>(t, tab, nchunks, tiles, group, rows_cap, smem, acc_code, pattern, cols_u, vals_u,
+                              nuniq, s);
+  }
   if (npa_pad <= 0 || nseg_pad <= 0 || (!pattern && (!value_code(a_code) || !value_code(b_code)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Tables t = make_tables(b2_cols, b2_vals, b_code, pa_b2row, pa_aval, a_code, rowmeta, npa_pad, nseg_pad,
-                               start, count, W, vec4);
-  return merge_entry<true>(t, nullptr, nullptr, R_pad, L, acc_code, pattern, lp_log2, rows_t, threads, smem,
-                           cols_u, vals_u, nuniq, static_cast<cudaStream_t>(stream));
+  const Tables t =
+      make_tables(b2_cols, b2_vals, b_code, pa_b2row, pa_aval, a_code, rowmeta, npa_pad, nseg_pad, 0, 0, W, vec4);
+  return merge_entry<true>(t, tab, nchunks, tiles, group, rows_cap, smem, acc_code, pattern, cols_u, vals_u, nuniq,
+                           s);
 }
 
-// K4 (c): the merge of a cached slab, col (R_pad, L) int32 and, unless
-// pattern, val (R_pad, L) in acc; outputs as (b).
-extern "C" int slab_merge_launch(const void* col, const void* val, int R_pad, int L, int acc_code, int pattern,
-                                 int lp_log2, int rows_t, int threads, long long smem, void* cols_u,
-                                 void* vals_u, void* nuniq, void* stream) {
+// K5's count pass over up to 64 chunks: tab the host chunk table (nchunks, 8)
+// int64 (ops/slab_kernel.py: compact_plan) of rtot chunk rows; counts (nrow,)
+// int32, zero where no row stores.
+extern "C" int slab_compact_counts_launch(const void* tab, int nchunks, long long rtot, long long nrow,
+                                          void* counts, void* stream) {
   using namespace spmm_tpu_torch;
-  Tables t{};
-  return merge_entry<false>(t, col, val, R_pad, L, acc_code, pattern, lp_log2, rows_t, threads, smem, cols_u,
-                            vals_u, nuniq, static_cast<cudaStream_t>(stream));
+  CompactTab tb;
+  if (rtot < 0 || nrow < 0 || !compact_tab(static_cast<const long long*>(tab), nchunks, &tb) ||
+      (rtot > 0 && nchunks == 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rtot == 0 || nrow == 0) return 0;
+  slab_count_kernel<<<grid_of(rtot, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(tb, rtot, nrow,
+                                                                                       static_cast<int*>(counts));
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K5: one chunk's merged rows (rows (R_pad,) int32 row ids, cols_u (R_pad, L)
-// int32, vals_u (R_pad, L) in acc, nuniq (R_pad,) int32) into the CSR arrays
-// data (nnz_pad,) in acc and indices (nnz_pad,) int32 at indptr (nrow + 1,)
-// int64.
-extern "C" int slab_compact_launch(const void* rows, const void* cols_u, const void* vals_u, const void* nuniq,
-                                   int R_pad, int L, const void* indptr, long long nrow, long long nnz_pad,
-                                   int acc_code, void* data, void* indices, void* stream) {
+// K5's copy pass over the stot slots of up to 64 chunks' merged rows into
+// the CSR arrays data (nnz_pad,) in acc and indices (nnz_pad,) int32 at
+// indptr (nrow + 1,) int64; with `tail`, data and indices past indptr[nrow]
+// zeroed.
+extern "C" int slab_compact_launch(const void* tab, int nchunks, long long stot, const void* indptr,
+                                   long long nrow, long long nnz_pad, int tail, int acc_code, void* data,
+                                   void* indices, void* stream) {
   using namespace spmm_tpu_torch;
-  if (R_pad < 0 || L < 0 || nrow < 0 || nnz_pad < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (R_pad == 0 || L == 0 || nnz_pad == 0) return 0;
+  CompactTab tb;
+  if (stot < 0 || nrow < 0 || nnz_pad < 0 || !compact_tab(static_cast<const long long*>(tab), nchunks, &tb) ||
+      (stot > 0 && nchunks == 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (nnz_pad == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_of(R_pad, 8);
-  const int* r = static_cast<const int*>(rows);
-  const int* c = static_cast<const int*>(cols_u);
-  const int* nu = static_cast<const int*>(nuniq);
+  const unsigned grid = grid_of(std::max(stot, tail ? nnz_pad / 4 : 0LL), 256);
   const long long* ip = static_cast<const long long*>(indptr);
   int* ind = static_cast<int*>(indices);
   if (acc_code == kF32)
-    slab_compact_kernel<float><<<grid, 256, 0, s>>>(r, c, static_cast<const float*>(vals_u), nu, R_pad, L, ip,
-                                                    nrow, nnz_pad, static_cast<float*>(data), ind);
+    slab_compact_kernel<float><<<grid, 256, 0, s>>>(tb, stot, ip, nrow, nnz_pad, tail, static_cast<float*>(data),
+                                                    ind);
   else if (acc_code == kF64)
-    slab_compact_kernel<double><<<grid, 256, 0, s>>>(r, c, static_cast<const double*>(vals_u), nu, R_pad, L, ip,
-                                                     nrow, nnz_pad, static_cast<double*>(data), ind);
+    slab_compact_kernel<double><<<grid, 256, 0, s>>>(tb, stot, ip, nrow, nnz_pad, tail,
+                                                     static_cast<double*>(data), ind);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

@@ -94,13 +94,12 @@ def load(path: str) -> ctypes.CDLL:
     so.segment_sum_launch.argtypes = [P, P, P, P, P, I, LL, LL, LL, I, I, I, I, P]
     so.slab_fetch_launch.restype = I
     so.slab_fetch_launch.argtypes = [P, P, I, P, P, I, P, LL, LL, LL, I, I, I, I, I, I, I, P, P, P]
-    so.slab_fetch_merge_launch.restype = I
-    so.slab_fetch_merge_launch.argtypes = [P, P, I, P, P, I, P, LL, LL, LL, I, I, I, I, I, I, I, I, I, I, LL,
-                                           P, P, P, P]
     so.slab_merge_launch.restype = I
-    so.slab_merge_launch.argtypes = [P, P, I, I, I, I, I, I, I, LL, P, P, P, P]
+    so.slab_merge_launch.argtypes = [P, P, I, P, P, I, P, LL, LL, I, I, P, I, I, I, I, LL, I, I, P, P, P, P]
+    so.slab_compact_counts_launch.restype = I
+    so.slab_compact_counts_launch.argtypes = [P, I, LL, LL, P, P]
     so.slab_compact_launch.restype = I
-    so.slab_compact_launch.argtypes = [P, P, P, P, I, I, P, LL, LL, I, P, P, P]
+    so.slab_compact_launch.argtypes = [P, I, LL, P, LL, LL, I, I, P, P, P]
     so.cuda_error_string.restype = ctypes.c_char_p
     so.cuda_error_string.argtypes = [I]
     return so

@@ -1,19 +1,25 @@
 """K4 and K5: the slab SpGEMM's numeric phase on hand-written kernels
 (``csrc/slab_spgemm.cu``), and their plain PyTorch versions.
 
-Per class chunk of (R_pad, L) partial-product slots (``ops/slab_spgemm.py``):
+Over the class chunks of (R_pad, L) partial-product slots of one product
+(``ops/slab_spgemm.py``):
 
-- :func:`chunk_fetch` (K4 a): the chunk's slab, (R_pad, L) columns with
+- :func:`chunk_fetch` (K4 a): one chunk's slab, (R_pad, L) columns with
   ``_INT_MAX`` pads and the partial products in ``accum_dtype`` (the
   class-aligned cache of ``spgemm_plan(expand=True)``); plain version
   :func:`_chunk_fetch`, to which the kernel is bit-identical.
-- :func:`chunk_merge` (K4 b): the slab made in shared memory and merged at
-  once, never written out: ``(cols_u, vals_u, nuniq)``; plain version
-  :func:`_merge_block` of :func:`_chunk_fetch`.
-- :func:`slab_merge` (K4 c): the same merge of a cached slab; plain version
-  :func:`_merge_block`.
+- :func:`chunk_merge_all` (K4 b): every chunk of a product made in shared
+  memory and merged at once, never written out: ``(cols_u, vals_u,
+  nuniq)`` per chunk; plain version :func:`_merge_block` of
+  :func:`_chunk_fetch`.  :func:`chunk_merge` is one chunk of it.
+- :func:`slab_merge_all` (K4 c): the same merge of cached slabs; plain
+  version :func:`_merge_block`.  :func:`slab_merge` is one slab of it.
 - :func:`compact_to_csr` (K5): the chunks' merged rows as device CSR arrays;
   plain version :func:`_compact_to_csr`.
+
+A product's merge is one launch per block-size group of its chunks
+(:data:`MERGE_GROUPS`: at most three), over a chunk table the host builds
+(:func:`merge_plan`); the chunks' outputs are views of one allocation.
 
 The merge's contract: each row's unique columns ascend in its first
 ``nuniq`` slots with the run sums beside them (in pattern mode the run
@@ -40,23 +46,22 @@ from spmm_tpu_torch import kernels
 
 _INT_MAX = int(np.iinfo(np.int32).max)
 
-#: K4 launches in this process by entry (a, b, c), one per call; K5
-#: launches, one per chunk (chip_smoke.py resets and reads them)
+#: K4 launches in this process by entry (a, b, c): (a) one per chunk, (b)
+#: and (c) one per block-size group of a product's chunks; K5 launches, one
+#: per product (its count and copy passes) (chip_smoke.py resets and reads
+#: them)
 slab_launches = {"fetch": 0, "fetch_merge": 0, "merge": 0}
 compact_launches = 0
 
+#: the merge kernel's block sizes, by the widest row each takes: (widest L,
+#: threads, consecutive slots per thread); a tile (a CTA) holds threads *
+#: slots slots, rows of L unpadded, T // L of them
+MERGE_GROUPS = ((2048, 256, 8), (4096, 512, 8), (16384, 1024, 16))
+
 #: the widest class (slots per row) the merge takes: a row sorts in one CTA's
-#: shared memory, 14 B per slot in fp64 (a 4-byte column, a 2-byte slot index,
-#: the value), 229,376 B at 16,384 slots of the 232,448 a CTA may use
-MAX_L = 16384
-
-#: slots of one merge tile (a CTA): rows of up to this many padded slots
-#: share a CTA, wider rows take one each
-TILE_SLOTS = {torch.float32: 4096, torch.float64: 2048}
-
-#: consecutive padded slots a merge thread sorts in its registers (the
-#: kernel's kPer)
-SLOTS_PER_THREAD = 16
+#: shared memory, 14 B per slot in fp64 (a 4-byte column, a 2-byte run
+#: start, the value), 229,376 B at 16,384 slots of the 232,448 a CTA may use
+MAX_L = MERGE_GROUPS[-1][0]
 
 _VALUE_CODES = {torch.float32: kernels.F32, torch.float64: kernels.F64, torch.bfloat16: kernels.BF16,
                 torch.float16: kernels.F16, torch.int32: kernels.I32, torch.int64: kernels.I64}
@@ -173,44 +178,132 @@ def _compact_to_csr(outs, *, nrow: int, nnz_pad: int, dtype, device):
 # the kernels' layout and launches
 # ---------------------------------------------------------------------------
 
+#: the int64 fields of a merge launch's chunk table, one row per chunk (the
+#: kernel's MergeField): (c) the slab's column and value pointers, (b) the
+#: chunk's first row in rowmeta and its live rows, R_pad, L, the chunk's first
+#: output slot and row, its first tile in the launch, rows per tile
+MERGE_FIELDS = ("col_ptr", "val_ptr", "start", "count", "R_pad", "L", "out_slot", "out_row", "tile0", "rows_t")
+
+#: the int64 fields of K5's chunk table (the kernel's CompactField): the
+#: pointers of rows, cols_u, vals_u and nuniq, R_pad, L, the chunk's first
+#: row and first slot over the launch's chunks
+COMPACT_FIELDS = ("rows_ptr", "cols_ptr", "vals_ptr", "nu_ptr", "R_pad", "L", "row0", "slot0")
+
+#: chunks one launch takes: a launch's chunk table is a kernel parameter (the
+#: kernel's kMaxChunks), so a group of more chunks takes more launches
+MAX_LAUNCH_CHUNKS = 64
+
+
+def merge_group(L: int) -> int:
+    """The block-size group (index into :data:`MERGE_GROUPS`) of a class of
+    ``L`` slots per row; ValueError above ``MAX_L``."""
+    for g, (widest, _, _) in enumerate(MERGE_GROUPS):
+        if 1 <= L <= widest:
+            return g
+    raise ValueError(f"slab merge kernel: a class of {L} slots per row is above its limit of "
+                     f"{MAX_L} (MAX_L); use classes up to {MAX_L}")
+
 
 @dataclasses.dataclass(frozen=True)
-class TileLayout:
-    """How the merge kernel cuts a chunk of (R_pad, L) slots: each row padded
-    to ``lp`` slots (a power of two), ``rows`` consecutive rows per CTA
-    (``tiles`` CTAs of ``threads`` threads, CTA t taking rows [t * rows,
-    (t + 1) * rows) of the chunk, rows past R_pad empty), ``smem`` bytes of
-    dynamic shared memory."""
+class MergeLaunch:
+    """One launch of the merge kernel: ``tiles`` CTAs of ``threads`` threads,
+    ``items`` consecutive slots each, over the product's chunks ``chunks``
+    (indices into its chunk list) whose rows ``table`` ((len(chunks), 10)
+    int64, :data:`MERGE_FIELDS`) cuts into tiles; ``rows_cap`` the most rows
+    a tile holds, ``smem`` bytes of dynamic shared memory."""
 
-    lp: int
-    rows: int
-    tiles: int
+    group: int
     threads: int
+    items: int
+    chunks: tuple
+    tiles: int
+    rows_cap: int
     smem: int
+    table: np.ndarray
 
     @property
     def slots(self) -> int:
-        return self.rows * self.lp
+        return self.threads * self.items
 
 
-def tile_layout(L: int, R_pad: int, accum_dtype, pattern: bool) -> TileLayout:
-    """The merge kernel's layout of a chunk (see :class:`TileLayout`): a tile
-    of ``TILE_SLOTS`` padded slots, or one row where a row is wider; a
-    thread per ``SLOTS_PER_THREAD`` consecutive slots (128 to 1,024 a CTA).
-    Raises ValueError for a class wider than ``MAX_L``."""
-    acc = _torch_dtype(accum_dtype)
-    if acc not in TILE_SLOTS:
-        raise TypeError(f"slab merge kernel: accum_dtype {acc} not supported (float32, float64)")
-    if not 1 <= L <= MAX_L:
-        raise ValueError(f"slab merge kernel: a class of {L} slots per row is above its limit of "
-                         f"{MAX_L} (MAX_L); use classes up to {MAX_L}")
-    lp = 1 << (L - 1).bit_length()
-    tp = max(TILE_SLOTS[acc], lp)
-    rows = tp // lp
-    threads = tp // SLOTS_PER_THREAD
-    value_bytes = 0 if pattern else acc.itemsize
-    smem = tp * (value_bytes + 4 + 2) + 4 * (rows + 1) + 4 * 32
-    return TileLayout(lp=lp, rows=rows, tiles=-(-R_pad // rows), threads=threads, smem=smem)
+@dataclasses.dataclass(frozen=True)
+class MergePlan:
+    """A product's merge launches (one per block-size group its chunks use,
+    more where a group has more than ``MAX_LAUNCH_CHUNKS`` chunks) and where
+    each chunk's outputs lie in the one allocation: ``slot_off`` in cols_u /
+    vals_u, ``row_off`` in nuniq, ``slots`` / ``rows`` in all."""
+
+    launches: tuple
+    slot_off: tuple
+    row_off: tuple
+    slots: int
+    rows: int
+
+
+def merge_smem(group: int, accum_dtype, rows_cap: int) -> int:
+    """Dynamic shared memory of a merge tile: per slot the value (in pattern
+    mode the output count), the column and a 16-bit run start; three int
+    arrays of rows_cap + 1 and 33 ints for the scans."""
+    _, threads, items = MERGE_GROUPS[group]
+    return threads * items * (_torch_dtype(accum_dtype).itemsize + 4 + 2) + 12 * (rows_cap + 1) + 4 * 33
+
+
+def merge_plan(shapes, accum_dtype, *, starts=None, counts=None, col_ptrs=None, val_ptrs=None) -> MergePlan:
+    """The merge launches of a product's chunks ``shapes`` ((L, R_pad) each):
+    per block-size group, a tile of T = threads * items slots takes T // L
+    consecutive rows of one chunk (the last tile of a chunk fewer), and the
+    table gives each chunk its first tile.  (b) passes each chunk's
+    ``starts`` / ``counts``, (c) its slabs' ``col_ptrs`` / ``val_ptrs``."""
+    acc = _acc(accum_dtype, "slab merge kernel")
+    n = len(shapes)
+    L = np.array([x[0] for x in shapes], np.int64).reshape(n)
+    R = np.array([x[1] for x in shapes], np.int64).reshape(n)
+    group = np.array([merge_group(int(x)) if r > 0 else -1 for x, r in zip(L, R)], np.int64)  # raises above MAX_L
+    slot_off = np.cumsum(L * R) - L * R
+    row_off = np.cumsum(R) - R
+    tab = np.zeros((n, len(MERGE_FIELDS)), np.int64)
+    for f, v in (("col_ptr", col_ptrs), ("val_ptr", val_ptrs), ("start", starts), ("count", R if counts is None
+                 else counts), ("R_pad", R), ("L", L), ("out_slot", slot_off), ("out_row", row_off)):
+        if v is not None:
+            tab[:, MERGE_FIELDS.index(f)] = [0 if x is None else x for x in v]
+    launches = []
+    for g, (_, threads, items) in enumerate(MERGE_GROUPS):
+        idx = np.nonzero(group == g)[0]
+        for k in range(0, len(idx), MAX_LAUNCH_CHUNKS):
+            part = idx[k : k + MAX_LAUNCH_CHUNKS]
+            t = tab[part]
+            rows_t = np.minimum(threads * items // L[part], R[part])
+            tiles = -(-R[part] // rows_t)
+            t[:, MERGE_FIELDS.index("tile0")] = np.cumsum(tiles) - tiles
+            t[:, MERGE_FIELDS.index("rows_t")] = rows_t
+            rows_cap = int(rows_t.max())
+            launches.append(MergeLaunch(group=g, threads=threads, items=items, chunks=tuple(int(i) for i in part),
+                                        tiles=int(tiles.sum()), rows_cap=rows_cap, smem=merge_smem(g, acc, rows_cap),
+                                        table=np.ascontiguousarray(t)))
+    return MergePlan(launches=tuple(launches), slot_off=tuple(int(x) for x in slot_off),
+                     row_off=tuple(int(x) for x in row_off), slots=int((L * R).sum()), rows=int(R.sum()))
+
+
+def compact_plan(shapes):
+    """K5's launches over the chunk outputs' ``shapes`` ((L, R_pad) each):
+    per launch of up to ``MAX_LAUNCH_CHUNKS`` chunks (those with rows and
+    slots) its chunk table (pointers filled by the caller,
+    :data:`COMPACT_FIELDS`), its chunks, their rows and their slots:
+    ``[(table, chunks, rtot, stot), ...]``.  Slot e of chunk row i is the
+    launch's slot slot0 + i * L + e."""
+    idx = [i for i, (L, R_pad) in enumerate(shapes) if L > 0 and R_pad > 0]
+    out = []
+    for k0 in range(0, len(idx), MAX_LAUNCH_CHUNKS):
+        part = idx[k0 : k0 + MAX_LAUNCH_CHUNKS]
+        tab = np.zeros((len(part), len(COMPACT_FIELDS)), np.int64)
+        rtot = stot = 0
+        for k, i in enumerate(part):
+            L, R_pad = shapes[i]
+            tab[k, 4:] = (R_pad, L, rtot, stot)
+            rtot += R_pad
+            stot += R_pad * L
+        out.append((tab, part, rtot, stot))
+    return out
 
 
 def check_class_limit(classes, device) -> None:
@@ -240,8 +333,10 @@ def _ptr(x: torch.Tensor | None):
     return None if x is None or x.numel() == 0 else x.data_ptr()
 
 
-def _table_args(t, start: int, count: int, R_pad: int, L: int, W: int, pattern: bool, what: str):
-    """The C entries' table arguments, after the checks the kernels rely on."""
+def _table_args(t, W: int, pattern: bool, what: str):
+    """The C entries' product-table arguments, after the checks the kernels
+    rely on: (b2_cols, b2_vals, b_code, pa_b2row, pa_aval, a_code, rowmeta,
+    npa_pad, nseg_pad, W, vec4)."""
     dev = t.rowmeta.device
     tabs = [t.b2_cols, t.pa_b2row, t.rowmeta] + ([] if pattern else [t.b2_vals, t.pa_aval])
     _need(all(isinstance(x, torch.Tensor) and x.device == dev and x.is_contiguous() for x in tabs), what,
@@ -251,10 +346,8 @@ def _table_args(t, start: int, count: int, R_pad: int, L: int, W: int, pattern: 
     _need(t.pa_b2row.dtype == torch.int32 and t.rowmeta.dtype == torch.int32
           and t.rowmeta.dim() == 2 and t.rowmeta.shape[1] == 2, what,
           "pa_b2row and rowmeta (nrow_pad, 2) must be int32")
-    _need(W >= 1 and L % W == 0 and t.b2_cols.shape[0] >= 1 and t.pa_b2row.shape[0] >= 1, what,
-          f"L={L} must be a multiple of W={W}, over non-empty tables")
-    if start < 0 or start + R_pad > t.rowmeta.shape[0]:
-        raise ValueError(f"chunk rows [{start}, {start + R_pad}) run past the plan's padding")
+    _need(W >= 1 and t.b2_cols.shape[0] >= 1 and t.pa_b2row.shape[0] >= 1, what,
+          f"W={W} must be positive, over non-empty tables")
     a_code = b_code = 0
     if not pattern:
         for x, name in ((t.b2_vals, "b2_vals"), (t.pa_aval, "pa_aval")):
@@ -264,10 +357,17 @@ def _table_args(t, start: int, count: int, R_pad: int, L: int, W: int, pattern: 
         _need(tuple(t.b2_vals.shape) == tuple(t.b2_cols.shape) and t.pa_aval.shape == t.pa_b2row.shape,
               what, "b2_vals must match b2_cols and pa_aval pa_b2row")
         a_code, b_code = _VALUE_CODES[t.pa_aval.dtype], _VALUE_CODES[t.b2_vals.dtype]
-    vec4 = int(W % 4 == 0 and t.b2_cols.data_ptr() % 16 == 0)
+    vec4 = int(W % 4 == 0 and t.b2_cols.data_ptr() % 16 == 0 and (pattern or t.b2_vals.data_ptr() % 16 == 0))
     return (t.b2_cols.data_ptr(), None if pattern else _ptr(t.b2_vals), b_code, t.pa_b2row.data_ptr(),
             None if pattern else _ptr(t.pa_aval), a_code, t.rowmeta.data_ptr(), t.pa_b2row.shape[0],
-            t.b2_cols.shape[0], start, count, R_pad, L, W, vec4)
+            t.b2_cols.shape[0], W, vec4)
+
+
+def _check_chunk(t, start: int, count: int, R_pad: int, L: int, W: int, what: str) -> None:
+    _need(L >= 1 and L % W == 0, what, f"L={L} must be a multiple of W={W}")
+    _need(R_pad >= 0 and 0 <= count <= R_pad, what, f"count={count} must lie in [0, R_pad={R_pad}]")
+    if start < 0 or start + R_pad > t.rowmeta.shape[0]:
+        raise ValueError(f"chunk rows [{start}, {start + R_pad}) run past the plan's padding")
 
 
 def _acc(accum_dtype, what: str) -> torch.dtype:
@@ -277,89 +377,104 @@ def _acc(accum_dtype, what: str) -> torch.dtype:
     return acc
 
 
-def _merged(R_pad: int, L: int, acc, dev):
-    return (torch.empty((R_pad, L), dtype=torch.int32, device=dev),
-            torch.empty((R_pad, L), dtype=acc, device=dev),
-            torch.empty((R_pad,), dtype=torch.int32, device=dev))
-
-
 def _launch_fetch(t, start, count, L, R_pad, W, accum_dtype, pattern):
     what = "slab_fetch"
     acc = _acc(accum_dtype, what)
-    args = _table_args(t, start, count, R_pad, L, W, pattern, what)
+    args = _table_args(t, W, pattern, what)
+    _check_chunk(t, start, count, R_pad, L, W, what)
     dev = t.rowmeta.device
     col = torch.empty((R_pad, L), dtype=torch.int32, device=dev)
     val = None if pattern else torch.empty((R_pad, L), dtype=acc, device=dev)
     so = kernels.lib()
-    err = so.slab_fetch_launch(*args, _ACC_CODES[acc], int(pattern), col.data_ptr(), _ptr(val),
-                               kernels.stream_ptr(dev))
+    err = so.slab_fetch_launch(*args[:7], *args[7:9], start, count, R_pad, L, W, args[10], _ACC_CODES[acc],
+                               int(pattern), col.data_ptr(), _ptr(val), kernels.stream_ptr(dev))
     kernels.check(err, what)
     slab_launches["fetch"] += 1
     return col, val
 
 
-def _launch_fetch_merge(t, start, count, L, R_pad, W, accum_dtype, pattern):
+def _launch_merges(plan: MergePlan, shapes, acc, pattern: bool, dev, table_args, entry: str, what: str):
+    """Every launch of ``plan``: the outputs of all chunks in one allocation,
+    returned as each chunk's (cols_u, vals_u, nuniq) views."""
+    cols_all = torch.empty(plan.slots, dtype=torch.int32, device=dev)
+    vals_all = torch.empty(plan.slots, dtype=acc, device=dev)
+    nu_all = torch.empty(plan.rows, dtype=torch.int32, device=dev)
+    for x in plan.launches:
+        err = kernels.lib().slab_merge_launch(*table_args, x.table.ctypes.data, len(x.chunks), x.tiles, x.group,
+                                              x.rows_cap, x.smem, _ACC_CODES[acc], int(pattern), cols_all.data_ptr(),
+                                              vals_all.data_ptr(), nu_all.data_ptr(), kernels.stream_ptr(dev))
+        kernels.check(err, what)
+        slab_launches[entry] += 1
+    sizes = [L * R_pad for L, R_pad in shapes]
+    return [(c.view(R_pad, L), v.view(R_pad, L), nu)
+            for c, v, nu, (L, R_pad) in zip(cols_all.split(sizes), vals_all.split(sizes),
+                                            nu_all.split([R_pad for _, R_pad in shapes]), shapes)]
+
+
+def _launch_chunk_merges(t, sched, W, accum_dtype, pattern):
     what = "slab_fetch_merge"
     acc = _acc(accum_dtype, what)
-    lay = tile_layout(L, R_pad, acc, pattern)
-    args = _table_args(t, start, count, R_pad, L, W, pattern, what)
-    dev = t.rowmeta.device
-    cols_u, vals_u, nuniq = _merged(R_pad, L, acc, dev)
-    so = kernels.lib()
-    err = so.slab_fetch_merge_launch(*args, _ACC_CODES[acc], int(pattern), lay.lp.bit_length() - 1, lay.rows,
-                                     lay.threads, lay.smem, cols_u.data_ptr(), vals_u.data_ptr(),
-                                     nuniq.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check(err, what)
-    slab_launches["fetch_merge"] += 1
-    return cols_u, vals_u, nuniq
+    args = _table_args(t, W, pattern, what)
+    for L, R_pad, start, count in sched:
+        _check_chunk(t, start, count, R_pad, L, W, what)
+    shapes = [(L, R_pad) for L, R_pad, _, _ in sched]
+    plan = merge_plan(shapes, acc, starts=[s for _, _, s, _ in sched], counts=[c for _, _, _, c in sched])
+    return _launch_merges(plan, shapes, acc, pattern, t.rowmeta.device, args, "fetch_merge", what)
 
 
-def _launch_merge(col, val, accum_dtype, pattern):
+def _launch_slab_merges(cols, vals, accum_dtype, pattern):
     what = "slab_merge"
     acc = _acc(accum_dtype, what)
-    _need(col.dtype == torch.int32 and col.dim() == 2 and col.is_contiguous(), what,
-          "col must be a contiguous (R_pad, L) int32 slab")
-    R_pad, L = col.shape
-    if not pattern:
-        _need(val is not None and val.dtype == acc and tuple(val.shape) == (R_pad, L) and val.is_contiguous()
-              and val.device == col.device, what, f"val must be a contiguous (R_pad, L) {acc} slab beside col")
-    lay = tile_layout(L, R_pad, acc, pattern)
-    cols_u, vals_u, nuniq = _merged(R_pad, L, acc, col.device)
-    if R_pad == 0:
-        return cols_u, vals_u, nuniq
-    so = kernels.lib()
-    err = so.slab_merge_launch(col.data_ptr(), None if pattern else val.data_ptr(), R_pad, L, _ACC_CODES[acc],
-                               int(pattern), lay.lp.bit_length() - 1, lay.rows, lay.threads, lay.smem,
-                               cols_u.data_ptr(), vals_u.data_ptr(), nuniq.data_ptr(),
-                               kernels.stream_ptr(col.device))
-    kernels.check(err, what)
-    slab_launches["merge"] += 1
-    return cols_u, vals_u, nuniq
+    dev = cols[0].device
+    for i, col in enumerate(cols):
+        _need(col.dtype == torch.int32 and col.dim() == 2 and col.is_contiguous() and col.device == dev, what,
+              "each col must be a contiguous (R_pad, L) int32 slab, all on one device")
+        if not pattern:
+            val = vals[i]
+            _need(val is not None and val.dtype == acc and val.shape == col.shape and val.is_contiguous()
+                  and val.device == dev, what, f"each val must be a contiguous (R_pad, L) {acc} slab beside col")
+    shapes = [(col.shape[1], col.shape[0]) for col in cols]
+    plan = merge_plan(shapes, acc, col_ptrs=[c.data_ptr() for c in cols],
+                      val_ptrs=None if pattern else [v.data_ptr() for v in vals])
+    no_tables = (None, None, 0, None, None, 0, None, 0, 0, 0, 0)
+    return _launch_merges(plan, shapes, acc, pattern, dev, no_tables, "merge", what)
 
 
 def _launch_compact(outs, nrow: int, nnz_pad: int, dtype, device):
     global compact_launches
     what = "slab_compact"
     acc = _acc(dtype, what)
-    indptr = _row_offsets(outs, nrow, device)
-    data = torch.zeros(nnz_pad, dtype=acc, device=device)
-    indices = torch.zeros(nnz_pad, dtype=torch.int32, device=device)
-    so = None
+    device = torch.empty(0, device=device).device  # with its index
     for r, cols_u, vals_u, nu in outs:
         R_pad, L = cols_u.shape
-        _need(all(x.device == indptr.device and x.is_contiguous() for x in (r, cols_u, vals_u, nu)), what,
-              f"chunk outputs must be contiguous tensors on {indptr.device}")
+        _need(all(x.device == device and x.is_contiguous() for x in (r, cols_u, vals_u, nu)), what,
+              f"chunk outputs must be contiguous tensors on {device}")
         _need(r.dtype == torch.int32 and cols_u.dtype == torch.int32 and nu.dtype == torch.int32
               and r.shape == (R_pad,) and nu.shape == (R_pad,) and tuple(vals_u.shape) == (R_pad, L), what,
               "rows, nuniq (R_pad,) and cols_u (R_pad, L) must be int32, vals_u (R_pad, L)")
         if vals_u.dtype != acc:
             raise TypeError(f"{what}: chunk values are {vals_u.dtype}, the CSR's data {acc}")
-        so = so or kernels.lib()
-        err = so.slab_compact_launch(r.data_ptr(), cols_u.data_ptr(), vals_u.data_ptr(), nu.data_ptr(), R_pad,
-                                     L, indptr.data_ptr(), nrow, nnz_pad, _ACC_CODES[acc], _ptr(data),
-                                     _ptr(indices), kernels.stream_ptr(device))
+    parts = compact_plan([tuple(o[1].shape[::-1]) for o in outs])
+    for tab, idx, _, _ in parts:
+        for k, i in enumerate(idx):
+            tab[k, :4] = [x.data_ptr() for x in outs[i]]
+    so = kernels.lib()
+    stream = kernels.stream_ptr(device)
+    counts = torch.zeros(nrow, dtype=torch.int32, device=device)
+    for tab, idx, rtot, _ in parts:
+        kernels.check(so.slab_compact_counts_launch(tab.ctypes.data, len(idx), rtot, nrow, _ptr(counts), stream),
+                      what)
+    indptr = torch.zeros(nrow + 1, dtype=torch.int64, device=device)
+    torch.cumsum(counts, 0, out=indptr[1:])
+    data = torch.empty(nnz_pad, dtype=acc, device=device)
+    indices = torch.empty(nnz_pad, dtype=torch.int32, device=device)
+    empty = np.zeros((0, len(COMPACT_FIELDS)), np.int64)
+    for k, (tab, idx, _, stot) in enumerate(parts or [(empty, [], 0, 0)]):
+        err = so.slab_compact_launch(tab.ctypes.data, len(idx), stot, indptr.data_ptr(), nrow, nnz_pad,
+                                     int(k == max(len(parts) - 1, 0)), _ACC_CODES[acc], _ptr(data), _ptr(indices),
+                                     stream)
         kernels.check(err, what)
-        compact_launches += 1
+    compact_launches += 1
     return data, indices, indptr.to(torch.int32), indptr[-1]
 
 
@@ -378,28 +493,50 @@ def chunk_fetch(t, start: int, count: int, *, L: int, R_pad: int, W: int, accum_
     return _chunk_fetch(t, base, bm, L=L, R_pad=R_pad, W=W, accum_dtype=accum_dtype, pattern=pattern)
 
 
-def chunk_merge(t, start: int, count: int, *, L: int, R_pad: int, W: int, accum_dtype, pattern: bool):
-    """K4 (b): one chunk fetched and merged, ``(cols_u, vals_u, nuniq)``."""
+def chunk_merge_all(t, sched, *, W: int, accum_dtype, pattern: bool):
+    """K4 (b): every chunk ``(L, R_pad, start, count)`` of ``sched`` fetched
+    from the tables ``t`` and merged, ``(cols_u, vals_u, nuniq)`` per chunk:
+    one launch per block-size group on the card."""
     if _on_card(t.rowmeta, "slab_fetch_merge"):
-        return _launch_fetch_merge(t, start, count, L, R_pad, W, accum_dtype, pattern)
-    base, bm = _chunk_meta(t.rowmeta, start, count, R_pad, L // W)
-    col, val = _chunk_fetch(t, base, bm, L=L, R_pad=R_pad, W=W, accum_dtype=accum_dtype, pattern=pattern)
-    return _merge_block(col, val, accum_dtype=accum_dtype, pattern=pattern)
+        return _launch_chunk_merges(t, list(sched), W, accum_dtype, pattern)
+    outs = []
+    for L, R_pad, start, count in sched:
+        base, bm = _chunk_meta(t.rowmeta, start, count, R_pad, L // W)
+        col, val = _chunk_fetch(t, base, bm, L=L, R_pad=R_pad, W=W, accum_dtype=accum_dtype, pattern=pattern)
+        outs.append(_merge_block(col, val, accum_dtype=accum_dtype, pattern=pattern))
+    return outs
+
+
+def chunk_merge(t, start: int, count: int, *, L: int, R_pad: int, W: int, accum_dtype, pattern: bool):
+    """K4 (b) of one chunk, ``(cols_u, vals_u, nuniq)``."""
+    return chunk_merge_all(t, [(L, R_pad, start, count)], W=W, accum_dtype=accum_dtype, pattern=pattern)[0]
+
+
+def slab_merge_all(cols, vals, *, accum_dtype, pattern: bool):
+    """K4 (c): the merges of cached (R_pad, L) slabs ``cols`` (values
+    ``vals``, ignored in pattern mode), ``(cols_u, vals_u, nuniq)`` per slab:
+    one launch per block-size group on the card."""
+    cols = list(cols)
+    vals = [None] * len(cols) if pattern else list(vals)
+    if not cols:
+        return []
+    if _on_card(cols[0], "slab_merge"):
+        return _launch_slab_merges(cols, vals, accum_dtype, pattern)
+    return [_merge_block(col, val, accum_dtype=accum_dtype, pattern=pattern) for col, val in zip(cols, vals)]
 
 
 def slab_merge(col, val, *, accum_dtype, pattern: bool):
-    """K4 (c): the merge of a cached (R_pad, L) slab, ``(cols_u, vals_u,
-    nuniq)``; val is None in pattern mode."""
-    if _on_card(col, "slab_merge"):
-        return _launch_merge(col, val, accum_dtype, pattern)
-    return _merge_block(col, val, accum_dtype=accum_dtype, pattern=pattern)
+    """K4 (c) of one cached (R_pad, L) slab, ``(cols_u, vals_u, nuniq)``;
+    val is None in pattern mode."""
+    return slab_merge_all([col], [val], accum_dtype=accum_dtype, pattern=pattern)[0]
 
 
 def compact_to_csr(outs, *, nrow: int, nnz_pad: int, dtype, device):
     """K5: chunk outputs ``(rows, cols_u, vals_u, nuniq)`` → device CSR
     arrays (data, indices, indptr int32, nnz as a 0-d tensor), as
-    :func:`_compact_to_csr`.  The row counts and indptr are torch ops
-    (nrow-sized); each chunk's rows are copied by one launch."""
+    :func:`_compact_to_csr`.  On the card: the count pass, the indptr scan
+    (torch) and the copy pass over every chunk, with the padding past nnz
+    zeroed."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return _compact_to_csr(outs, nrow=nrow, nnz_pad=nnz_pad, dtype=dtype, device=dev)

@@ -15,12 +15,12 @@ C = A @ B without a global sort of the partial products:
    into the class-aligned cache.
 3. **numeric**: per class chunk, a row sort of the slab and a deterministic
    merge of duplicate columns, no atomics.  On the card K4
-   (``csrc/slab_spgemm.cu``, ``ops/slab_kernel.py``) fetches and merges a
-   chunk in one pass (``chunk_merge``), merges a cached slab
-   (``slab_merge``) or writes the slab for the cache (``chunk_fetch``),
-   summing each run directly in slot order; the plain versions (CPU tensors)
-   take differences of compacted inclusive prefix sums (run lengths in
-   pattern mode).
+   (``csrc/slab_spgemm.cu``, ``ops/slab_kernel.py``) fetches and merges every
+   chunk of a product in one pass (``chunk_merge_all``), merges the cached
+   slabs (``slab_merge_all``), one launch per block-size group each, or
+   writes a chunk's slab for the cache (``chunk_fetch``), summing each run
+   directly in slot order; the plain versions (CPU tensors) take differences
+   of compacted inclusive prefix sums (run lengths in pattern mode).
 4. **compaction** (``compact_to_csr``, K5 on the card): the chunks' unique
    columns go to a device CSR; only its arrays cross to the host.
 
@@ -59,7 +59,7 @@ from spmm_tpu_torch.formats.containers import (
 )
 from spmm_tpu_torch.ops.slab_kernel import (  # noqa: F401  (the plain versions keep their names here)
     _INT_MAX, _chunk_fetch, _chunk_meta, _compact_to_csr, _merge_block, _torch_dtype, check_class_limit,
-    chunk_fetch, chunk_merge, compact_to_csr, slab_merge,
+    chunk_fetch, chunk_merge_all, compact_to_csr, slab_merge_all,
 )
 from spmm_tpu_torch.ops.spgemm import spgemm_sorted
 from spmm_tpu_torch.ops.transform import _stable_argsort_smallint
@@ -550,24 +550,20 @@ def spgemm_plan_revalue(
 # ---------------------------------------------------------------------------
 
 
-def _chunk(t, start: int, count: int, *, L: int, R_pad: int, W: int, accum_dtype, pattern: bool):
-    """One (R_pad, L) slab chunk: (rows, cols_u, vals_u, nuniq), fetched and
-    merged in one pass (K4 b on the card)."""
-    r = t.rows_sorted[start : start + R_pad]
-    return (r,) + chunk_merge(t, start, count, L=L, R_pad=R_pad, W=W, accum_dtype=accum_dtype,
-                              pattern=pattern)
+def _chunks(t, sched, *, W: int, accum_dtype, pattern: bool):
+    """Every (R_pad, L) slab chunk ``(L, R_pad, start, count)`` of ``sched``:
+    (rows, cols_u, vals_u, nuniq) each, fetched and merged in one pass (K4 b
+    on the card, one launch per block-size group)."""
+    merged = chunk_merge_all(t, sched, W=W, accum_dtype=accum_dtype, pattern=pattern)
+    return [(t.rows_sorted[start : start + R_pad],) + m for (_, R_pad, start, _), m in zip(sched, merged)]
 
 
 def _numeric_aligned(plan: SpgemmPlan, sched, accum_dtype):
     """Every chunk of an aligned-cache plan: sort and merge (K4 c on the
-    card), no gathers."""
-    outs = []
-    for i, (L, R_pad, start, _) in enumerate(sched):
-        r = plan.rows_sorted[start : start + R_pad]
-        val = None if plan.pattern else plan.aligned_vals[i]
-        outs.append((r,) + slab_merge(plan.aligned_cols[i], val, accum_dtype=accum_dtype,
-                                      pattern=plan.pattern))
-    return outs
+    card, one launch per block-size group), no gathers."""
+    merged = slab_merge_all(plan.aligned_cols, plan.aligned_vals, accum_dtype=accum_dtype,
+                            pattern=plan.pattern)
+    return [(plan.rows_sorted[start : start + R_pad],) + m for (_, R_pad, start, _), m in zip(sched, merged)]
 
 
 def spgemm_slab_device(
@@ -600,11 +596,7 @@ def spgemm_slab_device(
         if plan.aligned_cols and plan.aligned_accum == _dtype_name(accum_dtype):
             outs = _numeric_aligned(plan, sched, accum_dtype)
         else:
-            outs = [
-                _chunk(plan, start, cnt, L=L, R_pad=R_pad, W=plan.seg_w,
-                       accum_dtype=accum_dtype, pattern=plan.pattern)
-                for L, R_pad, start, cnt in sched
-            ]
+            outs = _chunks(plan, sched, W=plan.seg_w, accum_dtype=accum_dtype, pattern=plan.pattern)
         ntail = int(plan.class_counts[len(plan.classes)])
         tail_rows = (
             plan.rows_sorted[tail_start : tail_start + ntail].cpu().numpy()
@@ -911,12 +903,8 @@ def _piece_exec(A_piece: CSR, rows_sorted, sc, B_dev: CSR, *, W, npa_pad, nsegB_
         A_piece, B_dev, rows_sorted, W=W, npa_pad=npa_pad, nsegB_pad=nsegB_pad,
         nrow_pad=nrow_pad, pattern=pattern,
     )
-    outs = [
-        _chunk(t, int(sc[0, i]), int(sc[1, i]), L=L, R_pad=R_pad, W=W, accum_dtype=accum_dtype,
-               pattern=pattern)
-        for i, (L, R_pad) in enumerate(schedule)
-    ]
-    return t.rows_sorted, outs
+    sched = [(L, R_pad, int(sc[0, i]), int(sc[1, i])) for i, (L, R_pad) in enumerate(schedule)]
+    return t.rows_sorted, _chunks(t, sched, W=W, accum_dtype=accum_dtype, pattern=pattern)
 
 
 def _piece_kw(b_iptr, W: int, npa_max: int, rows_pad: int, sched, starts, accum_dtype,

@@ -41,7 +41,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from spmm_tpu_torch import native
 from spmm_tpu_torch.formats.containers import CSR, as_tensor
-from spmm_tpu_torch.ops.slab_kernel import check_class_limit, chunk_fetch, compact_to_csr, slab_merge
+from spmm_tpu_torch.ops.slab_kernel import check_class_limit, chunk_fetch, compact_to_csr, slab_merge_all
 from spmm_tpu_torch.ops.slab_spgemm import (
     DEFAULT_CLASSES,
     DEFAULT_SEG_W,
@@ -766,13 +766,10 @@ def spgemm_dist_exec(plan: DistSpgemmPlan, mesh: DeviceMesh, *, as_csr: bool = T
     each with a leading axis of 1; the tail rows' products are the plan's
     ``tail``."""
     check_on_mesh(mesh, plan.rows_sorted, "the plan")
-    outs = []
-    for i, (L, R_pad) in enumerate(plan.schedule):
-        start = int(plan.sc[0, i])
-        val = None if plan.pattern else plan.aligned_vals[i]
-        outs.append((plan.rows_sorted[start : start + R_pad],)
-                    + slab_merge(plan.aligned_cols[i], val, accum_dtype=plan.accum_dtype,
-                                 pattern=plan.pattern))
+    merged = slab_merge_all(plan.aligned_cols, plan.aligned_vals, accum_dtype=plan.accum_dtype,
+                            pattern=plan.pattern)
+    outs = [(plan.rows_sorted[int(plan.sc[0, i]) : int(plan.sc[0, i]) + R_pad],) + m
+            for i, ((_, R_pad), m) in enumerate(zip(plan.schedule, merged))]
     if not as_csr:
         return tuple(tuple(x[None] for x in o) for o in outs)
     dev = mesh_device(mesh)

@@ -1303,3 +1303,189 @@ def test_class_above_the_kernel_limit_raises_on_card(cuda):
                  lambda: ss.spgemm_slab_big(A, A, pieces=2, classes=wide, device=cuda)):
         with pytest.raises(ValueError, match=str(sk.MAX_L)):
             call()
+
+
+# ---- K4's natural-run merge and K5, per product -------------------------------
+
+
+def _reversed_rows(M):
+    """M with each row's columns in descending order (rows that do not
+    ascend: every B row becomes runs of one slot)."""
+    ind = M.indices.copy()
+    for r in range(M.nrow):
+        ind[M.indptr[r] : M.indptr[r + 1]] = ind[M.indptr[r] : M.indptr[r + 1]][::-1]
+    return dataclasses.replace(M, indices=ind)
+
+
+def _repeated_column(M):
+    """M with each row of two or more entries repeating its first column in
+    its second slot (a column twice in a B row)."""
+    ind = M.indices.copy()
+    rows = np.nonzero(np.diff(M.indptr) >= 2)[0]
+    ind[M.indptr[rows] + 1] = ind[M.indptr[rows]]
+    return dataclasses.replace(M, indices=ind)
+
+
+def _scipy_product(A, B):
+    C = (A.to_scipy() @ B.to_scipy()).tocsr()
+    C.sum_duplicates()
+    C.sort_indices()
+    return C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", [False, True])
+def test_k4_k5_one_launch_per_product_per_group(cuda, pattern):
+    """A product whose chunks fall in both block-size groups: K4 (b) and (c)
+    take one launch per group (``merge_plan``), K5 one count and one copy
+    pass per product, and the product's chunk outputs equal, bit for bit,
+    each chunk merged alone."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    A = tsyn.webgraph_like(6000, 36000, seed=4)
+    if not pattern:
+        A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 8)[0])
+    classes = (8, 64, 8192)
+    plan = ss.spgemm_plan(A, A, classes=classes, device=cuda, pattern=pattern)
+    sched, _ = ss._chunk_schedule(plan.classes, plan.class_counts, plan.slot_budget)
+    groups = {sk.merge_group(L) for L, _, _, _ in sched}
+    assert len(groups) >= 2
+    e0, m0 = dict(sk.slab_launches), sk.compact_launches
+    b = sk.chunk_merge_all(plan, sched, W=plan.seg_w, accum_dtype=torch.float32, pattern=pattern)
+    c = sk.slab_merge_all(plan.aligned_cols, plan.aligned_vals, accum_dtype=torch.float32, pattern=pattern)
+    outs = [(plan.rows_sorted[st : st + R],) + x for (_, R, st, _), x in zip(sched, c)]
+    C = sk.compact_to_csr(outs, nrow=A.nrow, nnz_pad=ss._round_up(plan.npa * plan.seg_w, 1024),
+                          dtype=torch.float32, device=cuda)
+    torch.cuda.synchronize()
+    moved = {k: v - e0[k] for k, v in sk.slab_launches.items()}
+    assert moved == {"fetch": 0, "fetch_merge": len(groups), "merge": len(groups)}
+    assert sk.compact_launches == m0 + 1
+    for i, (L, R, st, cnt) in enumerate(sched):
+        one = sk.chunk_merge(plan, st, cnt, L=L, R_pad=R, W=plan.seg_w, accum_dtype=torch.float32, pattern=pattern)
+        for x, y, z in zip(b[i], c[i], one):
+            assert torch.equal(x, y) and torch.equal(x, z)
+    ref = _scipy_product(A, A)
+    np.testing.assert_array_equal(C[2].cpu().numpy(), ref.indptr)
+    np.testing.assert_array_equal(C[1][: ref.nnz].cpu().numpy(), ref.indices)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pattern", "fp32", "fp64"])
+@pytest.mark.parametrize("kind", ["descending", "repeated column"])
+def test_k4_on_unsorted_b_matches_plain(cuda, kind, mode):
+    """B rows that descend or repeat a column only give more and shorter
+    runs: (b) and (c) equal ``_merge_block`` on every chunk (columns and
+    nuniq exact, values within the tolerance), bit-identical to each other,
+    and the product exact against scipy's (which sums the repeats)."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    acc = torch.float64 if mode == "fp64" else torch.float32
+    A = tsyn.webgraph_like(4000, 24000, seed=9)
+    if mode != "pattern":
+        A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 9)[0].astype(np.float64 if mode == "fp64" else np.float32))
+    B = _reversed_rows(A) if kind == "descending" else _repeated_column(A)
+    plan = ss.spgemm_plan(A, B, device=cuda, accum_dtype=acc, pattern=mode == "pattern")
+    sched, _ = ss._chunk_schedule(plan.classes, plan.class_counts, plan.slot_budget)
+    b = sk.chunk_merge_all(plan, sched, W=plan.seg_w, accum_dtype=acc, pattern=plan.pattern)
+    vals = list(plan.aligned_vals) or [None] * len(sched)
+    c = sk.slab_merge_all(plan.aligned_cols, vals, accum_dtype=acc, pattern=plan.pattern)
+    tol = 1e-12 if acc == torch.float64 else 2e-5
+    for i, col in enumerate(plan.aligned_cols):
+        ref = ss._merge_block(col, vals[i], accum_dtype=acc, pattern=plan.pattern)
+        assert all(torch.equal(x, y) for x, y in zip(b[i], c[i]))
+        assert torch.equal(c[i][2], ref[2])
+        live = torch.arange(col.shape[1], device=cuda)[None, :] < ref[2][:, None]
+        assert torch.equal(c[i][0][live], ref[0][live])
+        err = float((c[i][1][live] - ref[1][live]).abs().max()) if live.any() else 0.0
+        assert err <= tol * max(float(ref[1][live].abs().max()) if live.any() else 0.0, 1e-30)
+    C = ss._csr_to_host(ss.spgemm_slab_csr(A, B, device=cuda, accum_dtype=acc, pattern=plan.pattern))
+    ref = _scipy_product(A, B)
+    np.testing.assert_array_equal(np.asarray(C.indptr, np.int64), ref.indptr)
+    np.testing.assert_array_equal(np.asarray(C.indices), ref.indices)
+    np.testing.assert_allclose(np.asarray(C.data), ref.data, rtol=1e-4, atol=1e-4 * float(np.abs(ref.data).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["as fetched", "each row reversed"])
+def test_k4_widest_class_fp64(cuda, order):
+    """The 16,384-slot class in fp64 (229,376 B of shared memory, the wide
+    block size), rows as fetched and each row reversed (one-slot runs):
+    (c) equal to ``_merge_block``, ``_INT_MAX`` / 0 past nuniq."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    L = sk.MAX_L
+    t, start, count, R_pad = _k4_tables(cuda, L, 8, torch.float64, seed=17)
+    kw = dict(L=L, R_pad=R_pad, W=8, accum_dtype=torch.float64, pattern=False)
+    col, val = sk.chunk_fetch(t, start, count, **kw)
+    if order == "each row reversed":
+        col, val = col.flip(1).contiguous(), val.flip(1).contiguous()
+    got = sk.slab_merge(col, val, accum_dtype=torch.float64, pattern=False)
+    ref = ss._merge_block(col, val, accum_dtype=torch.float64, pattern=False)
+    torch.cuda.synchronize()
+    assert torch.equal(got[2], ref[2])
+    live = torch.arange(L, device=cuda)[None, :] < ref[2][:, None]
+    assert torch.equal(got[0][live], ref[0][live])
+    assert float((got[1][live] - ref[1][live]).abs().max()) <= 1e-12 * float(ref[1][live].abs().max())
+    assert bool((got[0][~live] == _INT_MAX).all()) and not got[1][~live].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("room", ["padding past nnz", "nnz_pad cuts the product"])
+def test_k5_zeros_past_nnz_and_cut(cuda, room):
+    """K5 writes every slot of data and indices: zeros in [nnz, nnz_pad)
+    even where the allocator hands back memory that held other values, and
+    entries at or past nnz_pad dropped; equal to ``_compact_to_csr``."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    A = tsyn.webgraph_like(5000, 30000, seed=12)
+    A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 12)[0])
+    outs, _, _ = ss.spgemm_slab_device(A, A, ss.spgemm_plan(A, A, device=cuda))
+    nnz = int(sum(int(o[3].sum()) for o in outs))
+    nnz_pad = nnz + 4099 if room == "padding past nnz" else nnz // 2 + 3
+    junk = torch.full((4 * nnz_pad,), 7.0, device=cuda)  # the allocator's blocks now hold sevens
+    del junk
+    got = sk.compact_to_csr(outs, nrow=A.nrow, nnz_pad=nnz_pad, dtype=torch.float32, device=cuda)
+    want = sk._compact_to_csr(outs, nrow=A.nrow, nnz_pad=nnz_pad, dtype=torch.float32, device=cuda)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert int(got[3]) == nnz
+    if nnz_pad > nnz:
+        assert not got[0][nnz:].any() and not got[1][nnz:].any()
+
+
+@pytest.mark.cuda
+def test_no_plain_version_on_card(nccl_mesh, monkeypatch):
+    """With ``_merge_block``, ``_row_offsets`` (the plain route's
+    ``scatter_reduce_`` row counts), ``_compact_to_csr``, ``_chunk_fetch`` and
+    ``_chunk_meta`` made to raise, every entry point that reaches K4 and K5 --
+    ``ops.spgemm`` cold, with its plan and reusing it, the chain, the big
+    path and ``spgemm_dist_exec`` at world size 1 -- is exact against scipy:
+    no CUDA operand reaches a plain version."""
+    from spmm_tpu_torch import parallel
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("_merge_block", "_row_offsets", "_compact_to_csr", "_chunk_fetch", "_chunk_meta"):
+        monkeypatch.setattr(sk, name, plain)
+    monkeypatch.setattr(ss, "AUTO_PLAN_MIN_NNZ", 1)
+    A = tsyn.webgraph_like(4000, 24000, seed=13)
+    ref = _scipy_product(A, A)
+    ss._PLAN_SEEN.clear()
+    ss._PLAN_CACHE.clear()
+    for _ in range(3):  # cold, plan build, plan reuse
+        _exact(ops.spgemm(A, A, device=torch.device("cuda")), ref)
+    plan = ss.spgemm_plan(A, A, device=torch.device("cuda"))
+    _exact(ss._csr_to_host(ss._csr_of(ss.spgemm_chain_device(plan, 3), A.shape, ss._round_up(plan.npa * 8, 1024),
+                                      torch.float32, torch.device("cuda"))), ref)
+    _exact(ss.spgemm_slab_big(A, A, pieces=3, device=torch.device("cuda")), ref)
+    dplan = parallel.spgemm_dist_plan(parallel.partition_rows(A, 1), A, nccl_mesh)
+    _exact(parallel.spgemm_dist_exec(dplan, nccl_mesh), ref)
+    ss._PLAN_SEEN.clear()
+    ss._PLAN_CACHE.clear()

@@ -1,14 +1,18 @@
 """K4 and K5 (``spmm_tpu_torch/ops/slab_kernel.py``, ``csrc/slab_spgemm.cu``)
-on the CPU, where the kernels cannot run: their tiling and merge order
-emulated in numpy, held against the port's plain ``_merge_block`` and the
-JAX package's (``spmm_tpu/ops/slab_spgemm.py:1073``) on the same chunks; the
+on the CPU, where the kernels cannot run: their tiling, merge order and
+compaction emulated in numpy, held against the port's plain
+``_merge_block`` / ``_compact_to_csr`` and the JAX package's merge
+(``spmm_tpu/ops/slab_spgemm.py:1073``) on the same chunks, and the
+natural-run merge (``_run_merge``) held bit-equal to the bitonic kernel it
+replaced (``_kernel_merge``, the bit contract of the merge's outputs); the
 dispatch; and the slice end to end against the JAX package and scipy.
 
 Tolerance: columns, nuniq and pattern counts exact; values within 2e-5 of
 max |ref| in fp32 (the plain merges take differences of prefix sums, about
-1 ulp per run, where the kernel sums each run directly), 1e-12 in fp64.
-The kernels themselves are held against the plain versions on the card in
-``tests/test_torch_cuda.py`` (``test_k4_k5_match_plain``).
+1 ulp per run, where the kernel sums each run directly), 1e-12 in fp64; the
+two kernel emulations bit-equal.  The kernels themselves are held against
+the plain versions on the card in ``tests/test_torch_cuda.py``
+(``test_k4_k5_match_plain``).
 """
 
 import dataclasses
@@ -36,30 +40,33 @@ _INT_MAX = 2**31 - 1
 _jax_merge = jax.jit(js._merge_block, static_argnames=("L", "R_pad", "accum_dtype", "pattern"))
 
 
-# ---- the kernel's work order in numpy ----------------------------------------
+# ---- the kernels' work orders in numpy ---------------------------------------
+
+#: the bitonic merge kernel's tile (slots of padded rows) per accumulate type
+#: and its slots per thread
+_BITONIC_TILE = {torch.float32: 4096, torch.float64: 2048}
+_BITONIC_PER = 16
 
 
 def _kernel_merge(col, val, accum_dtype, pattern):
-    """The merge kernel (K4 b and c) step by step as ``csrc/slab_spgemm.cu``
-    takes it, over ``tile_layout``'s tiles: each row padded to lp slots, a
-    sort on (column, slot), live run starts counted over each thread's E
+    """The bit contract of the merge's outputs: the bitonic merge kernel that
+    the natural-run merge replaced, step by step -- each row padded to lp slots
+    (a power of two), a tile of max(tile, lp) padded slots, a sort on
+    (column, slot), live run starts counted over each thread's 16
     consecutive slots and joined by one exclusive scan, each row's offset
     read at its first slot, each run summed directly in slot order (its
-    length in pattern mode), ``_INT_MAX`` / 0 past nuniq.  Also checks that
-    every row of the chunk lies in exactly one tile."""
+    length in pattern mode), ``_INT_MAX`` / 0 past nuniq."""
     R_pad, L = col.shape
-    lay = sk.tile_layout(L, R_pad, accum_dtype, pattern)
-    lp, rows_t, nt = lay.lp, lay.rows, lay.threads
-    E = lay.slots // nt
     acc = np.float64 if accum_dtype == torch.float64 else np.float32
+    lp = 1 << (L - 1).bit_length()
+    tp = max(_BITONIC_TILE[accum_dtype], lp)
+    rows_t, nt, E = tp // lp, tp // _BITONIC_PER, _BITONIC_PER
     cols_u = np.full((R_pad, L), _INT_MAX, np.int32)
     vals_u = np.zeros((R_pad, L), acc)
     nuniq = np.zeros(R_pad, np.int32)
-    seen = np.zeros(R_pad, np.int64)
-    for tile in range(lay.tiles):
+    for tile in range(-(-R_pad // rows_t)):
         rows = np.arange(tile * rows_t, (tile + 1) * rows_t)
         inside = rows < R_pad
-        seen[rows[inside]] += 1
         key = np.full((rows_t, lp), _INT_MAX, np.int64)
         v = np.zeros((rows_t, lp), acc)
         key[inside, :L] = col[rows[inside]]
@@ -73,53 +80,181 @@ def _kernel_merge(col, val, accum_dtype, pattern):
         flat = start.reshape(-1)
         cnt = flat.reshape(nt, E).sum(1)
         off = np.concatenate([[0], np.cumsum(cnt)[:-1]])
-        pos = off[:, None] + np.cumsum(flat.reshape(nt, E), 1) - flat.reshape(nt, E)
-        pos = pos.reshape(rows_t, lp)
-        assert np.array_equal(pos.reshape(-1), np.cumsum(flat) - flat)  # the block scan is the flat one
+        pos = (off[:, None] + np.cumsum(flat.reshape(nt, E), 1) - flat.reshape(nt, E)).reshape(rows_t, lp)
         rowbase = pos[:, 0]
-        nu = start.sum(1)
         for r in np.nonzero(inside)[0]:
             i = rows[r]
-            nuniq[i] = nu[r]
-            (s,) = np.nonzero(start[r])
-            ends = np.append(s[1:], (ks[r] != _INT_MAX).sum())
-            out = pos[r, s] - rowbase[r]
-            assert np.array_equal(out, np.arange(len(s)))
-            cols_u[i, out] = ks[r, s]
+            (st,) = np.nonzero(start[r])
+            nuniq[i] = len(st)
+            ends = np.append(st[1:], (ks[r] != _INT_MAX).sum())
+            out = pos[r, st] - rowbase[r]
+            cols_u[i, out] = ks[r, st]
             if pattern:
-                vals_u[i, out] = ends - s
+                vals_u[i, out] = ends - st
                 continue
-            sums = v[r, ss_[r, s]].copy()  # each run summed in slot order, one add at a time
-            for k in range(1, int((ends - s).max(initial=1))):
-                more = s + k < ends
-                sums[more] = sums[more] + v[r, ss_[r, s[more] + k]]
+            sums = v[r, ss_[r, st]].copy()  # each run summed in slot order, one add at a time
+            for k in range(1, int((ends - st).max(initial=1))):
+                more = st + k < ends
+                sums[more] = sums[more] + v[r, ss_[r, st[more] + k]]
             vals_u[i, out] = sums
-    assert np.array_equal(seen, np.ones(R_pad))  # every row of the chunk in one tile
     return cols_u, vals_u, nuniq
 
 
-def _compare_merges(col, val, accum_dtype, pattern):
-    """The emulated kernel against the port's ``_merge_block`` and the JAX
-    package's on one chunk; returns the emulated nuniq."""
-    R_pad, L = col.shape
-    emu = _kernel_merge(col.numpy(), None if val is None else val.numpy(), accum_dtype, pattern)
-    port = [x.numpy() for x in ss._merge_block(col, val, accum_dtype=accum_dtype, pattern=pattern)]
-    acc = jnp.float64 if accum_dtype == torch.float64 else jnp.float32
-    with jax.enable_x64(accum_dtype == torch.float64):
-        jout = _jax_merge(jnp.asarray(col.numpy()), None if val is None else jnp.asarray(val.numpy()),
-                          L=L, R_pad=R_pad, accum_dtype=acc, pattern=pattern)
-        jout = [np.asarray(x) for x in jout]
-    tol = 1e-12 if accum_dtype == torch.float64 else 2e-5
-    for ref in (port, jout):
-        np.testing.assert_array_equal(emu[2], ref[2])
-        live = np.arange(L)[None, :] < ref[2][:, None]
-        np.testing.assert_array_equal(emu[0][live], ref[0][live])
+def _merge_path(key, a0, a1, b1, d):
+    """The kernel's merge-path search, vectorized: items of the left run
+    [a0, a1) among the first d outputs of its merge with [a1, b1), ties to
+    the left run."""
+    lo, hi = np.maximum(0, d - (b1 - a1)), np.minimum(d, a1 - a0)
+    while (lo < hi).any():
+        go = lo < hi
+        mid = (lo + hi) >> 1
+        right_first = key[np.where(go, a1 + d - 1 - mid, 0)] < key[np.where(go, a0 + mid, 0)]
+        hi = np.where(go & right_first, mid, hi)
+        lo = np.where(go & ~right_first, mid + 1, lo)
+    return lo
+
+
+def _tile_merge(key, v, L, rows, threads, items, acc, pattern):
+    """One tile of the natural-run merge (``csrc/slab_spgemm.cu``:
+    slab_merge_kernel) on its rows' S = rows * L slots in slot order: run
+    starts (a row's first slot, a column below its predecessor), each row's
+    live length (after its last non-pad slot), the starts listed by one
+    block scan over the threads' ``items`` consecutive slots, then merge
+    rounds -- round r merges runs [g 2^r, g 2^r + 2^(r-1)) with the next
+    2^(r-1), stably, each thread's first slot placed by the kernel's
+    merge-path search (checked here against the stable merge) -- and the
+    runs of equal columns summed in slot order.  Returns the rows' merged
+    columns, values and nuniq."""
+    S = rows * L
+    p = np.arange(S)
+    row, e = p // L, p % L
+    key = key.astype(np.int64).copy()
+    live_slot = key != _INT_MAX
+    n_row = np.zeros(rows, np.int64)
+    np.maximum.at(n_row, row[live_slot], e[live_slot] + 1)
+    prev = np.concatenate([[_INT_MAX], key[:-1]])
+    start = (e == 0) | (key < prev)
+    flags = np.zeros(threads * items, bool)
+    flags[:S] = start
+    cnt = flags.reshape(threads, items).sum(1)
+    off = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    scanned = (off[:, None] + np.cumsum(flags.reshape(threads, items), 1) - flags.reshape(threads, items)).reshape(-1)
+    assert np.array_equal(scanned[:S], np.cumsum(start) - start)  # the block scan is the flat one
+    run = np.cumsum(start) - 1
+    base = run[e == 0]  # each row's first run
+    ri = run - base[row]  # a slot's run within its row (fixed by position, not by item)
+    m = np.bincount(row[start], minlength=rows)
+    rstart = e[start]  # the run starts, row by row
+    first_run = np.concatenate([[0], np.cumsum(m)[:-1]])
+    most = int(m.max(initial=0))
+    rounds = 0 if most <= 1 else (most - 1).bit_length()
+    live = e < n_row[row]
+    idx = np.nonzero(live)[0]
+
+    def run_start(r_, k):  # start of run k of row r_, or the row's live end past its last run
+        return np.where(k < m[r_], rstart[first_run[r_] + np.minimum(k, m[r_] - 1)], n_row[r_])
+
+    for r in range(1, rounds + 1):
+        g0 = (ri >> r) << r
+        gs, gm, ge = run_start(row, g0), run_start(row, g0 + (1 << (r - 1))), run_start(row, g0 + (1 << r))
+        order = np.lexsort((p[idx], key[idx], (row * (L + 1) + (ri >> r))[idx]))
+        src = idx[order]
+        new_key, new_v = key.copy(), v.copy()
+        new_key[idx], new_v[idx] = key[src], v[src]
+        from_left = np.zeros(S + 1, np.int64)
+        from_left[1:][idx] = src < (row * L + gm)[src]
+        cum = np.cumsum(from_left)
+        # each thread's first slot in a merge: the kernel's merge-path search
+        o = np.arange(0, S, items)
+        o = o[live[o] & (gm[o] < ge[o])]
+        a0, a1, b1 = (row * L + gs)[o], (row * L + gm)[o], (row * L + ge)[o]
+        d = o - a0
+        assert np.array_equal(_merge_path(key, a0, a1, b1, d), cum[o] - cum[a0])
+        key, v = new_key, new_v
+    ks = key
+    assert all((np.diff(ks[rr * L : rr * L + n_row[rr]]) >= 0).all() for rr in range(rows))
+    prev = np.concatenate([[_INT_MAX], ks[:-1]])
+    ust = (ks != _INT_MAX) & ((e == 0) | (ks != prev))
+    nuniq = np.bincount(row[ust], minlength=rows)
+    cols_u = np.full((rows, L), _INT_MAX, np.int32)
+    vals_u = np.zeros((rows, L), acc)
+    for rr in range(rows):
+        seg = ks[rr * L : (rr + 1) * L]
+        (st,) = np.nonzero(ust[rr * L : (rr + 1) * L])
+        ends = np.append(st[1:], (seg != _INT_MAX).sum())
+        cols_u[rr, : len(st)] = seg[st]
         if pattern:
-            np.testing.assert_array_equal(emu[1][live], ref[1][live])
-        else:
-            scale = max(float(np.abs(ref[1][live]).max(initial=0)), 1e-30)
-            assert float(np.abs(emu[1][live] - ref[1][live]).max(initial=0)) <= tol * scale
-    return emu[2]
+            vals_u[rr, : len(st)] = ends - st
+            continue
+        vv = v[rr * L : (rr + 1) * L]
+        sums = vv[st].astype(acc)  # each run summed in slot order, one add at a time
+        for k in range(1, int((ends - st).max(initial=1))):
+            more = st + k < ends
+            sums[more] = sums[more] + vv[st[more] + k]
+        vals_u[rr, : len(st)] = sums
+    return cols_u, vals_u, nuniq
+
+
+def _run_merge(cols, vals, accum_dtype, pattern):
+    """The merge kernel (K4 b and c) over a product's chunks as
+    ``csrc/slab_spgemm.cu`` takes them: ``merge_plan``'s launches, each
+    tile finding its chunk in its launch's table, ``_tile_merge`` on its
+    rows.  Checks that every row of every chunk lies in exactly one tile.
+    Returns (cols_u, vals_u, nuniq) per chunk."""
+    acc = np.float64 if accum_dtype == torch.float64 else np.float32
+    shapes = [(c.shape[1], c.shape[0]) for c in cols]
+    plan = sk.merge_plan(shapes, accum_dtype)
+    f = {name: i for i, name in enumerate(sk.MERGE_FIELDS)}
+    outs = [(np.full(c.shape, _INT_MAX, np.int32), np.zeros(c.shape, acc), np.zeros(c.shape[0], np.int32))
+            for c in cols]
+    seen = [np.zeros(c.shape[0], np.int64) for c in cols]
+    for x in plan.launches:
+        assert len(x.chunks) <= sk.MAX_LAUNCH_CHUNKS and x.smem <= 232_448
+        for tile in range(x.tiles):
+            k = int(np.searchsorted(x.table[:, f["tile0"]], tile, side="right")) - 1
+            ci, t = x.chunks[k], x.table[k]
+            L, R_pad, rows_t = int(t[f["L"]]), int(t[f["R_pad"]]), int(t[f["rows_t"]])
+            assert (L, R_pad) == shapes[ci] and rows_t * L <= x.slots
+            r0 = (tile - int(t[f["tile0"]])) * rows_t
+            rows = min(rows_t, R_pad - r0)
+            assert rows > 0
+            seen[ci][r0 : r0 + rows] += 1
+            key = cols[ci][r0 : r0 + rows].reshape(-1)
+            v = np.zeros(rows * L, acc) if pattern else vals[ci][r0 : r0 + rows].reshape(-1).astype(acc)
+            cu, vu, nu = _tile_merge(key, v, L, rows, x.threads, x.items, acc, pattern)
+            outs[ci][0][r0 : r0 + rows], outs[ci][1][r0 : r0 + rows], outs[ci][2][r0 : r0 + rows] = cu, vu, nu
+    assert all(np.array_equal(s_, np.ones_like(s_)) for s_ in seen)  # every row of every chunk in one tile
+    return outs
+
+
+def _compare_merges(cols, vals, accum_dtype, pattern):
+    """The emulated kernel over the chunks ``cols`` / ``vals`` (tensors)
+    against the port's ``_merge_block`` and the JAX package's, and bit-equal
+    to the bitonic kernel's contract; returns the emulated nuniq per chunk."""
+    emu = _run_merge([c.numpy() for c in cols], [None if v is None else v.numpy() for v in vals],
+                        accum_dtype, pattern)
+    tol = 1e-12 if accum_dtype == torch.float64 else 2e-5
+    for col, val, got in zip(cols, vals, emu):
+        R_pad, L = col.shape
+        old = _kernel_merge(col.numpy(), None if val is None else val.numpy(), accum_dtype, pattern)
+        for x, y in zip(got, old):
+            np.testing.assert_array_equal(x, y)
+        port = [x.numpy() for x in ss._merge_block(col, val, accum_dtype=accum_dtype, pattern=pattern)]
+        acc = jnp.float64 if accum_dtype == torch.float64 else jnp.float32
+        with jax.enable_x64(accum_dtype == torch.float64):
+            jout = _jax_merge(jnp.asarray(col.numpy()), None if val is None else jnp.asarray(val.numpy()),
+                              L=L, R_pad=R_pad, accum_dtype=acc, pattern=pattern)
+            jout = [np.asarray(x) for x in jout]
+        for ref in (port, jout):
+            np.testing.assert_array_equal(got[2], ref[2])
+            live = np.arange(L)[None, :] < ref[2][:, None]
+            np.testing.assert_array_equal(got[0][live], ref[0][live])
+            if pattern:
+                np.testing.assert_array_equal(got[1][live], ref[1][live])
+            else:
+                scale = max(float(np.abs(ref[1][live]).max(initial=0)), 1e-30)
+                assert float(np.abs(got[1][live] - ref[1][live]).max(initial=0)) <= tol * scale
+    return [x[2] for x in emu]
 
 
 #: (classes, slot budget) pairs of the chunk cases
@@ -133,8 +268,9 @@ _MODES = {"pattern": (None, torch.float32), "fp32": (np.float32, torch.float32),
 @pytest.mark.parametrize("W", [1, 4, 8])
 def test_kernel_merge_order_matches_both_merges(W, schedule, mode):
     """Every chunk of a webgraph A×A (2,000 nodes) through the emulated
-    kernel, the port's and the JAX package's merge: the same columns and
-    nuniq, pattern counts exact, values within the stated tolerance; the
+    kernel (the product's tile table), the port's and the JAX package's
+    merge: the same columns and nuniq, pattern counts exact, values within
+    the stated tolerance, bit-equal to the bitonic kernel's contract; the
     chunks' padded rows come out with nuniq 0."""
     classes, budget = _SCHEDULES[schedule]
     values, acc = _MODES[mode]
@@ -145,11 +281,11 @@ def test_kernel_merge_order_matches_both_merges(W, schedule, mode):
                           accum_dtype=acc, pattern=values is None)
     sched, _ = ss._chunk_schedule(plan.classes, plan.class_counts, budget)
     assert len(sched) > 1
-    for L, R_pad, start, cnt in sched:
-        col, val = sk.chunk_fetch(plan, start, cnt, L=L, R_pad=R_pad, W=W, accum_dtype=acc,
-                                  pattern=plan.pattern)
-        nuniq = _compare_merges(col, val, acc, plan.pattern)
-        assert not nuniq[cnt:].any()
+    slabs = [sk.chunk_fetch(plan, start, cnt, L=L, R_pad=R_pad, W=W, accum_dtype=acc, pattern=plan.pattern)
+             for L, R_pad, start, cnt in sched]
+    nuniq = _compare_merges([c for c, _ in slabs], [v for _, v in slabs], acc, plan.pattern)
+    for nu, (_, _, _, cnt) in zip(nuniq, sched):
+        assert not nu[cnt:].any()
 
 
 @pytest.mark.parametrize("mode", sorted(_MODES))
@@ -170,36 +306,224 @@ def test_kernel_merge_order_on_edge_rows(L, mode):
     val = None
     if values is not None:
         val = torch.from_numpy(np.where(col == _INT_MAX, 0, rng.standard_normal((R_pad, L))).astype(values))
-    nuniq = _compare_merges(torch.from_numpy(col), val, acc, values is None)
+    (nuniq,) = _compare_merges([torch.from_numpy(col)], [val], acc, values is None)
     assert list(nuniq[:4]) == [0, 1, len(np.unique(col[2][col[2] != _INT_MAX])), L]
     assert not nuniq[13:].any()
+
+
+def _desc_b(M):
+    """M with each row's columns in descending order (a CSR whose rows do
+    not ascend)."""
+    ind = M.indices.copy()
+    for r in range(M.nrow):
+        a, b = M.indptr[r], M.indptr[r + 1]
+        ind[a:b] = ind[a:b][::-1]
+    return dataclasses.replace(M, indices=ind)
+
+
+def _dup_b(M):
+    """M with each row of two or more entries repeating its first column in
+    its second slot (a row with a column twice)."""
+    ind = M.indices.copy()
+    lens = np.diff(M.indptr)
+    rows = np.nonzero(lens >= 2)[0]
+    ind[M.indptr[rows] + 1] = ind[M.indptr[rows]]
+    return dataclasses.replace(M, indices=ind)
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("kind", ["B rows descending", "B rows repeating a column"])
+def test_kernel_merge_order_on_unsorted_b(kind, mode):
+    """A product whose B rows do not ascend or repeat a column gives more
+    and shorter runs, and the same merge: every chunk of the aligned cache
+    through the emulated kernel, both plain merges and the bitonic
+    contract."""
+    values, acc = _MODES[mode]
+    A = tsyn.webgraph_like(1500, 9000, seed=11)
+    if values is not None:
+        A = dataclasses.replace(A, data=np.random.default_rng(11).standard_normal(A.nnz_pad).astype(values))
+    B = _desc_b(A) if kind == "B rows descending" else _dup_b(A)
+    plan = ss.spgemm_plan(A, B, device="cpu", accum_dtype=acc, pattern=values is None, slot_budget=1 << 16)
+    assert len(plan.aligned_cols) > 1
+    vals = list(plan.aligned_vals) or [None] * len(plan.aligned_cols)
+    _compare_merges(list(plan.aligned_cols), vals, acc, values is None)
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("kind", ["one run", "one-slot runs"])
+def test_kernel_merge_order_on_run_counts(kind, mode):
+    """The extremes of a row's runs: every row one ascending run with
+    repeated columns (no merge round), and every row L one-slot runs
+    (strictly descending columns, log2(L) rounds); one row cut short by
+    pads."""
+    values, acc = _MODES[mode]
+    rng = np.random.default_rng(3)
+    L, R_pad = 40, 64
+    if kind == "one run":
+        col = np.sort(rng.integers(0, 30, (R_pad, L)), axis=1)  # ascending, with repeats
+    else:
+        col = 3 * np.arange(L)[::-1] + rng.integers(0, 3, (R_pad, 1))  # each slot below its predecessor
+    col = col.astype(np.int32)
+    col[5, 30:] = _INT_MAX  # a row cut short
+    val = None
+    if values is not None:
+        val = torch.from_numpy(np.where(col == _INT_MAX, 0, rng.standard_normal((R_pad, L))).astype(values))
+    _compare_merges([torch.from_numpy(col)], [val], acc, values is None)
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("L", [24, 1000, 5000, 12000, 16384])
+def test_kernel_merge_order_on_wide_rows(L, mode):
+    """Rows that are not powers of two, up to the widest class (``MAX_L``):
+    runs of random lengths (B rows of 1-40 columns), pads at their ends, one
+    tile per row above 8,192 slots; the wide block-size group."""
+    values, acc = _MODES[mode]
+    rng = np.random.default_rng(L)
+    R_pad = max(2, 8192 // L)
+    col = np.full((R_pad, L), _INT_MAX, np.int32)
+    for r in range(R_pad):
+        e = 0
+        while e < L - 40:
+            n = int(rng.integers(1, 41))
+            col[r, e : e + n] = np.sort(rng.integers(0, 4 * L, n))
+            e += n + int(rng.integers(0, 3))  # pads between runs
+    val = None
+    if values is not None:
+        val = torch.from_numpy(np.where(col == _INT_MAX, 0, rng.standard_normal((R_pad, L))).astype(values))
+    _compare_merges([torch.from_numpy(col)], [val], acc, values is None)
 
 
 @pytest.mark.parametrize("pattern", [False, True])
 @pytest.mark.parametrize("acc", [torch.float32, torch.float64])
 @pytest.mark.parametrize("L", [1, 4, 8, 24, 40, 96, 320, 2048, 2560, 4096, 5120, 8192, 16384])
-def test_tile_layout_covers_every_row_once(L, acc, pattern):
-    """The host's tile layout: rows padded to a power of two, a tile of
-    ``TILE_SLOTS`` (one row per CTA where a row is wider), every row of the
-    chunk in exactly one tile, ``SLOTS_PER_THREAD`` slots per thread, 128
-    to 1,024 threads, the shared memory within a CTA's 232,448 bytes."""
-    for R_pad in (8, 1000, 1024, 3 << 10):
-        lay = sk.tile_layout(L, R_pad, acc, pattern)
-        assert lay.lp >= L and lay.lp & (lay.lp - 1) == 0 and lay.lp < 2 * L + 1
-        assert lay.slots == max(sk.TILE_SLOTS[acc], lay.lp)
-        assert lay.rows == (1 if L >= sk.TILE_SLOTS[acc] else sk.TILE_SLOTS[acc] // lay.lp)
-        owner = np.repeat(np.arange(lay.tiles), lay.rows)
-        assert len(owner) >= R_pad and len(owner) - R_pad < lay.rows
-        assert np.array_equal(np.bincount(owner[:R_pad], minlength=lay.tiles) > 0, np.ones(lay.tiles, bool))
-        assert lay.slots == sk.SLOTS_PER_THREAD * lay.threads and 128 <= lay.threads <= 1024
-        assert lay.smem <= 232_448
+def test_merge_plan_covers_every_row_once(L, acc, pattern):
+    """The host's chunk tables over a product of chunks of class L and of
+    other classes: each chunk in the launch of its block-size group, tiles
+    of min(T // L, R_pad) unpadded rows numbered on across the launch's
+    chunks, every row of every chunk in exactly one tile, the outputs laid
+    out chunk after chunk, the shared memory within a CTA's 232,448 bytes;
+    (b) tables carry each chunk's start and count, (c) tables its slabs."""
+    shapes = [(L, R) for R in (8, 1000, 1024, 3 << 10)] + [(8, 100), (16384 if L <= 4096 else 16, 3), (24, 0)]
+    n = len(shapes)
+    kw = dict(starts=list(range(10, 10 + n)), counts=[max(R - 1, 0) for _, R in shapes]) if pattern else \
+        dict(col_ptrs=[1000 + i for i in range(n)], val_ptrs=[2000 + i for i in range(n)])
+    plan = sk.merge_plan(shapes, acc, **kw)
+    f = {name: i for i, name in enumerate(sk.MERGE_FIELDS)}
+    seen = [np.zeros(R, np.int64) for _, R in shapes]
+    assert len(plan.launches) == len({sk.merge_group(L_) for L_, R in shapes if R})
+    for x in plan.launches:
+        widest, threads, items = sk.MERGE_GROUPS[x.group]
+        assert (x.threads, x.items) == (threads, items) and x.smem <= 232_448
+        assert x.smem == sk.merge_smem(x.group, acc, x.rows_cap)
+        tile0 = 0
+        for k, i in enumerate(x.chunks):
+            L_, R = shapes[i]
+            t = x.table[k]
+            assert sk.merge_group(L_) == x.group and L_ <= widest and R > 0
+            assert (t[f["L"]], t[f["R_pad"]], t[f["tile0"]]) == (L_, R, tile0)
+            assert t[f["out_slot"]] == plan.slot_off[i] and t[f["out_row"]] == plan.row_off[i]
+            if pattern:
+                assert (t[f["start"]], t[f["count"]], t[f["col_ptr"]]) == (10 + i, R - 1, 0)
+            else:
+                assert (t[f["col_ptr"]], t[f["val_ptr"]], t[f["count"]]) == (1000 + i, 2000 + i, R)
+            rows_t = int(t[f["rows_t"]])
+            assert rows_t == min(threads * items // L_, R) and rows_t <= x.rows_cap
+            ntile = -(-R // rows_t)
+            for tile in range(ntile):
+                seen[i][tile * rows_t : (tile + 1) * rows_t] += 1
+            tile0 += ntile
+        assert x.tiles == tile0
+    assert all(np.array_equal(s_, np.ones_like(s_)) for s_ in seen)
+    assert plan.slot_off == tuple(np.cumsum([0] + [L_ * R for L_, R in shapes])[:-1])
+    assert plan.slots == sum(L_ * R for L_, R in shapes) and plan.rows == sum(R for _, R in shapes)
 
 
-def test_tile_layout_refuses_what_the_kernel_does_not_take():
+def test_merge_plan_splits_a_group_of_many_chunks():
+    """A block-size group of more chunks than one launch's parameter table
+    holds (``MAX_LAUNCH_CHUNKS``) takes more launches, each numbering its
+    own tiles from 0, every chunk in exactly one."""
+    shapes = [(16, 100 + i) for i in range(2 * sk.MAX_LAUNCH_CHUNKS + 5)]
+    plan = sk.merge_plan(shapes, torch.float32)
+    assert [len(x.chunks) for x in plan.launches] == [sk.MAX_LAUNCH_CHUNKS, sk.MAX_LAUNCH_CHUNKS, 5]
+    assert sorted(i for x in plan.launches for i in x.chunks) == list(range(len(shapes)))
+    assert all(x.table[0, sk.MERGE_FIELDS.index("tile0")] == 0 for x in plan.launches)
+
+
+def test_merge_plan_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=str(sk.MAX_L)):
-        sk.tile_layout(sk.MAX_L + 8, 8, torch.float32, False)
+        sk.merge_plan([(8, 4), (sk.MAX_L + 8, 8)], torch.float32)
     with pytest.raises(TypeError, match="accum_dtype"):
-        sk.tile_layout(64, 8, torch.bfloat16, False)
+        sk.merge_plan([(64, 8)], torch.bfloat16)
+
+
+def _compaction_walk(outs, nrow: int, nnz_pad: int, acc):
+    """K5 as ``csrc/slab_spgemm.cu`` takes it: ``compact_plan``'s launches;
+    the count pass (each chunk row with entries stores its nuniq at its row
+    id), the indptr scan, then the copy pass, a thread per slot of a merged
+    row copying the slots below the row's nuniq to indptr[row id] on, and
+    the padding [nnz, nnz_pad) zeroed.  Checks that every live entry is
+    copied exactly once."""
+    shapes = [tuple(o[1].shape[::-1]) for o in outs]
+    parts = sk.compact_plan(shapes)
+    f = {name: i for i, name in enumerate(sk.COMPACT_FIELDS)}
+    counts = np.zeros(nrow, np.int64)
+    for tab, idx, rtot, _ in parts:
+        assert len(idx) <= sk.MAX_LAUNCH_CHUNKS and rtot == sum(shapes[i][1] for i in idx)
+        for k, i in enumerate(idx):
+            r, nu = outs[i][0].numpy(), outs[i][3].numpy()
+            assert tab[k, f["row0"]] == sum(shapes[j][1] for j in idx[:k])
+            live = nu > 0
+            counts[r[live]] = nu[live]
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    data = np.full(nnz_pad, np.nan, acc)
+    indices = np.full(nnz_pad, -1, np.int64)
+    copied = np.zeros(nnz_pad, np.int64)
+    for tab, idx, _, stot in parts:
+        q = np.arange(stot)
+        k = np.searchsorted(tab[:, f["slot0"]], q, side="right") - 1
+        L = tab[k, f["L"]]
+        local = q - tab[k, f["slot0"]]
+        i, e = local // L, local % L
+        for kk, ci in enumerate(idx):
+            sel = k == kk
+            r, cols_u, vals_u, nu = (x.numpy() for x in outs[ci])
+            ii, ee = i[sel], e[sel]
+            keep = ee < nu[ii]
+            d = indptr[r[ii[keep]]] + ee[keep]
+            src = local[sel][keep]
+            inside = d < nnz_pad
+            np.add.at(copied, d[inside], 1)
+            indices[d[inside]] = cols_u.reshape(-1)[src[inside]]
+            data[d[inside]] = vals_u.reshape(-1)[src[inside]]
+    nnz = int(indptr[-1])
+    data[nnz:] = 0
+    indices[nnz:] = 0
+    assert np.array_equal(copied[: min(nnz, nnz_pad)], np.ones(min(nnz, nnz_pad), np.int64))
+    return data, indices.astype(np.int32), indptr, nnz
+
+
+@pytest.mark.parametrize("cut", [False, True])
+@pytest.mark.parametrize("mode", ["pattern", "fp32"])
+def test_compaction_walk_covers_every_entry_once(mode, cut):
+    """K5's work order on a product's chunk outputs (padded rows repeating
+    other rows' ids with nuniq 0) equals ``_compact_to_csr``, padding
+    included: every live entry copied once, entries at or past nnz_pad
+    dropped, zeros past nnz."""
+    values, acc = _MODES[mode]
+    A = tsyn.webgraph_like(1200, 7200, seed=21)
+    if values is not None:
+        A = dataclasses.replace(A, data=np.random.default_rng(21).standard_normal(A.nnz_pad).astype(values))
+    outs, _, plan = ss.spgemm_slab_device(A, A, ss.spgemm_plan(A, A, device="cpu", slot_budget=1 << 14,
+                                                                pattern=values is None))
+    assert len(outs) > 1
+    full = sk._compact_to_csr(outs, nrow=A.nrow, nnz_pad=1 << 20, dtype=acc, device="cpu")
+    nnz_pad = int(full[3]) // 2 if cut else int(full[3]) + 1000
+    want = sk._compact_to_csr(outs, nrow=A.nrow, nnz_pad=nnz_pad, dtype=acc, device="cpu")
+    data, indices, indptr, nnz = _compaction_walk(outs, A.nrow, nnz_pad, np.float32)
+    np.testing.assert_array_equal(data, want[0].numpy())
+    np.testing.assert_array_equal(indices, want[1].numpy())
+    np.testing.assert_array_equal(indptr, want[2].numpy())
+    assert nnz == int(want[3])
 
 
 # ---- the dispatch -------------------------------------------------------------
