@@ -45,8 +45,10 @@ Phases, each printing one line with its times (CUDA events for kernels,
               Requires exact C structure, SpMM within tolerance, and every
               kernel launched.
 5. slab     — the slab SpGEMM's entry points on the same graph, each product
-              held against one scipy A×A: the plan (with its aligned cache),
-              its numeric phase and the chain of 8 (CUDA events), the device
+              held against one scipy A×A: the plan (with its aligned cache,
+              one K4 (a) launch), ``spgemm_plan_revalue`` of it with seeded
+              normal values (one K4 (a) launch; its product within 1e-4 of
+              max), its numeric phase and the chain of 8 (CUDA events), the device
               CSR, ``ops.spgemm`` three times (cold, plan build, plan reuse),
               a value-mode product, the global-sort ``spgemm_sorted``, the
               4-piece big path with a checkpoint and its resume (0 pieces
@@ -90,8 +92,9 @@ Phases, each printing one line with its times (CUDA events for kernels,
               equal to scipy's, timed beside ``ops.spgemm`` (without a plan)
               and ``spgemm_slab_csr``; then ``spgemm_dist_halo``,
               ``spgemm_dist_halo_exchange``, ``spgemm_dist_plan`` / ``exec``
-              (B replicated and ``b_sharded``), ``spgemm_dist_revalue`` of
-              the all-ones plans to seeded normal values (F1) and
+              (B replicated and ``b_sharded``; one K4 (a) launch per plan),
+              ``spgemm_dist_revalue`` of the all-ones plans to seeded normal
+              values (F1; one K4 (a) launch each) and
               ``spgemm_dist_big(pieces=2)`` in both B modes, each exact
               against scipy (the revalue within 1e-4 of max) with its
               ``all_to_all_single`` calls counted, timed beside
@@ -171,7 +174,7 @@ PRIOR_MS = {"K2 k=128": 2.8529, "K2 k=32": 2.6395, "K1 fp32": 0.8087,
             "K3 k=128": "0.7775 / 0.8962", "K3 k=32": "not measured",
             "ordered sum Pᵀ": "0.0688 / 0.0826", "ordered sum k=128 stream": "0.21 (profile)",
             "slab_fetch_merge": "1.9415 / 1.6763", "slab_merge": "1.8336 / 1.7842",
-            "slab_compact": "1.5029 / 1.0814", "slab_fetch": "1.6036 / 0.7294"}
+            "slab_compact": "1.5029 / 1.0814", "slab_fetch": "1.5911 / 1.3133"}
 
 
 def fail(msg: str) -> None:
@@ -368,11 +371,13 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
     product, (b) chunk by chunk and (c) on the slabs (a) built
     bit-identical, K5 equal to ``_compact_to_csr`` and its CSR to scipy's
     -- then each timed over the whole product (CUDA events: (b) and (c) one
-    launch per block-size group, (a) one per chunk, mean of 5; the plain
+    launch per block-size group, (a) one per plan, mean of 5; the plain
     versions mean of 3) beside the bound of the bytes it must move (each
     input once, each output once: the live entries;
     ``ops.roofline.Roofline``) and its time before the redesign
-    (``PRIOR_MS``), and chunk by chunk ((b), (c) and K5 alone on each
+    (``PRIOR_MS``; for (a) also the profiler's device time and the host's
+    enqueue per call, since its calls can outpace the host in pattern
+    mode), and chunk by chunk ((a), (b), (c) and K5 alone on each
     chunk: L, rows, tiles, live partial products, ms).  No single PyTorch
     call computes these functions, so ``library_ms`` is null.  Returns the
     kernels line's four entries (value mode; pattern mode beside)."""
@@ -397,7 +402,7 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
         where = [(st, c) for _, _, st, c in sched]
         rids = [plan.rows_sorted[st : st + R] for (_, R, st, _) in sched]
         vals = list(plan.aligned_vals) or [None] * len(sched)
-        fetch_k = lambda: [sk.chunk_fetch(plan, st, c, **kw) for (st, c), kw in zip(where, kws)]
+        fetch_k = lambda: sk.chunk_fetch_all(plan, sched, W=W, accum_dtype=acc, pattern=pattern)
         fetch_p = lambda: [sk._chunk_fetch(plan, *sk._chunk_meta(plan.rowmeta, st, c, kw["R_pad"], kw["L"] // W),
                                            **kw) for (st, c), kw in zip(where, kws)]
         fused_k = lambda: sk.chunk_merge_all(plan, sched, W=W, accum_dtype=acc, pattern=pattern)
@@ -405,7 +410,9 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
         merge_k = lambda: sk.slab_merge_all(plan.aligned_cols, vals, accum_dtype=acc, pattern=pattern)
         merge_p = lambda: [sk._merge_block(col, v, accum_dtype=acc, pattern=pattern)
                            for col, v in zip(plan.aligned_cols, vals)]
+        before = counters()["slab_fetch"]
         fk, fp = fetch_k(), fetch_p()
+        require(counters()["slab_fetch"] == before + 1, "K4 (a) is not one launch per plan")
         before = counters()
         b1, b2, c = fused_k(), fused_each(), merge_k()
         mp = merge_p()
@@ -476,11 +483,16 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
                                   library="none: no single PyTorch call computes this function")
             else:
                 rows[name]["pattern"] = row
+            paced = ""
+            if name == "slab_fetch":  # back-to-back calls can be paced by the host's work per call
+                dev_ms, enq = device_and_enqueue(torch, kern, repeats=5)
+                paced = f"; device {dev_ms:.4f} ms and enqueue {enq:.0f} µs per call"
             line.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f}; bound {b[0]:.4f}, {b[1]}, "
-                        f"{nbytes / 1e6:.1f} MB, share {b[0] / ms:.1%}; before the redesign, value / pattern: "
-                        f"{PRIOR_MS[name]} ms, PERF.md)")
+                        f"{nbytes / 1e6:.1f} MB, share {b[0] / ms:.1%}{paced}; before the redesign, value / "
+                        f"pattern: {PRIOR_MS[name]} ms, PERF.md)")
         say(f"phase 3 K4 / K5 over the web-Google A×A in {mode} mode ({len(sched)} chunks, {slots} slots, "
-            f"{live_pp} partial products, {out_nnz} out nnz; K4 (b) and (c) {groups} launches per product): "
+            f"{live_pp} partial products, {out_nnz} out nnz; K4 (a) one launch, (b) and (c) {groups} launches per "
+            f"product): "
             f"(a) bit-equal to _chunk_fetch, (b) and (c) equal to _merge_block on the live slots"
             + ("" if pattern else f" (max_abs_err {err:.3e} from the fp64 merge, tol {RTOL_F32:g} of max)")
             + ", (b) over the product, (b) chunk by chunk and (c) bit-identical, K5 equal to _compact_to_csr and "
@@ -498,6 +510,7 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
         for i, ((L, R, st, c), kw) in enumerate(zip(sched, kws)):
             one = [outs[i]]
             nnz_i = int(outs[i][3].sum())
+            ta = cuda_ms(torch, lambda: sk.chunk_fetch(plan, st, c, **kw), iters=5, warmup=1)
             tb = cuda_ms(torch, lambda: sk.chunk_merge(plan, st, c, **kw), iters=5, warmup=1)
             tc = cuda_ms(torch, lambda: sk.slab_merge(plan.aligned_cols[i], vals[i], accum_dtype=acc,
                                                       pattern=pattern), iters=5, warmup=1)
@@ -506,7 +519,7 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
             nt, items, rows_t, ntile = tiles[i]
             live_i = int((plan.aligned_cols[i] != ss._INT_MAX).sum())
             per.append(f"L {L} rows {R} ({c} live) tiles {ntile} x {rows_t} rows ({nt} threads x {items}) "
-                       f"pp {live_i} nnz {nnz_i}: b {tb:.4f} c {tc:.4f} K5 {t5:.4f}")
+                       f"pp {live_i} nnz {nnz_i}: a {ta:.4f} b {tb:.4f} c {tc:.4f} K5 {t5:.4f}")
         say(f"phase 3 K4 / K5 chunk by chunk ({mode} mode, ms, CUDA events, mean of 5): " + " | ".join(per))
         del plan, outs, ck5
     return rows
@@ -554,8 +567,22 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     base = reset()
     plan, t_plan_first = timed(lambda: ss.spgemm_plan(A, A, device=dev, sizing=sizing))
     del plan
+    before = counters()["slab_fetch"]
     plan, t_plan = timed(lambda: ss.spgemm_plan(A, A, device=dev, sizing=sizing))
     plan_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    require(counters()["slab_fetch"] == before + 1, "the plan build is not one K4 (a) launch")
+    # new values on the plan's structure: the whole cache fetched again (K4
+    # a), in value mode, and its numeric phase held against scipy
+    Av = dataclasses.replace(A, data=rng.standard_normal(np.asarray(A.data).shape).astype(np.float32))
+    ref_v = scipy_square(Av.to_scipy())
+    before = counters()["slab_fetch"]
+    plan_v, t_revalue = timed(lambda: ss.spgemm_plan_revalue(plan, Av, Av))
+    require(counters()["slab_fetch"] == before + 1 and not plan_v.pattern,
+            "spgemm_plan_revalue is not one K4 (a) launch into a value-mode cache")
+    outs_v, _, _ = ss.spgemm_slab_device(Av, Av, plan_v)
+    err_rev = held_against(ss._csr_to_host(ss._csr_of(outs_v, (A.nrow, A.ncol), ss._round_up(sizing.npa * W, 1024),
+                                                      torch.float32, dev)), ref_v, "spgemm_plan_revalue", rtol=1e-4)
+    del plan_v, outs_v
     (outs, _, _), t_num_first = timed(lambda: ss.spgemm_slab_device(A, A, plan))
     num_ms = cuda_ms(torch, lambda: ss.spgemm_slab_device(A, A, plan), iters=5)
     chain_ms = cuda_ms(torch, lambda: ss.spgemm_chain_device(plan, 8), iters=1, warmup=1) / 8
@@ -573,7 +600,8 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     held_against(ss._csr_of(chain2, (A.nrow, A.ncol), nnz_pad, torch.float32, dev), ref, "spgemm_chain_device")
     del chain2
     say(f"phase 5 plan: build {t_plan:.1f} ms (first {t_plan_first:.1f}), tables + aligned cache "
-        f"{plan_gb:.3f} GB | numeric {num_ms:.3f} ms (CUDA events, first {t_num_first:.1f} ms host) | "
+        f"{plan_gb:.3f} GB | revalue with new values {t_revalue:.1f} ms (host, one K4 (a) launch; its product "
+        f"max_abs_err {err_rev:.3e}, tol 1e-4 of max {float(np.abs(ref_v.data).max()):.3e}) | numeric {num_ms:.3f} ms (CUDA events, first {t_num_first:.1f} ms host) | "
         f"chain {chain_ms:.3f} ms/product (8, one sync) | compaction {t_compact:.1f} ms | "
         f"D2H {t_d2h:.1f} ms | peak {peak_plan:.3f} GB | numeric and chain exact")
 
@@ -647,8 +675,6 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
         ss._PLAN_CACHE.clear()
     say("phase 5 idle share of ops.spgemm: " + " | ".join(idle))
 
-    Av = dataclasses.replace(A, data=rng.standard_normal(np.asarray(A.data).shape).astype(np.float32))
-    ref_v = scipy_square(Av.to_scipy())
     Cv, t_v = timed(lambda: ops.spgemm(Av, Av, device=dev))
     err_v = held_against(Cv, ref_v, "value-mode ops.spgemm", rtol=1e-4)
     Cs, t_sorted = timed(lambda: ops.spgemm_sorted(A, A, device=dev))
@@ -1114,8 +1140,8 @@ def dist_halo_plan_big(torch, A, S, ref_C, mesh, dev, paths, tally) -> str:
         plans, n_plan, n_exec, t_plan = {}, {}, {}, {}
         for bs in (False, True):
             (plans[bs], n_plan[bs]), t_plan[bs] = host_timed(torch, lambda: exchanges(
-                lambda: traced(paths, "parallel.spgemm_dist_plan",
-                               lambda: spgemm_dist_plan(S, A, mesh, b_sharded=bs), tally)))
+                lambda: launched(paths, "parallel.spgemm_dist_plan",
+                                 lambda: spgemm_dist_plan(S, A, mesh, b_sharded=bs), {"slab_fetch": 1}, tally)))
             n_exec[bs] = 0
             for _ in range(2):
                 C, n = exchanges(lambda: traced(paths, "parallel.spgemm_dist_exec",
@@ -1132,9 +1158,9 @@ def dist_halo_plan_big(torch, A, S, ref_C, mesh, dev, paths, tally) -> str:
         err_v, t_rev = {}, {}
         for bs in (False, True):
             require(plans[bs].pattern, "the plan of A's all-ones values is not in pattern mode")
-            pv, t_rev[bs] = host_timed(torch, lambda: traced(
+            pv, t_rev[bs] = host_timed(torch, lambda: launched(
                 paths, "parallel.spgemm_dist_revalue", lambda: spgemm_dist_revalue(plans[bs], Sv, Av, mesh),
-                tally))
+                {"slab_fetch": 1}, tally))
             require(not pv.pattern, "the revalued plan stayed in pattern mode (F1)")
             Cv = traced(paths, "parallel.spgemm_dist_exec", lambda: spgemm_dist_exec(pv, mesh), tally)
             err_v[bs] = held_against(Cv, ref_v, f"spgemm_dist_revalue (b_sharded={bs})", rtol=1e-4)

@@ -7,10 +7,10 @@
 //
 // K4, class chunks of (R_pad, L) partial-product slots (L a multiple of the
 // segment width W; row i of a chunk is row start + i of rowmeta):
-// - (a) slab_fetch_launch: one chunk's slots written to device memory, columns
-//   with _INT_MAX pads and the values b2_vals * pa_aval in the accumulate
-//   type, 0 at pads -- bit-identical to _chunk_fetch (the class-aligned cache
-//   of spgemm_plan(expand=True)).
+// - (a) slab_fetch_launch: every chunk's slots (up to 64 chunks a launch)
+//   written to device memory, columns with _INT_MAX pads and the values
+//   b2_vals * pa_aval in the accumulate type, 0 at pads -- bit-identical to
+//   _chunk_fetch (the class-aligned cache of spgemm_plan(expand=True)).
 // - (b) slab_merge_launch with the tables: every chunk of a product fetched
 //   into shared memory (never written out), then each row sorted by column
 //   and its runs of equal columns merged: (cols_u, vals_u, nuniq) under
@@ -19,10 +19,25 @@
 // K5, slab_compact_counts_launch + slab_compact_launch: the chunks' merged
 // rows copied to their CSR rows.
 //
-// What bounds them on this card: bytes.  K4 (b) reads the rows' metadata, the
+// What bounds them on this card: bytes.  K4 (a) reads the rows' metadata,
+// the pa tables and each live pa's B2 segment and writes every slot; K4 (b) reads the rows' metadata, the
 // pa tables and each live pa's B2 segment once and writes the merged rows;
 // K4 (c) reads the slabs and writes the merged rows; K5 reads and writes the
 // live entries and zeroes the CSR's padding.
+//
+// Design of the fetch (one launch per plan): the host's chunk table
+// (ops/slab_kernel.py: fetch_plan) numbers the 16-byte pieces of four
+// consecutive slots of every chunk, each chunk's slab at a 16-byte aligned
+// slot of one allocation.  Consecutive threads take consecutive pieces, so
+// a warp's 16-byte stores cover 512 contiguous bytes of columns (1,024 of
+// fp64 values), streamed past L2.  Each thread takes four pieces and starts
+// their dependent loads a level at a time -- rowmeta, then pa_b2row (and
+// pa_aval), then the B2 segment's four columns (and values) by 16-byte
+// loads -- so a thread pays the three-load chain once for four pieces; a
+// piece past its row's pa count or its chunk's live rows loads nothing.
+// Tables in the accumulate type are read without the per-slot dtype switch.
+// For W % 4 != 0 or unaligned tables, a thread takes one piece whose four
+// slots each walk the chain.
 //
 // Design of the merge (one launch per product and block size):
 // - The host's chunk table (ops/slab_kernel.py: merge_plan) gives each chunk
@@ -94,7 +109,7 @@ __device__ __forceinline__ TA widen(const void* p, int code, long long i) {
   }
 }
 
-// one product's tables (ops/slab_spgemm.py: _Tables) and one chunk of them
+// one product's tables (ops/slab_spgemm.py: _Tables)
 struct Tables {
   const int* b2_cols;   // (nseg_pad, W) B's columns, _INT_MAX pads; the last segment all pads
   const void* b2_vals;  // (nseg_pad, W) B's values (dtype b_code); null in pattern mode
@@ -103,69 +118,10 @@ struct Tables {
   const int* rowmeta;   // (nrow_pad, 2) [first pa, pa count] per row in class order
   long long npa_pad;
   long long last_seg;
-  long long start;  // the chunk's first row in rowmeta
-  int count;        // the chunk's live rows; rows [count, R_pad) have no pa
   int a_code, b_code;
   int W;
-  int vec4;  // W % 4 == 0 and b2_cols 16-byte aligned: the columns by int4 loads
+  int vec4;  // W % 4 == 0 and the tables 16-byte aligned: the columns (and values) by 16-byte loads
 };
-
-// Pa block j of chunk row i: calls emit(w, column, value) for its W slots,
-// with _INT_MAX and 0 where the block is past the row's pa count or the row
-// past the chunk's (the plain version reads the all-pad last segment there)
-// and where the B row's last segment is padded.
-template <typename TA, bool PATTERN, typename Emit>
-__device__ __forceinline__ void fetch_block(const Tables& t, int i, int j, Emit emit) {
-  int base = 0, nb = 0;
-  if (i < t.count) {
-    const long long m = 2 * (t.start + i);
-    base = __ldg(t.rowmeta + m);
-    nb = __ldg(t.rowmeta + m + 1);
-  }
-  const int W = t.W;
-  if (j >= nb) {
-    for (int w = 0; w < W; ++w) emit(w, kIntMax, TA(0));
-    return;
-  }
-  const long long pa = min(max(static_cast<long long>(base) + j, 0LL), t.npa_pad - 1);
-  const long long seg = min(max(static_cast<long long>(__ldg(t.pa_b2row + pa)), 0LL), t.last_seg);
-  TA av = TA(0);
-  if (!PATTERN) av = widen<TA>(t.pa_aval, t.a_code, pa);
-  const int* cp = t.b2_cols + seg * W;
-  auto one = [&](int w, int c) {
-    TA v = TA(0);
-    if (!PATTERN && c != kIntMax) v = mul_rn(widen<TA>(t.b2_vals, t.b_code, seg * W + w), av);
-    emit(w, c, v);
-  };
-  if (t.vec4) {
-    for (int w = 0; w < W; w += 4) {
-      const int4 c4 = __ldg(reinterpret_cast<const int4*>(cp + w));
-      one(w, c4.x);
-      one(w + 1, c4.y);
-      one(w + 2, c4.z);
-      one(w + 3, c4.w);
-    }
-  } else {
-    for (int w = 0; w < W; ++w) one(w, __ldg(cp + w));
-  }
-}
-
-// K4 (a): (R_pad, L) columns and values of one chunk, one thread per pa block
-template <typename TA, bool PATTERN>
-__global__ void slab_fetch_kernel(Tables t, int L, long long nblocks, int* __restrict__ col,
-                                  TA* __restrict__ val) {
-  const int nblk = L / t.W;
-  for (long long q = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; q < nblocks;
-       q += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int i = static_cast<int>(q / nblk), j = static_cast<int>(q % nblk);
-    const long long o = static_cast<long long>(i) * L + static_cast<long long>(j) * t.W;
-    fetch_block<TA, PATTERN>(t, i, j, [&](int w, int c, TA v) {
-      col[o + w] = c;
-      if (!PATTERN) val[o + w] = v;
-    });
-  }
-}
-
 
 // the fields of a launch's host chunk table, one int64 row per chunk
 // (ops/slab_kernel.py: MERGE_FIELDS, COMPACT_FIELDS)
@@ -219,6 +175,197 @@ __device__ __forceinline__ int chunk_of(const Tab& tab, long long x, F first) {
       hi = mid - 1;
   }
   return lo;
+}
+
+// K4 (a)'s host chunk table (ops/slab_kernel.py: FETCH_FIELDS, fetch_plan):
+// a chunk's first output slot (a multiple of 4), its first 16-byte piece in
+// the launch, its first row in rowmeta, its live rows, R_pad, L
+enum FetchField { kFOutSlot, kFPiece0, kFStart, kFCount, kFRpad, kFL, kFetchFields };
+
+struct FetchChunk {
+  long long out_slot, piece0, start;
+  int count, R_pad, L, pad_;
+};
+struct FetchTab {
+  int n;
+  FetchChunk c[kMaxChunks];
+};
+
+// how K4 (a) reads the values: none (pattern), both tables in the
+// accumulate type (16-byte loads), or any dtype through `widen`
+enum FetchMode { kFetchPattern, kFetchSame, kFetchWiden };
+
+constexpr int kFetchThreads = 256;
+// 16-byte pieces a thread of the piece kernel takes, all loads in flight
+// before its first store
+constexpr int kFetchPieces = 4;
+
+// four consecutive slots' columns and partial products by 16-byte
+// streaming stores (the cache is read by a later call, not by this one)
+template <typename TA>
+__device__ __forceinline__ void put_piece(int* col, TA* val, long long o, int4 c, const TA (&r)[4], bool values) {
+  __stcs(reinterpret_cast<int4*>(col + o), c);
+  if (!values) return;
+  if constexpr (sizeof(TA) == 4) {
+    __stcs(reinterpret_cast<float4*>(val + o), make_float4(r[0], r[1], r[2], r[3]));
+  } else {
+    __stcs(reinterpret_cast<double2*>(val + o), make_double2(r[0], r[1]));
+    __stcs(reinterpret_cast<double2*>(val + o + 2), make_double2(r[2], r[3]));
+  }
+}
+
+// K4 (a), W % 4 == 0 and 16-byte aligned tables: thread `tid` of CTA b takes
+// pieces b * U * NT + u * NT + tid (u < U), each four consecutive slots of a
+// chunk's slab inside one pa block, so a warp's store covers 512 contiguous
+// bytes of columns.  Every piece's loads start a level at a time --
+// the row's (first pa, pa count), then the pa's B2 segment (and A value),
+// then the segment's four columns (and values) -- before the first store;
+// a piece of a dead block or row loads nothing.
+template <typename TA, int MODE>
+__global__ void __launch_bounds__(kFetchThreads) fetch_piece_kernel(Tables t, const __grid_constant__ FetchTab tab,
+                                                                    long long npieces, int* __restrict__ col,
+                                                                    TA* __restrict__ val) {
+  constexpr int U = kFetchPieces, NT = kFetchThreads;
+  constexpr bool PATTERN = MODE == kFetchPattern;
+  const long long p0 = blockIdx.x * static_cast<long long>(U * NT) + threadIdx.x;
+  const int W = t.W;
+  long long out[U], seg[U];
+  int blk[U], nb[U], base[U];
+  int k = chunk_of(tab, min(p0, npieces - 1), [](const FetchChunk& c) { return c.piece0; });
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long p = p0 + u * NT;
+    out[u] = -1;
+    blk[u] = nb[u] = base[u] = 0;
+    seg[u] = 0;
+    if (p < npieces) {
+      while (k + 1 < tab.n && tab.c[k + 1].piece0 <= p) ++k;
+      const FetchChunk& ch = tab.c[k];
+      const int local = static_cast<int>(p - ch.piece0), per_row = ch.L >> 2;
+      const int i = local / per_row, e = (local - i * per_row) * 4;
+      blk[u] = e / W;
+      seg[u] = e - blk[u] * W;  // the piece's first slot in its block, until the segment is known
+      out[u] = ch.out_slot + 4LL * local;
+      if (i < ch.count) {
+        const long long m = 2 * (ch.start + i);
+        base[u] = __ldg(t.rowmeta + m);
+        nb[u] = __ldg(t.rowmeta + m + 1);
+      }
+    }
+  }
+  TA av[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    av[u] = TA(0);
+    if (blk[u] < nb[u]) {
+      const long long pa = min(max(static_cast<long long>(base[u]) + blk[u], 0LL), t.npa_pad - 1);
+      seg[u] += min(max(static_cast<long long>(__ldg(t.pa_b2row + pa)), 0LL), t.last_seg) * W;
+      if constexpr (MODE == kFetchSame) av[u] = __ldg(static_cast<const TA*>(t.pa_aval) + pa);
+      if constexpr (MODE == kFetchWiden) av[u] = widen<TA>(t.pa_aval, t.a_code, pa);
+    } else {
+      seg[u] = -1;
+    }
+  }
+  int4 c[U];
+  TA v[U][4];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const long long s = seg[u];
+    c[u] = s >= 0 ? __ldg(reinterpret_cast<const int4*>(t.b2_cols + s)) : make_int4(kIntMax, kIntMax, kIntMax, kIntMax);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) v[u][x] = TA(0);
+    if (PATTERN || s < 0) continue;
+    if constexpr (MODE == kFetchSame && sizeof(TA) == 4) {
+      const float4 b4 = __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(t.b2_vals) + s));
+      v[u][0] = b4.x;
+      v[u][1] = b4.y;
+      v[u][2] = b4.z;
+      v[u][3] = b4.w;
+    } else if constexpr (MODE == kFetchSame) {
+      const double2* bp = reinterpret_cast<const double2*>(static_cast<const double*>(t.b2_vals) + s);
+      const double2 lo = __ldg(bp), hi = __ldg(bp + 1);
+      v[u][0] = lo.x;
+      v[u][1] = lo.y;
+      v[u][2] = hi.x;
+      v[u][3] = hi.y;
+    } else {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) v[u][x] = widen<TA>(t.b2_vals, t.b_code, s + x);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (out[u] < 0) continue;
+    const int4 cu = c[u];
+    const TA a = av[u];
+    const TA r[4] = {cu.x != kIntMax ? mul_rn(v[u][0], a) : TA(0), cu.y != kIntMax ? mul_rn(v[u][1], a) : TA(0),
+                     cu.z != kIntMax ? mul_rn(v[u][2], a) : TA(0), cu.w != kIntMax ? mul_rn(v[u][3], a) : TA(0)};
+    put_piece(col, val, out[u], cu, r, !PATTERN);
+  }
+}
+
+// K4 (a) for any W and tables: a thread per piece of four consecutive slots
+// of a chunk's flat slab (rows and blocks may change inside it), each
+// slot's three loads started a level at a time for the four, then one
+// 16-byte store (scalar ones for a chunk's partial last piece)
+template <typename TA, int MODE>
+__global__ void __launch_bounds__(kFetchThreads) fetch_slot_kernel(Tables t, const __grid_constant__ FetchTab tab,
+                                                                   long long npieces, int* __restrict__ col,
+                                                                   TA* __restrict__ val) {
+  constexpr bool PATTERN = MODE == kFetchPattern;
+  const long long p = blockIdx.x * static_cast<long long>(kFetchThreads) + threadIdx.x;
+  if (p >= npieces) return;
+  const FetchChunk& ch = tab.c[chunk_of(tab, p, [](const FetchChunk& c) { return c.piece0; })];
+  const long long s0 = (p - ch.piece0) * 4, n = static_cast<long long>(ch.R_pad) * ch.L;
+  const int W = t.W;
+  long long seg[4];
+  int blk[4], nb[4], base[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    blk[x] = nb[x] = base[x] = 0;
+    seg[x] = 0;
+    if (s0 + x < n) {
+      const int i = static_cast<int>((s0 + x) / ch.L), e = static_cast<int>(s0 + x - static_cast<long long>(i) * ch.L);
+      blk[x] = e / W;
+      seg[x] = e - blk[x] * W;
+      if (i < ch.count) {
+        const long long m = 2 * (ch.start + i);
+        base[x] = __ldg(t.rowmeta + m);
+        nb[x] = __ldg(t.rowmeta + m + 1);
+      }
+    }
+  }
+  TA av[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    av[x] = TA(0);
+    if (blk[x] < nb[x]) {
+      const long long pa = min(max(static_cast<long long>(base[x]) + blk[x], 0LL), t.npa_pad - 1);
+      seg[x] += min(max(static_cast<long long>(__ldg(t.pa_b2row + pa)), 0LL), t.last_seg) * W;
+      if (!PATTERN) av[x] = widen<TA>(t.pa_aval, t.a_code, pa);
+    } else {
+      seg[x] = -1;
+    }
+  }
+  int cc[4];
+  TA v[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    cc[x] = seg[x] >= 0 ? __ldg(t.b2_cols + seg[x]) : kIntMax;
+    v[x] = !PATTERN && seg[x] >= 0 ? widen<TA>(t.b2_vals, t.b_code, seg[x]) : TA(0);
+  }
+  TA r[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) r[x] = cc[x] != kIntMax ? mul_rn(v[x], av[x]) : TA(0);
+  const long long o = ch.out_slot + s0;
+  if (s0 + 4 <= n) {
+    put_piece(col, val, o, make_int4(cc[0], cc[1], cc[2], cc[3]), r, !PATTERN);
+    return;
+  }
+  for (int x = 0; x < 4 && s0 + x < n; ++x) {
+    col[o + x] = cc[x];
+    if (!PATTERN) val[o + x] = r[x];
+  }
 }
 
 // n elements from device memory to shared memory by the CTA's NT threads:
@@ -778,7 +925,7 @@ __global__ void slab_compact_kernel(const __grid_constant__ CompactTab tab, long
 
 Tables make_tables(const void* b2_cols, const void* b2_vals, int b_code, const void* pa_b2row,
                    const void* pa_aval, int a_code, const void* rowmeta, long long npa_pad,
-                   long long nseg_pad, long long start, int count, int W, int vec4) {
+                   long long nseg_pad, int W, int vec4) {
   Tables t;
   t.b2_cols = static_cast<const int*>(b2_cols);
   t.b2_vals = b2_vals;
@@ -787,8 +934,6 @@ Tables make_tables(const void* b2_cols, const void* b2_vals, int b_code, const v
   t.rowmeta = static_cast<const int*>(rowmeta);
   t.npa_pad = npa_pad;
   t.last_seg = nseg_pad - 1;
-  t.start = start;
-  t.count = count;
   t.a_code = a_code;
   t.b_code = b_code;
   t.W = W;
@@ -847,6 +992,52 @@ bool compact_tab(const long long* rows, int n, CompactTab* tab) {
   return true;
 }
 
+// K4 (a)'s host chunk table (int64 rows of FetchField) as a launch
+// parameter; with vec4 each chunk's rows are whole pieces (L % 4 == 0) and
+// its first slot is 16-byte aligned
+bool fetch_tab(const long long* rows, int n, int W, int vec4, long long npieces, FetchTab* tab) {
+  if (n <= 0 || n > kMaxChunks) return false;
+  tab->n = n;
+  long long pieces = 0;
+  for (int k = 0; k < n; ++k) {
+    const long long* r = rows + static_cast<long long>(k) * kFetchFields;
+    FetchChunk& c = tab->c[k];
+    c.out_slot = r[kFOutSlot];
+    c.piece0 = r[kFPiece0];
+    c.start = r[kFStart];
+    c.count = static_cast<int>(r[kFCount]);
+    c.R_pad = static_cast<int>(r[kFRpad]);
+    c.L = static_cast<int>(r[kFL]);
+    c.pad_ = 0;
+    if (c.L <= 0 || c.R_pad <= 0 || c.L % W != 0 || c.count < 0 || c.count > c.R_pad || c.start < 0 ||
+        c.out_slot % 4 != 0 || c.piece0 != pieces || (vec4 && c.L % 4 != 0)) {
+      return false;
+    }
+    const long long own = (static_cast<long long>(c.R_pad) * c.L + 3) / 4;
+    if (own > 0x7fffffffLL) return false;  // a chunk's pieces are counted in int
+    pieces += own;
+  }
+  return pieces == npieces;
+}
+
+template <typename TA, int MODE>
+cudaError_t launch_fetch(const Tables& t, const FetchTab& tab, long long npieces, void* col, void* val,
+                         cudaStream_t s) {
+  int* c = static_cast<int*>(col);
+  TA* v = static_cast<TA*>(val);
+  if (t.vec4) {
+    const long long per = static_cast<long long>(kFetchPieces) * kFetchThreads;
+    fetch_piece_kernel<TA, MODE><<<static_cast<unsigned>((npieces + per - 1) / per), kFetchThreads, 0, s>>>(
+        t, tab, npieces, c, v);
+  } else if constexpr (MODE != kFetchSame) {
+    fetch_slot_kernel<TA, MODE><<<static_cast<unsigned>((npieces + kFetchThreads - 1) / kFetchThreads),
+                                  kFetchThreads, 0, s>>>(t, tab, npieces, c, v);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
 // the merge's block sizes (ops/slab_kernel.py: MERGE_GROUPS), each at 64
 // registers a thread: 256 threads of 8 slots for rows of up to 2,048 slots
 // (four CTAs an SM, whose barriers overlap), 512 of 8 up to 4,096, 1,024 of
@@ -899,39 +1090,41 @@ int merge_entry(const Tables& t, const void* tab_rows, int nchunks, int tiles, i
 // rowmeta (nrow_pad, 2); b2_vals / pa_aval of dtypes b_code / a_code, null in
 // pattern mode; all contiguous).  acc_code: float32 or float64.
 
-// K4 (a): one chunk, rows [start, start + R_pad) of rowmeta of which the first
-// `count` are live, L slots each: col (R_pad, L) int32 and, unless pattern,
-// val (R_pad, L) in acc.
+// K4 (a): the slabs of up to 64 chunks in one launch.  tab: the host chunk
+// table (nchunks, 6) int64 (ops/slab_kernel.py: fetch_plan), passed to the
+// kernel as a parameter, its chunks' npieces pieces of 4 slots; chunk k's
+// rows [start, start + R_pad) of rowmeta, of which the first `count` are
+// live, L slots each, go to col (int32) and, unless pattern, val (acc) at
+// its out_slot.  col and val 16-byte aligned.  vec4: W % 4 == 0 and the
+// tables 16-byte aligned (the piece kernel; the slot kernel otherwise).
 extern "C" int slab_fetch_launch(const void* b2_cols, const void* b2_vals, int b_code, const void* pa_b2row,
                                  const void* pa_aval, int a_code, const void* rowmeta, long long npa_pad,
-                                 long long nseg_pad, long long start, int count, int R_pad, int L, int W,
-                                 int vec4, int acc_code, int pattern, void* col, void* val, void* stream) {
+                                 long long nseg_pad, int W, int vec4, const void* tab, int nchunks,
+                                 long long npieces, int acc_code, int pattern, void* col, void* val, void* stream) {
   using namespace spmm_tpu_torch;
-  if (W <= 0 || L % W != 0 || R_pad < 0 || npa_pad <= 0 || nseg_pad <= 0 ||
-      (!pattern && (!value_code(a_code) || !value_code(b_code)))) {
+  FetchTab tb;
+  if (W <= 0 || npa_pad <= 0 || nseg_pad <= 0 || npieces <= 0 || (vec4 && W % 4 != 0) ||
+      (reinterpret_cast<uintptr_t>(col) & 15) || (!pattern && (reinterpret_cast<uintptr_t>(val) & 15)) ||
+      (!pattern && (!value_code(a_code) || !value_code(b_code))) ||
+      !fetch_tab(static_cast<const long long*>(tab), nchunks, W, vec4, npieces, &tb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long nblocks = static_cast<long long>(R_pad) * (L / W);
-  if (nblocks == 0) return 0;
-  const Tables t = make_tables(b2_cols, b2_vals, b_code, pa_b2row, pa_aval, a_code, rowmeta, npa_pad, nseg_pad,
-                               start, count, W, vec4);
+  const Tables t = make_tables(b2_cols, b2_vals, b_code, pa_b2row, pa_aval, a_code, rowmeta, npa_pad, nseg_pad, W,
+                               vec4);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_of(nblocks, 256);
-  int* c = static_cast<int*>(col);
-  if (acc_code == kF32) {
-    if (pattern)
-      slab_fetch_kernel<float, true><<<grid, 256, 0, s>>>(t, L, nblocks, c, nullptr);
-    else
-      slab_fetch_kernel<float, false><<<grid, 256, 0, s>>>(t, L, nblocks, c, static_cast<float*>(val));
-  } else if (acc_code == kF64) {
-    if (pattern)
-      slab_fetch_kernel<double, true><<<grid, 256, 0, s>>>(t, L, nblocks, c, nullptr);
-    else
-      slab_fetch_kernel<double, false><<<grid, 256, 0, s>>>(t, L, nblocks, c, static_cast<double*>(val));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool same = vec4 && a_code == acc_code && b_code == acc_code;
+  cudaError_t err;
+  if (acc_code == kF32)
+    err = pattern ? launch_fetch<float, kFetchPattern>(t, tb, npieces, col, val, s)
+          : same  ? launch_fetch<float, kFetchSame>(t, tb, npieces, col, val, s)
+                  : launch_fetch<float, kFetchWiden>(t, tb, npieces, col, val, s);
+  else if (acc_code == kF64)
+    err = pattern ? launch_fetch<double, kFetchPattern>(t, tb, npieces, col, val, s)
+          : same  ? launch_fetch<double, kFetchSame>(t, tb, npieces, col, val, s)
+                  : launch_fetch<double, kFetchWiden>(t, tb, npieces, col, val, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
 }
 
 // K4 (b) and (c): one launch over up to 64 chunks of one block-size group.
@@ -959,7 +1152,7 @@ extern "C" int slab_merge_launch(const void* b2_cols, const void* b2_vals, int b
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Tables t =
-      make_tables(b2_cols, b2_vals, b_code, pa_b2row, pa_aval, a_code, rowmeta, npa_pad, nseg_pad, 0, 0, W, vec4);
+      make_tables(b2_cols, b2_vals, b_code, pa_b2row, pa_aval, a_code, rowmeta, npa_pad, nseg_pad, W, vec4);
   return merge_entry<true>(t, tab, nchunks, tiles, group, rows_cap, smem, acc_code, pattern, cols_u, vals_u, nuniq,
                            s);
 }

@@ -93,7 +93,7 @@ def load(path: str) -> ctypes.CDLL:
     so.segment_sum_launch.restype = I
     so.segment_sum_launch.argtypes = [P, P, P, P, P, I, LL, LL, LL, I, I, I, I, P]
     so.slab_fetch_launch.restype = I
-    so.slab_fetch_launch.argtypes = [P, P, I, P, P, I, P, LL, LL, LL, I, I, I, I, I, I, I, P, P, P]
+    so.slab_fetch_launch.argtypes = [P, P, I, P, P, I, P, LL, LL, I, I, P, I, LL, I, I, P, P, P]
     so.slab_merge_launch.restype = I
     so.slab_merge_launch.argtypes = [P, P, I, P, P, I, P, LL, LL, I, I, P, I, I, I, I, LL, I, I, P, P, P, P]
     so.slab_compact_counts_launch.restype = I

@@ -4,10 +4,12 @@
 Over the class chunks of (R_pad, L) partial-product slots of one product
 (``ops/slab_spgemm.py``):
 
-- :func:`chunk_fetch` (K4 a): one chunk's slab, (R_pad, L) columns with
-  ``_INT_MAX`` pads and the partial products in ``accum_dtype`` (the
-  class-aligned cache of ``spgemm_plan(expand=True)``); plain version
+- :func:`chunk_fetch_all` (K4 a): every chunk's slab, (R_pad, L) columns
+  with ``_INT_MAX`` pads and the partial products in ``accum_dtype`` (the
+  class-aligned cache of ``spgemm_plan(expand=True)``), views of one
+  allocation laid out by :func:`fetch_plan`; plain version
   :func:`_chunk_fetch`, to which the kernel is bit-identical.
+  :func:`chunk_fetch` is one chunk of it.
 - :func:`chunk_merge_all` (K4 b): every chunk of a product made in shared
   memory and merged at once, never written out: ``(cols_u, vals_u,
   nuniq)`` per chunk; plain version :func:`_merge_block` of
@@ -17,9 +19,11 @@ Over the class chunks of (R_pad, L) partial-product slots of one product
 - :func:`compact_to_csr` (K5): the chunks' merged rows as device CSR arrays;
   plain version :func:`_compact_to_csr`.
 
-A product's merge is one launch per block-size group of its chunks
-(:data:`MERGE_GROUPS`: at most three), over a chunk table the host builds
-(:func:`merge_plan`); the chunks' outputs are views of one allocation.
+A plan's fetch is one launch (per :data:`MAX_LAUNCH_CHUNKS` chunks) over a
+chunk table the host builds (:func:`fetch_plan`), a product's merge one
+launch per block-size group of its chunks (:data:`MERGE_GROUPS`: at most
+three, :func:`merge_plan`); the chunks' outputs are views of one
+allocation.
 
 The merge's contract: each row's unique columns ascend in its first
 ``nuniq`` slots with the run sums beside them (in pattern mode the run
@@ -46,8 +50,9 @@ from spmm_tpu_torch import kernels
 
 _INT_MAX = int(np.iinfo(np.int32).max)
 
-#: K4 launches in this process by entry (a, b, c): (a) one per chunk, (b)
-#: and (c) one per block-size group of a product's chunks; K5 launches, one
+#: K4 launches in this process by entry (a, b, c): (a) one per plan (per
+#: MAX_LAUNCH_CHUNKS chunks), (b) and (c) one per block-size group of a
+#: product's chunks; K5 launches, one
 #: per product (its count and copy passes) (chip_smoke.py resets and reads
 #: them)
 slab_launches = {"fetch": 0, "fetch_merge": 0, "merge": 0}
@@ -184,6 +189,14 @@ def _compact_to_csr(outs, *, nrow: int, nnz_pad: int, dtype, device):
 #: output slot and row, its first tile in the launch, rows per tile
 MERGE_FIELDS = ("col_ptr", "val_ptr", "start", "count", "R_pad", "L", "out_slot", "out_row", "tile0", "rows_t")
 
+#: the int64 fields of K4 (a)'s chunk table (the kernel's FetchField): the
+#: chunk's first slot in the outputs, its first piece (four slots) in the
+#: launch, its first row in rowmeta, its live rows, R_pad, L
+FETCH_FIELDS = ("out_slot", "piece0", "start", "count", "R_pad", "L")
+
+#: slots a fetch piece holds: 16 bytes of int32 columns
+FETCH_PIECE = 4
+
 #: the int64 fields of K5's chunk table (the kernel's CompactField): the
 #: pointers of rows, cols_u, vals_u and nuniq, R_pad, L, the chunk's first
 #: row and first slot over the launch's chunks
@@ -192,6 +205,66 @@ COMPACT_FIELDS = ("rows_ptr", "cols_ptr", "vals_ptr", "nu_ptr", "R_pad", "L", "r
 #: chunks one launch takes: a launch's chunk table is a kernel parameter (the
 #: kernel's kMaxChunks), so a group of more chunks takes more launches
 MAX_LAUNCH_CHUNKS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FetchLaunch:
+    """One launch of the fetch kernel over the chunks ``chunks`` (indices
+    into the schedule) whose ``pieces`` pieces ``table`` ((len(chunks), 6)
+    int64, :data:`FETCH_FIELDS`) numbers."""
+
+    chunks: tuple
+    pieces: int
+    table: np.ndarray
+
+
+@dataclasses.dataclass(frozen=True)
+class FetchPlan:
+    """A plan's fetch launches (one per ``MAX_LAUNCH_CHUNKS`` chunks with
+    slots) and where each chunk's slab lies in the one allocation of
+    ``slots`` slots: at ``slot_off``, a multiple of :data:`FETCH_PIECE`
+    (16-byte aligned for int32 and fp32, 32 for fp64), so that every view
+    takes 16-byte stores and K4 (c)'s 16-byte loads."""
+
+    launches: tuple
+    slot_off: tuple
+    slots: int
+    rows_end: int  #: the rows of rowmeta the chunks reach, max(start + R_pad)
+
+
+def _launch_parts(idx):
+    """The chunk indices ``idx`` cut into launches of at most
+    :data:`MAX_LAUNCH_CHUNKS` (a kernel's chunk table holds no more)."""
+    return [idx[k : k + MAX_LAUNCH_CHUNKS] for k in range(0, len(idx), MAX_LAUNCH_CHUNKS)]
+
+
+def fetch_plan(sched, W: int) -> FetchPlan:
+    """K4 (a)'s layout and launches for the chunks ``(L, R_pad, start,
+    count)`` of ``sched``: each chunk's slab after the previous one's,
+    rounded up to a whole piece; a chunk's pieces numbered on from the
+    previous chunk's in its launch (the last one partial where R_pad * L is
+    no multiple of 4).  Raises ValueError on a chunk the kernel does not
+    take (L no multiple of ``W``, count outside [0, R_pad], a negative
+    start)."""
+    what = "slab_fetch"
+    for L, R_pad, start, count in sched:
+        if L < 1 or L % W:
+            raise ValueError(f"{what}: L={L} must be a multiple of W={W}")
+        if not 0 <= count <= R_pad:
+            raise ValueError(f"{what}: count={count} must lie in [0, R_pad={R_pad}]")
+        if start < 0:
+            raise ValueError(f"{what}: chunk rows [{start}, {start + R_pad}) start before the plan's first row")
+    L, R, start, count = np.array(sched, np.int64).reshape(len(sched), 4).T
+    own = -(-L * R // FETCH_PIECE)
+    slot_off = (np.cumsum(own) - own) * FETCH_PIECE
+    full = np.stack([slot_off, own, start, count, R, L], 1)  # FETCH_FIELDS, own pieces in piece0's place
+    launches = []
+    for part in _launch_parts(np.flatnonzero(own)):
+        table, pieces = full[part], own[part]
+        table[:, 1] = np.cumsum(pieces) - pieces
+        launches.append(FetchLaunch(chunks=tuple(part.tolist()), pieces=int(pieces.sum()), table=table))
+    return FetchPlan(launches=tuple(launches), slot_off=tuple(slot_off.tolist()),
+                     slots=int(own.sum()) * FETCH_PIECE, rows_end=int((start + R).max(initial=0)))
 
 
 def merge_group(L: int) -> int:
@@ -269,8 +342,7 @@ def merge_plan(shapes, accum_dtype, *, starts=None, counts=None, col_ptrs=None, 
     launches = []
     for g, (_, threads, items) in enumerate(MERGE_GROUPS):
         idx = np.nonzero(group == g)[0]
-        for k in range(0, len(idx), MAX_LAUNCH_CHUNKS):
-            part = idx[k : k + MAX_LAUNCH_CHUNKS]
+        for part in _launch_parts(idx):
             t = tab[part]
             rows_t = np.minimum(threads * items // L[part], R[part])
             tiles = -(-R[part] // rows_t)
@@ -293,8 +365,7 @@ def compact_plan(shapes):
     launch's slot slot0 + i * L + e."""
     idx = [i for i, (L, R_pad) in enumerate(shapes) if L > 0 and R_pad > 0]
     out = []
-    for k0 in range(0, len(idx), MAX_LAUNCH_CHUNKS):
-        part = idx[k0 : k0 + MAX_LAUNCH_CHUNKS]
+    for part in _launch_parts(idx):
         tab = np.zeros((len(part), len(COMPACT_FIELDS)), np.int64)
         rtot = stot = 0
         for k, i in enumerate(part):
@@ -377,20 +448,31 @@ def _acc(accum_dtype, what: str) -> torch.dtype:
     return acc
 
 
-def _launch_fetch(t, start, count, L, R_pad, W, accum_dtype, pattern):
+def _fetch_views(fp: FetchPlan, sched, col_all, val_all):
+    """Each chunk's ``(col, val)`` views into the one allocation of a fetch
+    (columns; values, or None in pattern mode)."""
+    return [(col_all.as_strided((R_pad, L), (L, 1), o),
+             None if val_all is None else val_all.as_strided((R_pad, L), (L, 1), o))
+            for (L, R_pad, _, _), o in zip(sched, fp.slot_off)]
+
+
+def _launch_fetch_all(t, sched, W, accum_dtype, pattern):
     what = "slab_fetch"
     acc = _acc(accum_dtype, what)
     args = _table_args(t, W, pattern, what)
-    _check_chunk(t, start, count, R_pad, L, W, what)
+    fp = fetch_plan(sched, W)
+    if fp.rows_end > t.rowmeta.shape[0]:
+        raise ValueError(f"chunk rows up to {fp.rows_end} run past the plan's padding ({t.rowmeta.shape[0]} rows)")
     dev = t.rowmeta.device
-    col = torch.empty((R_pad, L), dtype=torch.int32, device=dev)
-    val = None if pattern else torch.empty((R_pad, L), dtype=acc, device=dev)
-    so = kernels.lib()
-    err = so.slab_fetch_launch(*args[:7], *args[7:9], start, count, R_pad, L, W, args[10], _ACC_CODES[acc],
-                               int(pattern), col.data_ptr(), _ptr(val), kernels.stream_ptr(dev))
-    kernels.check(err, what)
-    slab_launches["fetch"] += 1
-    return col, val
+    col_all = torch.empty(fp.slots, dtype=torch.int32, device=dev)
+    val_all = None if pattern else torch.empty(fp.slots, dtype=acc, device=dev)
+    for x in fp.launches:
+        err = kernels.lib().slab_fetch_launch(*args, x.table.ctypes.data, len(x.chunks), x.pieces, _ACC_CODES[acc],
+                                              int(pattern), col_all.data_ptr(), _ptr(val_all),
+                                              kernels.stream_ptr(dev))
+        kernels.check(err, what)
+        slab_launches["fetch"] += 1
+    return _fetch_views(fp, sched, col_all, val_all)  # made while the kernel runs
 
 
 def _launch_merges(plan: MergePlan, shapes, acc, pattern: bool, dev, table_args, entry: str, what: str):
@@ -483,14 +565,34 @@ def _launch_compact(outs, nrow: int, nnz_pad: int, dtype, device):
 # ---------------------------------------------------------------------------
 
 
-def chunk_fetch(t, start: int, count: int, *, L: int, R_pad: int, W: int, accum_dtype, pattern: bool):
-    """K4 (a): one chunk's (col, val) slab from the tables ``t`` (a
-    ``_Tables`` or ``SpgemmPlan``): rows [start, start + R_pad) of the class
-    order, the first ``count`` live; val is None in pattern mode."""
+def chunk_fetch_all(t, sched, *, W: int, accum_dtype, pattern: bool):
+    """K4 (a): the (col, val) slab of every chunk ``(L, R_pad, start,
+    count)`` of ``sched`` from the tables ``t`` (a ``_Tables`` or
+    ``SpgemmPlan``): rows [start, start + R_pad) of the class order, the
+    first ``count`` live; val is None in pattern mode.  The slabs are
+    contiguous (R_pad, L) views of one int32 and one ``accum_dtype``
+    allocation, each at a 16-byte aligned offset (:func:`fetch_plan`): one
+    launch per ``MAX_LAUNCH_CHUNKS`` chunks on the card, ``_chunk_fetch``
+    into the same views on the CPU."""
+    sched = list(sched)
     if _on_card(t.rowmeta, "slab_fetch"):
-        return _launch_fetch(t, start, count, L, R_pad, W, accum_dtype, pattern)
-    base, bm = _chunk_meta(t.rowmeta, start, count, R_pad, L // W)
-    return _chunk_fetch(t, base, bm, L=L, R_pad=R_pad, W=W, accum_dtype=accum_dtype, pattern=pattern)
+        return _launch_fetch_all(t, sched, W, accum_dtype, pattern)
+    acc = _acc(accum_dtype, "slab_fetch")
+    fp, dev = fetch_plan(sched, W), t.rowmeta.device
+    views = _fetch_views(fp, sched, torch.empty(fp.slots, dtype=torch.int32, device=dev),
+                         None if pattern else torch.empty(fp.slots, dtype=acc, device=dev))
+    for (L, R_pad, start, count), (col, val) in zip(sched, views):
+        base, bm = _chunk_meta(t.rowmeta, start, count, R_pad, L // W)
+        col_p, val_p = _chunk_fetch(t, base, bm, L=L, R_pad=R_pad, W=W, accum_dtype=acc, pattern=pattern)
+        col.copy_(col_p)
+        if not pattern:
+            val.copy_(val_p)
+    return views
+
+
+def chunk_fetch(t, start: int, count: int, *, L: int, R_pad: int, W: int, accum_dtype, pattern: bool):
+    """K4 (a) of one chunk, ``(col, val)``."""
+    return chunk_fetch_all(t, [(L, R_pad, start, count)], W=W, accum_dtype=accum_dtype, pattern=pattern)[0]
 
 
 def chunk_merge_all(t, sched, *, W: int, accum_dtype, pattern: bool):

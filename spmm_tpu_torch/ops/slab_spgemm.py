@@ -18,7 +18,8 @@ C = A @ B without a global sort of the partial products:
    (``csrc/slab_spgemm.cu``, ``ops/slab_kernel.py``) fetches and merges every
    chunk of a product in one pass (``chunk_merge_all``), merges the cached
    slabs (``slab_merge_all``), one launch per block-size group each, or
-   writes a chunk's slab for the cache (``chunk_fetch``), summing each run
+   writes every chunk's slab for the cache (``chunk_fetch_all``, one launch
+   per plan), summing each run
    directly in slot order; the plain versions (CPU tensors) take differences
    of compacted inclusive prefix sums (run lengths in pattern mode).
 4. **compaction** (``compact_to_csr``, K5 on the card): the chunks' unique
@@ -59,7 +60,7 @@ from spmm_tpu_torch.formats.containers import (
 )
 from spmm_tpu_torch.ops.slab_kernel import (  # noqa: F401  (the plain versions keep their names here)
     _INT_MAX, _chunk_fetch, _chunk_meta, _compact_to_csr, _merge_block, _torch_dtype, check_class_limit,
-    chunk_fetch, chunk_merge_all, compact_to_csr, slab_merge_all,
+    chunk_fetch, chunk_fetch_all, chunk_merge_all, compact_to_csr, slab_merge_all,
 )
 from spmm_tpu_torch.ops.spgemm import spgemm_sorted
 from spmm_tpu_torch.ops.transform import _stable_argsort_smallint
@@ -470,14 +471,9 @@ def spgemm_plan(
     aligned_cols, aligned_vals, aligned_accum = (), (), None
     if expand:
         sched, _ = _chunk_schedule(classes, sizing.counts, slot_budget)
-        cols, vals = [], []
-        for L, R_pad, start, cnt in sched:
-            col, val = chunk_fetch(tables, start, cnt, L=L, R_pad=R_pad, W=W, accum_dtype=accum_dtype,
-                                   pattern=pattern)
-            cols.append(col)
-            if val is not None:
-                vals.append(val)
-        aligned_cols, aligned_vals = tuple(cols), tuple(vals)
+        slabs = chunk_fetch_all(tables, sched, W=W, accum_dtype=accum_dtype, pattern=pattern)
+        aligned_cols = tuple(col for col, _ in slabs)
+        aligned_vals = () if pattern else tuple(val for _, val in slabs)
         aligned_accum = _dtype_name(accum_dtype)
     plan = SpgemmPlan(
         *tables,

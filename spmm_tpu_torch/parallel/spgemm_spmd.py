@@ -41,7 +41,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from spmm_tpu_torch import native
 from spmm_tpu_torch.formats.containers import CSR, as_tensor
-from spmm_tpu_torch.ops.slab_kernel import check_class_limit, chunk_fetch, compact_to_csr, slab_merge_all
+from spmm_tpu_torch.ops.slab_kernel import check_class_limit, chunk_fetch_all, compact_to_csr, slab_merge_all
 from spmm_tpu_torch.ops.slab_spgemm import (
     DEFAULT_CLASSES,
     DEFAULT_SEG_W,
@@ -666,13 +666,10 @@ def _build_plan(rb: _DistRebuild, sub: CSR, B_dev: CSR, pattern: bool, accum_dty
     t = _plan_tables(sub.to(sh.dev), B_dev, torch.from_numpy(rs).to(sh.dev), W=sh.W,
                      npa_pad=kw["npa_pad"], nsegB_pad=kw["nsegB_pad"], nrow_pad=kw["nrow_pad"],
                      pattern=pattern)
-    cols, vals = [], []
-    for i, (L, R_pad) in enumerate(sh.sched):
-        col, val = chunk_fetch(t, int(sh.sc[0, i]), int(sh.sc[1, i]), L=L, R_pad=R_pad, W=sh.W,
-                               accum_dtype=accum_dtype, pattern=pattern)
-        cols.append(col)
-        if val is not None:
-            vals.append(val)
+    slabs = chunk_fetch_all(t, [(L, R_pad, int(sh.sc[0, i]), int(sh.sc[1, i])) for i, (L, R_pad) in enumerate(sh.sched)],
+                            W=sh.W, accum_dtype=accum_dtype, pattern=pattern)
+    cols = [col for col, _ in slabs]
+    vals = [] if pattern else [val for _, val in slabs]
     trows = sh.tail_rows(rs).astype(np.int64)
     tail = _tail_products(sub.host(), trows, B_dev, accum_dtype, sh.dev) if len(trows) else None
     return DistSpgemmPlan(

@@ -1489,3 +1489,133 @@ def test_no_plain_version_on_card(nccl_mesh, monkeypatch):
     _exact(parallel.spgemm_dist_exec(dplan, nccl_mesh), ref)
     ss._PLAN_SEEN.clear()
     ss._PLAN_CACHE.clear()
+
+
+# ---- K4 (a): the aligned cache's fetch, one launch per plan ------------------
+
+#: (W, L, unaligned tables): the piece kernel at W 8 and 4, the slot kernel at
+#: W 3 and on tables that start 4 bytes (one element) past a 16-byte boundary
+K4A_LAYOUTS = {"W 8": (8, 40, False), "W 4": (4, 12, False), "W 3": (3, 12, False),
+               "unaligned tables": (8, 40, True)}
+#: every dtype the value tables may hold (None: pattern mode)
+K4A_VALUES = {"pattern": None, "fp32": torch.float32, "fp64": torch.float64, "bf16": torch.bfloat16,
+              "fp16": torch.float16, "int32": torch.int32, "int64": torch.int64}
+
+
+def _off16(x):
+    """``x`` at an address one element past a 16-byte boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = flat[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("acc", [torch.float32, torch.float64], ids=["fp32 acc", "fp64 acc"])
+@pytest.mark.parametrize("values", sorted(K4A_VALUES))
+@pytest.mark.parametrize("layout", sorted(K4A_LAYOUTS))
+def test_k4a_fetch_all_matches_plain(cuda, layout, values, acc):
+    """``chunk_fetch_all`` over a schedule of a full chunk, an empty one,
+    a one-row one, a wider class and a chunk with rows past its count: one
+    launch, every chunk ``torch.equal`` to ``_chunk_fetch`` (columns, values
+    and the zeros at pads) for every table dtype and both accumulate types,
+    on the piece kernel and the slot kernel; each view 16-byte aligned."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    W, L, unaligned = K4A_LAYOUTS[layout]
+    dt = K4A_VALUES[values]
+    pattern = dt is None
+    t, start, count, R_pad = _k4_tables(cuda, L, W, dt, seed=L + W, a_values=torch.float32 if dt == torch.int64
+                                        else None)
+    if unaligned:
+        t = t._replace(b2_cols=_off16(t.b2_cols), b2_vals=t.b2_vals if pattern else _off16(t.b2_vals))
+        assert t.b2_cols.data_ptr() % 16
+    sched = [(L, R_pad, start, count), (L, 0, start, 0), (L + W, 1, start + 1, 1), (2 * W, 5, start, 3)]
+    e0 = sk.slab_launches["fetch"]
+    got = sk.chunk_fetch_all(t, sched, W=W, accum_dtype=acc, pattern=pattern)
+    torch.cuda.synchronize()
+    assert sk.slab_launches["fetch"] == e0 + 1
+    for (Lc, R, st, cnt), (col, val) in zip(sched, got):
+        kw = dict(L=Lc, R_pad=R, W=W, accum_dtype=acc, pattern=pattern)
+        col_p, val_p = ss._chunk_fetch(t, *ss._chunk_meta(t.rowmeta, st, cnt, R, Lc // W), **kw)
+        assert col.shape == (R, Lc) and col.is_contiguous() and col.data_ptr() % 16 == 0
+        assert torch.equal(col, col_p)
+        if pattern:
+            assert val is None
+        else:
+            assert val.dtype == acc and val.data_ptr() % 16 == 0 and torch.equal(val, val_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", [False, True])
+def test_k4a_one_launch_per_plan(cuda, pattern):
+    """``spgemm_plan`` and ``spgemm_plan_revalue`` take one K4 (a) launch per
+    plan, or one per ``MAX_LAUNCH_CHUNKS`` chunks of a longer schedule; the
+    revalued plan's cache is bit-equal to a fresh plan's on the new values,
+    and its products are exact against scipy."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    A = tsyn.webgraph_like(6000, 36000, seed=4)
+    if not pattern:
+        A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 4)[0])
+    for budget in (ss.DEFAULT_SLOT_BUDGET, 1 << 12):
+        sched, _ = ss._chunk_schedule(ss._norm_classes(ss.DEFAULT_CLASSES, 8),
+                                      ss._sizing(A, A, 8, ss._norm_classes(ss.DEFAULT_CLASSES, 8)).counts, budget)
+        want = -(-len(sched) // sk.MAX_LAUNCH_CHUNKS)
+        e0 = sk.slab_launches["fetch"]
+        plan = ss.spgemm_plan(A, A, device=cuda, slot_budget=budget, pattern=pattern)
+        assert sk.slab_launches["fetch"] == e0 + want
+        A2 = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 5)[0]) if not pattern else A
+        e0 = sk.slab_launches["fetch"]
+        again = ss.spgemm_plan_revalue(plan, A2, A2, pattern=pattern)
+        assert sk.slab_launches["fetch"] == e0 + want
+        fresh = ss.spgemm_plan(A2, A2, device=cuda, slot_budget=budget, pattern=pattern)
+        assert len(again.aligned_cols) == len(fresh.aligned_cols) == len(sched)
+        for x, y in zip(again.aligned_cols + again.aligned_vals, fresh.aligned_cols + fresh.aligned_vals):
+            assert torch.equal(x, y)
+        outs, _, _ = ss.spgemm_slab_device(A2, A2, again)
+        _exact(ss._csr_to_host(ss._csr_of(outs, A.shape, ss._round_up(again.npa * 8, 1024), torch.float32, cuda)),
+               _scipy_product(A2, A2))
+    assert want > 1  # the small budget's schedule splits
+
+
+@pytest.mark.cuda
+def test_k4a_one_launch_per_shard(nccl_mesh):
+    """``spgemm_dist_plan`` and ``spgemm_dist_revalue`` at world size 1 build
+    the shard's cache by one K4 (a) launch each, and the plan's product is
+    exact against scipy."""
+    from spmm_tpu_torch import parallel
+    from spmm_tpu_torch.ops import slab_kernel as sk
+
+    A = tsyn.webgraph_like(4000, 24000, seed=13)
+    S = parallel.partition_rows(A, 1)
+    e0 = sk.slab_launches["fetch"]
+    dplan = parallel.spgemm_dist_plan(S, A, nccl_mesh)
+    assert sk.slab_launches["fetch"] == e0 + 1
+    _exact(parallel.spgemm_dist_exec(dplan, nccl_mesh), _scipy_product(A, A))
+    e0 = sk.slab_launches["fetch"]
+    parallel.spgemm_dist_revalue(dplan, S, A, nccl_mesh)
+    assert sk.slab_launches["fetch"] == e0 + 1
+
+
+@pytest.mark.cuda
+def test_k4a_raises_on_a_cpu_table_and_never_falls_back(cuda, monkeypatch):
+    """With the chunk's rows on the card and one table left on the CPU, the
+    fetch raises naming the tables, launches nothing and never reaches the
+    plain version."""
+    from spmm_tpu_torch.ops import slab_kernel as sk
+
+    def plain(*a, **k):
+        raise AssertionError("a plain version ran")
+
+    t, start, count, R_pad = _k4_tables(cuda, 40, 8, torch.float32, seed=1)
+    monkeypatch.setattr(sk, "_chunk_fetch", plain)
+    monkeypatch.setattr(sk, "_chunk_meta", plain)
+    e0 = sk.slab_launches["fetch"]
+    for name in ("b2_cols", "b2_vals", "pa_b2row", "pa_aval"):
+        bad = t._replace(**{name: getattr(t, name).cpu()})
+        with pytest.raises(ValueError, match="contiguous tensors on cuda"):
+            sk.chunk_fetch_all(bad, [(40, R_pad, start, count)], W=8, accum_dtype=torch.float32, pattern=False)
+    assert sk.slab_launches["fetch"] == e0

@@ -4,8 +4,11 @@ compaction emulated in numpy, held against the port's plain
 ``_merge_block`` / ``_compact_to_csr`` and the JAX package's merge
 (``spmm_tpu/ops/slab_spgemm.py:1073``) on the same chunks, and the
 natural-run merge (``_run_merge``) held bit-equal to the bitonic kernel it
-replaced (``_kernel_merge``, the bit contract of the merge's outputs); the
-dispatch; and the slice end to end against the JAX package and scipy.
+replaced (``_kernel_merge``, the bit contract of the merge's outputs); K4
+(a)'s walk over its pieces and layout (``fetch_plan``) against
+``_chunk_fetch``, and the life of a cache whose chunks are views of one
+allocation; the dispatch; and the slice end to end against the JAX
+package and scipy.
 
 Tolerance: columns, nuniq and pattern counts exact; values within 2e-5 of
 max |ref| in fp32 (the plain merges take differences of prefix sums, about
@@ -524,6 +527,215 @@ def test_compaction_walk_covers_every_entry_once(mode, cut):
     np.testing.assert_array_equal(indices, want[1].numpy())
     np.testing.assert_array_equal(indptr, want[2].numpy())
     assert nnz == int(want[3])
+
+
+# ---- K4 (a): the fetch's layout and walk --------------------------------------
+
+#: the fetch kernels' CTA size and the piece kernel's pieces per thread
+#: (``csrc/slab_spgemm.cu``: kFetchThreads, kFetchPieces)
+_FETCH_NT, _FETCH_U = 256, 4
+
+#: (slot budget, W): the default schedule and one of more chunks than a
+#: launch takes (``MAX_LAUNCH_CHUNKS``), at the piece kernel's W (4, 8) and
+#: the slot kernel's (1)
+_FETCH_CASES = [(1 << 24, 8), (1 << 24, 4), (1 << 10, 8), (1 << 10, 4), (1 << 10, 1)]
+
+
+def _fetch_plan_of(W, mode, budget, seed=40):
+    """A product's plan (no cache) and its chunk schedule."""
+    values, _ = _MODES[mode]
+    A = tsyn.webgraph_like(1500, 9000, seed=seed)
+    if values is not None:
+        A = dataclasses.replace(A, data=np.random.default_rng(seed).standard_normal(A.nnz_pad).astype(values))
+    plan = ss.spgemm_plan(A, A, seg_w=W, slot_budget=budget, expand=False, device="cpu", pattern=values is None)
+    sched, _ = ss._chunk_schedule(plan.classes, plan.class_counts, plan.slot_budget)
+    return plan, sched
+
+
+def _fetch_walk(t, sched, W, acc, pattern):
+    """K4 (a) as ``csrc/slab_spgemm.cu`` takes it: ``fetch_plan``'s launches;
+    thread tid of CTA b takes pieces b * U * NT + u * NT + tid (the piece
+    kernel, W % 4 == 0: U = 4 pieces inside one pa block each; the slot
+    kernel: U = 1, four slots that may change row and block), finds its
+    chunk, row, block and first slot, and fills the piece through rowmeta →
+    pa_b2row → the B2 segment.  Returns the one allocation's columns and
+    values (None in pattern mode) and how often each slot was written."""
+    fp = sk.fetch_plan(sched, W)
+    f = {name: i for i, name in enumerate(sk.FETCH_FIELDS)}
+    rowmeta = t.rowmeta.numpy().astype(np.int64)
+    pa_b2row = t.pa_b2row.numpy().astype(np.int64)
+    b2_cols = t.b2_cols.numpy().reshape(-1)
+    npa_pad, last_seg = len(pa_b2row), t.b2_cols.shape[0] - 1
+    np_acc = np.float64 if acc == torch.float64 else np.float32
+    col = np.full(fp.slots, -1, np.int64)
+    val = None if pattern else np.zeros(fp.slots, np_acc)
+    writes = np.zeros(fp.slots, np.int64)
+    vec = W % 4 == 0
+    U = _FETCH_U if vec else 1
+    for x in fp.launches:
+        tab = x.table
+        assert np.all(np.diff(tab[:, f["piece0"]]) > 0)  # the kernel's advance over chunks is a search
+        per = U * _FETCH_NT
+        b, u, tid = np.meshgrid(np.arange(-(-x.pieces // per)), np.arange(U), np.arange(_FETCH_NT), indexing="ij")
+        p = (b * per + u * _FETCH_NT + tid).reshape(-1)
+        p = p[p < x.pieces]
+        k = np.searchsorted(tab[:, f["piece0"]], p, side="right") - 1
+        L, R = tab[k, f["L"]], tab[k, f["R_pad"]]
+        local = p - tab[k, f["piece0"]]
+        if vec:
+            per_row = L // 4
+            i, e = local // per_row, (local % per_row) * 4
+            assert np.array_equal(e // W, (e + 3) // W)  # a piece lies in one pa block
+            i, e = np.repeat(i, 4), np.repeat(e, 4) + np.tile(np.arange(4), len(p))
+            out = np.repeat(tab[k, f["out_slot"]] + 4 * local, 4) + np.tile(np.arange(4), len(p))
+            k, L, R = np.repeat(k, 4), np.repeat(L, 4), np.repeat(R, 4)
+        else:
+            s = np.repeat(4 * local, 4) + np.tile(np.arange(4), len(p))
+            k, L, R = np.repeat(k, 4), np.repeat(L, 4), np.repeat(R, 4)
+            keep = s < R * L  # a chunk's partial last piece
+            s, k, L, R = s[keep], k[keep], L[keep], R[keep]
+            i, e = s // L, s % L
+            out = tab[k, f["out_slot"]] + s
+        blk, w = e // W, e % W
+        row = np.minimum(tab[k, f["start"]] + i, len(rowmeta) - 1)
+        live = (i < tab[k, f["count"]]) & (blk < rowmeta[row, 1])
+        pa = np.clip(rowmeta[row, 0] + blk, 0, npa_pad - 1)
+        seg = np.clip(pa_b2row[pa], 0, last_seg)
+        c = np.where(live, b2_cols[seg * W + w], _INT_MAX)
+        col[out] = c
+        np.add.at(writes, out, 1)
+        if not pattern:
+            v = t.b2_vals.numpy().reshape(-1)[seg * W + w].astype(np_acc) * t.pa_aval.numpy()[pa].astype(np_acc)
+            val[out] = np.where(live & (c != _INT_MAX), v, 0)
+    return fp, col, val, writes
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("budget,W", _FETCH_CASES)
+def test_fetch_walk_covers_every_slot_once(budget, W, mode):
+    """The fetch kernels' walk over a product's chunks (rows past each
+    chunk's count included) writes every slot of every chunk exactly once,
+    nothing in the gaps between chunks, and gives ``_chunk_fetch``'s
+    columns and values bit for bit; a schedule of more than
+    ``MAX_LAUNCH_CHUNKS`` chunks splits into launches of at most that many."""
+    _, acc = _MODES[mode]
+    pattern = mode == "pattern"
+    plan, sched = _fetch_plan_of(W, mode, budget)
+    assert any(c < R for _, R, _, c in sched)
+    fp, col, val, writes = _fetch_walk(plan, sched, W, acc, pattern)
+    assert len(fp.launches) == -(-len(sched) // sk.MAX_LAUNCH_CHUNKS)
+    assert all(len(x.chunks) <= sk.MAX_LAUNCH_CHUNKS for x in fp.launches)
+    assert sorted(i for x in fp.launches for i in x.chunks) == [i for i, (L, R, _, _) in enumerate(sched) if L * R]
+    inside = np.zeros(fp.slots, bool)
+    for (L, R, st, c), o in zip(sched, fp.slot_off):
+        inside[o : o + L * R] = True
+        col_p, val_p = sk._chunk_fetch(plan, *sk._chunk_meta(plan.rowmeta, st, c, R, L // W), L=L, R_pad=R, W=W,
+                                       accum_dtype=acc, pattern=pattern)
+        np.testing.assert_array_equal(col[o : o + L * R].reshape(R, L), col_p.numpy())
+        if not pattern:
+            assert np.array_equal(val[o : o + L * R].reshape(R, L), val_p.numpy())
+    assert np.array_equal(writes[inside], np.ones(int(inside.sum()), np.int64)) and not writes[~inside].any()
+    if budget < 1 << 24:
+        assert len(fp.launches) > 1
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+@pytest.mark.parametrize("budget,W", _FETCH_CASES)
+def test_chunk_fetch_all_matches_plain_chunk_by_chunk(budget, W, mode):
+    """``chunk_fetch_all`` on CPU tensors: each chunk's (R_pad, L) view
+    ``torch.equal`` to ``_chunk_fetch`` (pattern: no values), contiguous, at
+    a 16-byte aligned offset of one allocation, one chunk after another;
+    ``chunk_fetch`` of one chunk gives the same; no launch is counted."""
+    _, acc = _MODES[mode]
+    pattern = mode == "pattern"
+    plan, sched = _fetch_plan_of(W, mode, budget)
+    before = dict(sk.slab_launches)
+    got = sk.chunk_fetch_all(plan, sched, W=W, accum_dtype=acc, pattern=pattern)
+    fp = sk.fetch_plan(sched, W)
+    assert len(got) == len(sched) and sk.slab_launches == before
+    base_c = got[0][0].untyped_storage().data_ptr()
+    base_v = None if pattern else got[0][1].untyped_storage().data_ptr()
+    for (L, R, st, c), o, (col, val) in zip(sched, fp.slot_off, got):
+        assert o % sk.FETCH_PIECE == 0
+        assert col.shape == (R, L) and col.is_contiguous() and col.data_ptr() == base_c + 4 * o
+        assert col.data_ptr() % 16 == 0
+        kw = dict(L=L, R_pad=R, W=W, accum_dtype=acc, pattern=pattern)
+        col_p, val_p = sk._chunk_fetch(plan, *sk._chunk_meta(plan.rowmeta, st, c, R, L // W), **kw)
+        assert torch.equal(col, col_p)
+        one = sk.chunk_fetch(plan, st, c, **kw)
+        assert torch.equal(one[0], col_p)
+        if pattern:
+            assert val is None and one[1] is None
+        else:
+            assert val.dtype == acc and val.is_contiguous() and val.data_ptr() == base_v + acc.itemsize * o
+            assert val.data_ptr() % 16 == 0 and torch.equal(val, val_p) and torch.equal(one[1], val_p)
+
+
+def test_fetch_plan_rounds_each_chunk_to_a_piece():
+    """Chunks whose slots are no multiple of 4 (W = 3, an odd row count)
+    start at the next piece, so every view is 16-byte aligned; an empty
+    chunk takes no slot and no place in a launch."""
+    sched = [(9, 3, 0, 3), (6, 0, 3, 0), (12, 5, 3, 4), (3, 1, 8, 1)]
+    fp = sk.fetch_plan(sched, 3)
+    assert fp.slot_off == (0, 28, 28, 88) and fp.slots == 92
+    (x,) = fp.launches
+    assert x.chunks == (0, 2, 3) and x.pieces == 7 + 15 + 1
+    f = {name: i for i, name in enumerate(sk.FETCH_FIELDS)}
+    assert x.table[:, f["piece0"]].tolist() == [0, 7, 22]
+    assert x.table[:, f["out_slot"]].tolist() == [0, 28, 88]
+    assert x.table[2, [f["start"], f["count"], f["R_pad"], f["L"]]].tolist() == [8, 1, 1, 3]
+
+
+def test_fetch_plan_refuses_what_the_kernel_does_not_take():
+    """A chunk whose L is no multiple of W, whose count lies outside [0,
+    R_pad] or whose rows start before the plan's raises ValueError naming
+    it, before any allocation or launch; rows past the plan's padding
+    raise on the fetch."""
+    for bad, match in (((12, 4, 0, 4), "multiple of W"), ((8, 4, 0, 5), "count=5"), ((8, 4, -1, 4), "start")):
+        with pytest.raises(ValueError, match=match):
+            sk.fetch_plan([(8, 2, 0, 2), bad], 8)
+    plan, sched = _fetch_plan_of(8, "pattern", 1 << 24)
+    L, R, _, c = sched[0]
+    with pytest.raises(ValueError, match="padding"):
+        sk.chunk_fetch_all(plan, [(L, R, plan.rowmeta.shape[0] - R + 1, c)], W=8, accum_dtype=torch.float32,
+                           pattern=True)
+
+
+@pytest.mark.parametrize("pattern", [False, True])
+def test_cached_plan_moves_and_saves_each_chunk_alone(pattern, tmp_path, monkeypatch):
+    """The aligned cache's views of one allocation travel chunk by chunk:
+    ``plan.to()`` gives each chunk a storage of its own size, ``save``
+    writes each chunk's bytes alone, and the loaded plan's numeric phase
+    equals the original's."""
+    from spmm_tpu_torch.utils import serialize
+
+    A = _fetch_matrix(pattern)
+    plan = ss.spgemm_plan(A, A, slot_budget=1 << 12, device="cpu", pattern=pattern)
+    sched, _ = ss._chunk_schedule(plan.classes, plan.class_counts, plan.slot_budget)
+    blocks = plan.aligned_cols + plan.aligned_vals
+    assert len(blocks) == len(sched) * (1 if pattern else 2)
+    assert len({b.untyped_storage().data_ptr() for b in blocks}) == (1 if pattern else 2)
+    moved = plan.to("meta")
+    for b, m in zip(blocks, moved.aligned_cols + moved.aligned_vals):
+        assert m.shape == b.shape and m.untyped_storage().nbytes() == b.numel() * b.element_size()
+    sizes = {}
+    real = np.savez_compressed
+    monkeypatch.setattr(np, "savez_compressed", lambda path, **a: sizes.update(
+        {k: v.nbytes for k, v in a.items()}) or real(path, **a))
+    serialize.save(tmp_path / "plan.npz", plan)
+    for name in ("aligned_cols", "aligned_vals"):
+        for i, b in enumerate(getattr(plan, name)):
+            assert sizes[f"{name}__{i}"] == b.numel() * b.element_size()
+    back = serialize.load(tmp_path / "plan.npz").to("cpu")
+    for x, y in zip(ss.spgemm_slab_device(A, A, plan)[0], ss.spgemm_slab_device(A, A, back)[0]):
+        assert all(torch.equal(a, b) for a, b in zip(x, y))
+
+
+def _fetch_matrix(pattern, seed=40):
+    A = tsyn.webgraph_like(1500, 9000, seed=seed)
+    if pattern:
+        return A
+    return dataclasses.replace(A, data=np.random.default_rng(seed).standard_normal(A.nnz_pad).astype(np.float32))
 
 
 # ---- the dispatch -------------------------------------------------------------
