@@ -126,8 +126,17 @@ Phases, each printing one line with its times (CUDA events for kernels,
               ``spgemm_out_nnz`` equal to scipy's A×A on the quick graph and
               ``device`` this card; its main numbers and each section's
               seconds printed.
-11. report  — one JSON line of per-kernel results (launches of phases 4, 6, 7
-              and 8a -- K4 and K5 are required on phases 4, 5 and 8a --, the
+11. config 5 — BASELINE config 5 at full size: ``python -m
+              spmm_tpu_torch.utils.dist_big`` (10M rows, ~104.5M nnz,
+              ``webgraph_like(..., seed=5)``, 4 pieces: the JAX command;
+              NCCL at world size 1) in a subprocess with a deadline of its
+              own: exit 0, its last line JSON with ``parity`` ``"exact"``
+              (``indptr`` / ``indices`` / nnz equal to scipy's) and
+              ``nnz_out`` equal to scipy's, ``device`` this card, K4 (b) and
+              K5 launched on its product (the subprocess's counters, 0 at
+              its start); its main numbers printed.
+12. report  — one JSON line of per-kernel results (launches of phases 4, 6, 7,
+              8a and 11 -- K4 and K5 are required on phases 4, 5, 8a and 11 --, the
               entry points that launched each kernel, phase 3's
               times, bound and library time at the main-path shape; K2 also
               its roofline share and its attainable share by this run's
@@ -166,6 +175,8 @@ WEB_N, WEB_NNZ = 916_428, 5_105_039  # web-Google size (bench.py:44-45)
 RTOL_F64 = 1e-12
 #: nodes of the triangle-counting graph (phase 7c says why not web-Google's)
 TRI_N = 49_152
+#: phase 11's deadline (s): generation, the product, scipy's check
+CONFIG5_TIMEOUT_S = 600
 #: each kernel's time at the phase 3 shapes before its redesign for Hopper,
 #: printed beside the new one (PERF.md's kernel table; not a measurement of
 #: this run, so not in the kernels line)
@@ -1530,6 +1541,43 @@ def bench_phase(torch, root) -> None:
         + f" | sections: {sections} | the run {t_run:.1f} s, phase 10 {time.perf_counter() - t_phase:.1f} s")
 
 
+def config5_phase(torch, root) -> dict:
+    """Phase 11: BASELINE config 5 at full size, ``python -m
+    spmm_tpu_torch.utils.dist_big`` at its defaults in a subprocess on this
+    card, its line held to the checks of the docstring; returns the K4 (b)
+    and K5 launches of its product."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, "-m", "spmm_tpu_torch.utils.dist_big"], cwd=root,
+                          capture_output=True, text=True, timeout=CONFIG5_TIMEOUT_S)
+    t_run = time.perf_counter() - t_phase
+    require(proc.returncode == 0, f"dist_big exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    try:
+        res = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"dist_big's last line is no JSON: {lines[-1:]!r}")
+    require(res.get("parity") == "exact", f"config 5's C is not scipy's: parity {res.get('parity')!r}, "
+            f"{res.get('mismatch')}")
+    require(isinstance(res.get("nnz_out"), int) and res["nnz_out"] == res.get("scipy_nnz"),
+            f"config 5's nnz_out {res.get('nnz_out')} is not scipy's {res.get('scipy_nnz')}")
+    name = torch.cuda.get_device_name(0)
+    require(res.get("device") == name, f"dist_big ran on {res.get('device')!r}, not {name!r}")
+    launches = res.get("launches", {})
+    for kname in ("slab_fetch_merge", "slab_compact"):
+        require(launches.get(kname, 0) > 0, f"kernel {kname} was not launched on config 5's product (phase 11)")
+    dev_ms = [p.get("device_ms") for p in res["piece_stats"]]
+    say(f"phase 11 config 5 ({res['n']} rows, {res['nnz_in']} nnz -> {res['nnz_out']} out, scipy's; "
+        f"{res['n_shards']} NCCL rank x {res['pieces_chosen']} pieces): dist_big {res['dist_big_s']} s "
+        f"({res['mnnz_out_per_s']} M nnz out/s; sizing {res['sizing_s']} s, pieces' device ms "
+        f"{[round(x, 1) for x in dev_ms]}, D2H ms {[round(p['d2h_ms'], 1) for p in res['piece_stats']]}, "
+        f"stitch {res['stitch_s']} s) | generation {res['gen_s']} s | scipy {res['scipy_s']} s, parity "
+        f"{res['parity']} | peak device {res['peak_device_gb']} GB, host {res['host_rss_gb']} GB | launches "
+        f"{launches} | kernels' load {res['kernel_build_s']} s | {res['power_limit']} | the run {t_run:.1f} s, "
+        f"phase 11 {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2017,7 +2065,12 @@ def main() -> int:
     # ---- 10. the port's benchmark, quick ----------------------------------
     bench_phase(torch, root)
 
-    # ---- 11. report --------------------------------------------------------
+    # ---- 11. BASELINE config 5 at full size --------------------------------
+    for kname, n in config5_phase(torch, root).items():
+        launches[kname] += n
+        paths[kname].append("utils.dist_big (config 5)")
+
+    # ---- 12. report --------------------------------------------------------
     k2, k1 = "spmm_tpu/ops/pallas_ell.py:82", "spmm_tpu/ops/pallas_bsr.py:38"
     replaces = {
         "bsr_spmm": ("spmm_tpu_torch/csrc/bsr_spmm.cu", k1),

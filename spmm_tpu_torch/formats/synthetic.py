@@ -46,7 +46,7 @@ def webgraph_like(
     rng = np.random.default_rng(seed)
     # power-law out-degrees normalized to hit ~nnz (scale-free: multiplying
     # preserves the tail exponent); cap near web-Google's max out-degree 456
-    deg = rng.zipf(zipf_a, size=n).astype(np.int64)
+    deg = _zipf(rng, zipf_a, n)
     deg = np.minimum(deg, 512)
     scale = nnz / max(1, deg.sum())
     deg = np.maximum(1, (deg * scale)).astype(np.int64)
@@ -65,7 +65,7 @@ def webgraph_like(
         sect = (row // 2048) * 2048
         local_col = sect + rng.integers(0, 2048, size=total)
         # global targets: popular columns (zipf rank → column id, hashed spread)
-        rank = np.minimum(rng.zipf(1.3, size=total), n).astype(np.int64) - 1
+        rank = np.minimum(_zipf(rng, 1.3, total), n) - 1
         glob_col = (rank * 2654435761) % n
         col = np.where(local, local_col, glob_col)
         return np.minimum(col, n - 1)
@@ -74,10 +74,10 @@ def webgraph_like(
     # real web graphs are simple (no multi-edges): duplicate synthetic edges
     # collapse to a single unit entry, matching the reference ingest's
     # forced-1.0 pattern semantics (serial_newblock_clock.cpp:84,96)
+    keys = None  # the distinct edges, row-major: row * n + col ascending
     for _ in range(4):
-        key = row * n + col
-        uniq = len(np.unique(key))
-        missing = nnz - uniq
+        keys = _distinct(row * n + col)
+        missing = nnz - len(keys)
         if not match_nnz or missing <= max(2, nnz // 200):
             break
         # top-up: extra edges from rows sampled ∝ degree (tail stays put)
@@ -85,15 +85,70 @@ def webgraph_like(
         extra_col = targets(extra_row, rng)
         row = np.concatenate([row, extra_row])
         col = np.concatenate([col, extra_col])
-
-    dat = np.ones(len(row), dtype=dtype)
-    coo = COO(
-        row=row.astype(np.int32), col=col.astype(np.int32), data=dat,
-        shape=(n, n), nnz=len(row),
+        keys = None
+    if keys is None:
+        keys = _distinct(row * n + col)
+    # one unit entry per distinct edge, columns ascending in each row: what
+    # ``to_csr(sort_within_row=True, sum_duplicates=True)`` of the edges with
+    # the values then set to 1 gives, without its two-key sort
+    rows = keys // n
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    return CSR(
+        data=np.ones(len(keys), dtype=dtype), indices=(keys - rows * n).astype(np.int32),
+        indptr=indptr.astype(np.int32), shape=(n, n), nnz=len(keys),
     )
-    A = to_csr(coo, sort_within_row=True, sum_duplicates=True)
-    A.data[: A.nnz] = 1
-    return A
+
+
+def _distinct(keys: np.ndarray) -> np.ndarray:
+    """``np.unique(keys)`` by one sort: numpy 2.3's ``unique`` goes through a
+    hash table first, which made a 10^8-edge graph take minutes."""
+    keys = np.sort(keys)
+    new = np.empty(len(keys), dtype=bool)
+    new[:1] = True
+    np.not_equal(keys[1:], keys[:-1], out=new[1:])
+    return keys[new]
+
+
+#: ``float(INT64_MAX)``: a Zipf try above it is rejected, as numpy does
+_ZIPF_MAX = float(np.iinfo(np.int64).max)
+
+
+def _zipf(rng: np.random.Generator, a: float, size: int, block: int = 1 << 22) -> np.ndarray:
+    """``rng.zipf(a, size)`` (int64) as numpy 2.0's ``Generator`` draws it,
+    made from the generator's own doubles, so that a seed gives the same
+    graph whatever numpy's version: ``Generator.zipf``'s algorithm changed
+    after 2.0, and numpy 2.3 gives another graph for the same seed.
+
+    Each try takes two doubles, U = 1 - u and V; X = floor(U^(-1 / (a - 1)))
+    is kept when 1 <= X <= INT64_MAX and V·X·(T - 1) / (b - 1) <= T / b,
+    with T = (1 + 1/X)^(a - 1) and b = 2^(a - 1).  The tries are made
+    ``block`` samples at a time; the generator is then wound back and moved
+    on by exactly the doubles that the kept tries used.  ``np.power`` may
+    differ from the C library's ``pow`` in the last bit, which moves only
+    X past 2^50 (every caller clips X far below that)."""
+    am1 = a - 1.0
+    b = 2.0**am1
+    out = np.empty(size, np.int64)
+    filled = 0
+    while filled < size:
+        need = min(size - filled, block)
+        tries = int(need * 1.25) + 64
+        state = rng.bit_generator.state
+        u = rng.random(2 * tries)
+        U, V = 1.0 - u[0::2], u[1::2]
+        X = np.floor(np.power(U, -1.0 / am1))
+        ok = (X <= _ZIPF_MAX) & (X >= 1.0)
+        Xs = np.where(ok, X, 1.0)
+        T = np.power(1.0 + 1.0 / Xs, am1)
+        kept = np.flatnonzero(ok & (V * Xs * (T - 1.0) / (b - 1.0) <= T / b))
+        if len(kept) >= need:  # wind back, then use the doubles of tries 0 .. the last kept one
+            rng.bit_generator.state = state
+            rng.random(2 * (int(kept[need - 1]) + 1))
+            kept = kept[:need]
+        out[filled : filled + len(kept)] = X[kept]
+        filled += len(kept)
+    return out
 
 
 def rmat_matrix(

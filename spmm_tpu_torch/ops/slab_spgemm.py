@@ -1150,14 +1150,16 @@ def spgemm_slab_big(
     return _stitch(piece_csrs, A.nrow, B.ncol)
 
 
-def _choose_pieces(A: CSR, B: CSR, W: int, classes, pieces: int | None, P0: int, nsh: int = 1):
+def _choose_pieces(A: CSR, B: CSR, W: int, classes, pieces: int | None, P0: int, nsh: int = 1,
+                   times: list | None = None):
     """The piece count of a streamed product: A's rows cut into ``nsh * P``
     uniform blocks (``nsh`` shards of ``P`` pieces each), ``P`` as given by
     ``pieces``, else from ``P0`` doubled until every block's slab slots fit
     ``_MAX_EXP_PAD`` (tail rows' pairs take none) or the blocks are one row.
     A block whose expansion overflows int32 doubles ``P`` in either case.
     Returns (P, the blocks' ShardedCSR, their ``_per_shard_sizing``, the
-    largest block's body pairs)."""
+    largest block's body pairs); ``times`` ends holding each returned
+    block's host sizing ms."""
     from spmm_tpu_torch.parallel.partition import partition_rows
     from spmm_tpu_torch.parallel.spgemm_spmd import _per_shard_sizing
 
@@ -1167,8 +1169,10 @@ def _choose_pieces(A: CSR, B: CSR, W: int, classes, pieces: int | None, P0: int,
         # one row alone can exceed the budget (it becomes a tail row): stop
         # splitting at one-row blocks
         at_min = S.rows_per_shard <= 1 or nsh * P >= A.nrow
+        if times is not None:
+            times.clear()
         try:
-            sizing = _per_shard_sizing(S, B, W, classes)
+            sizing = _per_shard_sizing(S, B, W, classes, times=times)
         except ValueError:  # a block still exceeds the int32 expansion
             if at_min:
                 raise

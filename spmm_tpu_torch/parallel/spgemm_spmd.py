@@ -32,6 +32,7 @@ package's single controller does.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Sequence
 
 import numpy as np
@@ -67,15 +68,16 @@ from spmm_tpu_torch.parallel.mesh import axis_size, check_on_mesh, mesh_device
 from spmm_tpu_torch.parallel.partition import ShardedCSR, local_shard, rows_per_shard
 
 
-def _per_shard_sizing(S: ShardedCSR, B: CSR | None, W: int, classes, b_iptr_per_shard=None):
+def _per_shard_sizing(S: ShardedCSR, B: CSR | None, W: int, classes, b_iptr_per_shard=None,
+                      times: list | None = None):
     """Host sizing of each shard against one B: (cls (nsh, rows_pad) int32,
     counts (nsh, nclasses + 1) int64, npa_max, nnz (nsh,) int32, npa_body
     (nsh,) int64).  ``b_iptr_per_shard``: each shard's own local B indptr
     (the halo paths; ``B`` is then not read), else one B for all.
     ``npa_body`` counts only the pairs of rows below the class ceiling: a
     tail row goes to the global-sort ESC, so its pairs take no slab slots.
-    Raises ValueError when a shard's padded expansion exceeds the int32
-    range."""
+    ``times``: each shard's host ms is appended to it.  Raises ValueError
+    when a shard's padded expansion exceeds the int32 range."""
     b_iptr_rep = None if b_iptr_per_shard is not None else np.asarray(B.host().indptr, np.int64)
     ind = np.asarray(S.indices)
     iptr = np.asarray(S.indptr, dtype=np.int64)
@@ -83,6 +85,7 @@ def _per_shard_sizing(S: ShardedCSR, B: CSR | None, W: int, classes, b_iptr_per_
     tail = len(classes)
     cls_all, counts_all, npa_max, nnz_s, body = [], [], 0, [], []
     for s in range(S.n_shards):
+        t0 = time.perf_counter()
         b_iptr = b_iptr_rep if b_iptr_rep is not None else np.asarray(b_iptr_per_shard[s], np.int64)
         nsegB_row = (b_iptr[1:] - b_iptr[:-1] + W - 1) // W
         nnz = int(iptr[s, -1])
@@ -107,6 +110,8 @@ def _per_shard_sizing(S: ShardedCSR, B: CSR | None, W: int, classes, b_iptr_per_
         body.append(npa - _tail_pairs(iptr[s], ind[s], cls, tail, nsegB_row))
         counts_all.append(np.bincount(cls, minlength=len(classes) + 2)[: len(classes) + 1])
         cls_all.append(cls)
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
     return (
         np.stack(cls_all),
         np.stack(counts_all).astype(np.int64),
@@ -837,6 +842,7 @@ def spgemm_dist_big(
     pattern: bool | None = None,
     checkpoint_dir: str | None = None,
     b_sharded: bool = False,
+    stats: dict | None = None,
 ) -> CSR:
     """C = A @ B streamed over a device mesh, BASELINE config 5 end to end:
     the row-partitioned SpGEMM at the scale where neither the plan tables
@@ -858,7 +864,16 @@ def spgemm_dist_big(
     rank's triple in one file, manifest pinned by sha256, the shard count
     and the B layout) and a re-run resumes after them.  It must be one
     directory that every rank sees: rank 0 alone writes it.  Every rank
-    returns the same global host CSR."""
+    returns the same global host CSR.
+
+    ``stats``: a dict this rank fills with ``pieces`` (P), ``sizing_ms``
+    (the host partition and sizing of every block), ``stitch_ms`` and, per
+    piece, ``piece``: ``{"sizing_ms", "piece_ms", "device_ms", "d2h_ms",
+    "nnz", "resumed"}`` -- its block's host sizing, the host clock around
+    ``_piece_csr`` (to its result), CUDA events around it (None off the
+    card), the gather of every rank's triple and its copy to the host, and
+    this rank's nonzeros (a piece read back from the checkpoint has only
+    ``resumed``)."""
     n = axis_size(mesh, axis)
     me, group, dev = mesh.get_local_rank(axis), mesh.get_group(axis), mesh_device(mesh)
     W = seg_w
@@ -868,8 +883,12 @@ def spgemm_dist_big(
     if pattern is None:
         pattern = _is_pattern(A) and _is_pattern(Bh)
 
+    t_size, size_ms = time.perf_counter(), []
     P, S, (cls, counts, npa_max, nnz_s, _), body_max = _choose_pieces(
-        A, Bh, W, classes, pieces, 1, nsh=n)
+        A, Bh, W, classes, pieces, 1, nsh=n, times=size_ms)
+    if stats is not None:
+        stats.update(pieces=P, sizing_ms=(time.perf_counter() - t_size) * 1e3, piece=[])
+    timed = stats is not None and dev.type == "cuda"
     ncls = len(classes)
     sched, starts, cnts, _ = _uniform_schedule(classes=classes, counts=counts[:, : ncls + 1],
                                                slot_budget=slot_budget)
@@ -892,8 +911,14 @@ def spgemm_dist_big(
         got = None if ck is None else _load_piece(ck, p, n, me, group, dev)
         if got is not None:
             piece_triples.append(got)
+            if stats is not None:
+                stats["piece"].append({"resumed": True})
             continue
         b = me * P + p
+        t0 = time.perf_counter()
+        if timed:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
         sub = CSR(data=S.data[b], indices=S.indices[b], indptr=S.indptr[b].astype(np.int64),
                   shape=(rows_pad, A.shape[1]), nnz=int(nnz_s[b]))
         if b_sharded:
@@ -909,10 +934,22 @@ def spgemm_dist_big(
         else:
             C = _piece_csr(sub, cls[b], counts[b], sc_tab[b], B_dev, dev, nclasses=ncls,
                            nnz_pad=nnz_pad, kw=kw)
+        if stats is not None:
+            rec = {"sizing_ms": size_ms[b], "piece_ms": None, "device_ms": None, "nnz": int(C.nnz),
+                   "resumed": False}
+            if timed:
+                ev[1].record()
+                ev[1].synchronize()
+                rec["device_ms"] = ev[0].elapsed_time(ev[1])
+            rec["piece_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
         data, inds, iptrs = _gather_triples(C, group, dev, n)
         triples = [(d.cpu().numpy(), i.cpu().numpy(), ip.cpu().numpy())
                    for d, i, ip in zip(data, inds, iptrs)]
         del C, data, inds, iptrs
+        if stats is not None:
+            rec["d2h_ms"] = (time.perf_counter() - t0) * 1e3
+            stats["piece"].append(rec)
         if ck is not None and me == 0:
             ck.save_multi(p, triples)
         piece_triples.append(triples)
@@ -920,4 +957,8 @@ def spgemm_dist_big(
         _agree(True, group, dev)  # every piece file is written before any rank goes on
 
     # blocks in global row order: b = s * P + p ascending
-    return _stitch([piece_triples[p][s] for s in range(n) for p in range(P)], A.nrow, B.shape[1])
+    t0 = time.perf_counter()
+    C = _stitch([piece_triples[p][s] for s in range(n) for p in range(P)], A.nrow, B.shape[1])
+    if stats is not None:
+        stats["stitch_ms"] = (time.perf_counter() - t0) * 1e3
+    return C

@@ -1619,3 +1619,31 @@ def test_k4a_raises_on_a_cpu_table_and_never_falls_back(cuda, monkeypatch):
         with pytest.raises(ValueError, match="contiguous tensors on cuda"):
             sk.chunk_fetch_all(bad, [(40, R_pad, start, count)], W=8, accum_dtype=torch.float32, pattern=False)
     assert sk.slab_launches["fetch"] == e0
+
+
+# BASELINE config 5's script at a tenth of its size: 1M rows / 10.46M nnz
+# (~87M out), NCCL at world size 1 in a spawned rank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pieces", [4, None], ids=["pieces4", "auto"])
+def test_dist_big_module_at_a_moderate_size_on_card(cuda, pieces):
+    """``python -m spmm_tpu_torch.utils.dist_big`` through its ``run``: C's
+    nnz, ``indptr`` and ``indices`` equal to scipy's, every piece timed by
+    CUDA events, K4 (b) launched, and K5 once for every piece without a
+    heavy-tail row (the graph has one; its piece is assembled on the host)."""
+    from spmm_tpu_torch.ops.slab_spgemm import DEFAULT_CLASSES, _choose_pieces, _norm_classes
+    from spmm_tpu_torch.utils import dist_big
+
+    n, nnz = 1_000_000, 10_460_000
+    res = dist_big.run(n, nnz, pieces=pieces, ranks=1)
+    assert res["parity"] == "exact" and res["nnz_out"] == res["scipy_nnz"]
+    assert res["device"] == torch.cuda.get_device_name(0) and res["n_shards"] == 1
+    classes = _norm_classes(DEFAULT_CLASSES, 8)
+    P, _, (_, counts, _, _, _), _ = _choose_pieces(tsyn.webgraph_like(n, nnz, seed=5), tsyn.webgraph_like(
+        n, nnz, seed=5), 8, classes, pieces, 1)
+    with_tail = int((counts[:, len(classes)] > 0).sum())
+    assert res["pieces_chosen"] == P == len(res["piece_stats"]) and (pieces is None or P == pieces)
+    assert all(p["device_ms"] > 0 for p in res["piece_stats"])
+    assert res["launches"]["slab_fetch_merge"] > 0 and res["launches"]["slab_compact"] == P - with_tail
+    assert 0 < res["peak_device_gb"] < 80

@@ -5,6 +5,7 @@ function and to its ``spmm_tpu_torch`` counterpart and requires equal arrays:
 these are host integer/copy operations, so equality is exact.
 """
 
+import math
 import os
 import shutil
 import subprocess
@@ -43,6 +44,53 @@ def test_generators_bit_identical(name, args, seed):
     a = getattr(jsyn, name)(*args, seed=seed)
     b = getattr(tsyn, name)(*args, seed=seed)
     assert_same(a, b)
+
+
+def _zipf_numpy20(rng, a, size):
+    """numpy 2.0's ``Generator.zipf`` loop, one sample at a time, in Python."""
+    am1, out = a - 1.0, []
+    b = 2.0**am1
+    while len(out) < size:
+        U, V = 1.0 - rng.random(), rng.random()
+        X = math.floor(math.pow(U, -1.0 / am1))
+        if X > float(np.iinfo(np.int64).max) or X < 1:
+            continue
+        T = math.pow(1.0 + 1.0 / X, am1)
+        if V * X * (T - 1.0) / (b - 1.0) <= T / b:
+            out.append(X)
+    return np.asarray(out, np.int64)
+
+
+@pytest.mark.parametrize("a,size,block", [(1.3, 20_000, 1 << 22), (1.3, 5_000, 777), (2.72, 20_000, 1 << 22),
+                                          (1.3, 0, 1 << 22)])
+def test_zipf_draws_as_numpy_2_0_whatever_the_release(a, size, block):
+    """F11: ``webgraph_like``'s Zipf draws are numpy 2.0's algorithm on the
+    generator's own doubles, block by block, and leave the generator where
+    that algorithm leaves it (the next draw agrees).  Values past 2^50 may
+    differ in their last bits (``np.power`` against C's ``pow``); the
+    generators clip them to n."""
+    r_ref, r = np.random.default_rng(3), np.random.default_rng(3)
+    ref = _zipf_numpy20(r_ref, a, size)
+    got = tsyn._zipf(r, a, size, block=block)
+    small = ref < 2**50
+    assert got.dtype == np.int64 and np.array_equal(got[small], ref[small])
+    assert np.allclose(got[~small], ref[~small], rtol=1e-12)
+    assert r.random() == r_ref.random()
+
+
+def test_webgraph_like_does_not_follow_numpys_zipf(monkeypatch):
+    """F11: on a numpy whose ``Generator.zipf`` draws otherwise (numpy 2.3's
+    does), the port's ``webgraph_like`` still gives this seed's graph, the one
+    BASELINE config 5's record was made from: it never calls
+    ``Generator.zipf``."""
+    want = jsyn.webgraph_like(20_000, 120_000, seed=5)
+
+    class OtherZipf(np.random.Generator):
+        def zipf(self, a, size=None):
+            raise AssertionError("Generator.zipf was called")
+
+    monkeypatch.setattr(np.random, "default_rng", lambda seed=None: OtherZipf(np.random.PCG64(seed)))
+    assert_same(want, tsyn.webgraph_like(20_000, 120_000, seed=5))
 
 
 @pytest.mark.parametrize("sort_within_row", [True, False])
@@ -228,13 +276,15 @@ def test_port_imports_no_jax():
 
 
 def test_bench_and_scaling_import_no_jax():
-    """``bench_torch.py`` and ``spmm_tpu_torch.utils.scaling``, imported and
-    run at a tiny size on the CPU (their sections import inside their
-    functions), load no ``jax`` and no ``spmm_tpu`` module."""
+    """``bench_torch.py``, ``spmm_tpu_torch.utils.scaling`` and
+    ``spmm_tpu_torch.utils.dist_big``, imported and run at a tiny size on the
+    CPU (their sections import inside their functions), load no ``jax`` and
+    no ``spmm_tpu`` module."""
     code = (
         "import sys\n"
         "import bench_torch\n"
-        "from spmm_tpu_torch.utils import scaling\n"
+        "from spmm_tpu_torch import ops\n"
+        "from spmm_tpu_torch.utils import dist_big, scaling\n"
         "from spmm_tpu_torch.config import Config\n"
         "from spmm_tpu_torch.formats.synthetic import webgraph_like\n"
         "A = webgraph_like(600, 3000, seed=0)\n"
@@ -244,6 +294,8 @@ def test_bench_and_scaling_import_no_jax():
         "bench_torch.bench_spgemm(b, A, 'cpu')\n"
         "bench_torch.bench_kernels(b, A, P, 'cpu', bsr_shape=(512, 128, 0.25))\n"
         "assert b.result['spgemm_out_nnz'] > 0 and not b.failed(), b.result\n"
+        "ck = dist_big.check_blocks(A, {'C': ops.spgemm(A, A, device='cpu')}, 3, values=False)\n"
+        "assert not ck['mismatch'] and ck['ref_nnz'] > 0, ck\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'spmm_tpu.'))"
         " or m == 'spmm_tpu']\n"
         "assert not bad, bad\n"
