@@ -1,0 +1,15 @@
+"""Share of a training step's least time in its kernel time: the least
+bytes (``counts/bytes.py``) of everything the step computes (A·X, the loss
+Σ Y² with dY = 2·Y, Aᵀ·dY and the values' gradient) at the H100 SXM's HBM
+rate, over the summed time of every kernel the step launches (the dense
+element-wise ones too)."""
+
+from portbench.counts.peaks import HBM_BYTES_PER_S
+
+
+def read(trace, counts):
+    least = counts.get("spmm_least_bytes")
+    kernel_s = trace.seconds(lambda kind, name: kind == "kernel")
+    if not least or not trace.calls or kernel_s <= 0:
+        return None
+    return 100.0 * (least / HBM_BYTES_PER_S) / (kernel_s / trace.calls)
