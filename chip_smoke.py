@@ -537,8 +537,12 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
 
 
 def profile_line(p, n: int = 6) -> str:
-    """The top ``n`` kernels of a ``utils.profiling.Profile``."""
-    return " | ".join(f"{o.name[:60]} x{o.count:g} {o.ms:.3f}" for o in p.ops[:n])
+    """The top ``n`` kernels of a ``utils.profiling.Profile``, then the host
+    ms of each ``spmm.*`` span it recorded."""
+    line = " | ".join(f"{o.name[:60]} x{o.count:g} {o.ms:.3f}" for o in p.ops[:n])
+    if p.spans:
+        line += " || host spans: " + " | ".join(f"{name} {ms:.3f}" for name, ms in p.spans.items())
+    return line
 
 
 def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):

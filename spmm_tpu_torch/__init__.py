@@ -23,7 +23,8 @@ reference the port is tested against:
                    chunk schedule of row pieces
 - ``utils``      — ``serialize.save`` / ``load`` (.npz, readable by both
                    packages), ``timing.measure`` (CUDA events),
-                   ``profiling.profile_fn`` (``torch.profiler``)
+                   ``profiling.profile_fn`` (``torch.profiler``) and
+                   ``profiling.span`` (the ``spmm.*`` spans)
 - ``kernels``    — nvcc build + ctypes binding of ``csrc/*.cu``
 
 This package imports torch and numpy, never JAX or ``spmm_tpu``.

@@ -58,6 +58,7 @@ import torch
 from spmm_tpu_torch import kernels
 from spmm_tpu_torch.formats.containers import as_tensor, memo_of
 from spmm_tpu_torch.formats.ell import _slab_plan
+from spmm_tpu_torch.utils.profiling import span
 
 #: CUDA launches in this process (chip_smoke.py resets and reads them): K2 in
 #: all, K2 over a transposed pack (the grad-B launches among them), and K3
@@ -690,17 +691,18 @@ def ell_slabs_spmm_transposed(cols, data, dY: torch.Tensor, n: int, *,
     of Aᵀ at its row of the result, then an index fill of the empty rows and
     a gather + sum that joins the pieces of the cut rows -- no atomics.  CPU
     tensors take the plain version."""
-    if dY.device.type == "cpu":
-        return ell_slabs_spmm_transposed_reference(cols, data, dY, n, memo=memo, out_rows=out_rows)
+    with span("spmm.ell.transposed"):
+        if dY.device.type == "cpu":
+            return ell_slabs_spmm_transposed_reference(cols, data, dY, n, memo=memo, out_rows=out_rows)
 
-    def launch(T, vals, y):
-        global transposed_launches
-        _check_cuda_operands("ell_slabs_spmm_transposed", vals.dtype, dY, dY.dtype)
-        before = launches
-        _k2_launch(T.cols, T.vidx, dY, y, T.memo, T.row_keys, out_rows=T.out_rows, values=vals)
-        transposed_launches += launches - before
+        def launch(T, vals, y):
+            global transposed_launches
+            _check_cuda_operands("ell_slabs_spmm_transposed", vals.dtype, dY, dY.dtype)
+            before = launches
+            _k2_launch(T.cols, T.vidx, dY, y, T.memo, T.row_keys, out_rows=T.out_rows, values=vals)
+            transposed_launches += launches - before
 
-    return _transposed_product(cols, data, dY, n, memo, launch, out_rows)
+        return _transposed_product(cols, data, dY, n, memo, launch, out_rows)
 
 
 # ---- K3: grad data, a sampled dense-dense product over the slabs' slots -------
@@ -732,42 +734,43 @@ def ell_slabs_sddmm(cols, dY: torch.Tensor, B: torch.Tensor, *, memo: dict | Non
     fp32 or bf16 B and fp64 for an fp64 B: (ΣR, k), or with K2's row map
     ``out_rows`` the (m, k) gradient read at those rows."""
     global sddmm_launches
-    dev, k = B.device, B.shape[1]
-    if dev.type == "cpu":
-        return ell_slabs_sddmm_reference(cols, dY, B, out_rows=out_rows)
-    if dev.type != "cuda":
-        raise ValueError(f"ell_slabs_sddmm: unsupported device {dev}")
-    want = torch.float64 if B.dtype == torch.float64 else torch.float32
-    if B.dtype not in _DTYPES or dY.dtype != want:
-        raise TypeError(f"ell_slabs_sddmm: dY {dY.dtype} with B {B.dtype}: the kernel takes a "
-                        "float32 dY with a float32 or bfloat16 B, or float64 for both")
-    rows = sum(int(c.shape[0]) for c in cols)
-    want_rows = rows if out_rows is None else dY.shape[0]
-    if tuple(dY.shape) != (want_rows, k) or dY.device != dev:
-        raise ValueError(f"ell_slabs_sddmm: dY {tuple(dY.shape)} on {dY.device} != {(want_rows, k)} on {dev}")
-    if out_rows is not None and (out_rows.shape != (rows,) or out_rows.dtype != torch.int32):
-        raise ValueError(f"ell_slabs_sddmm: out_rows must be ({rows},) int32")
-    if not (B.is_contiguous() and dY.is_contiguous()) or B.shape[0] < 1 or k < 1:
-        raise ValueError("ell_slabs_sddmm: B and dY must be contiguous, n >= 1 and k >= 1")
-    vec, tpr_log2 = lane_layout(k, B.data_ptr() % 16 == 0 and dY.data_ptr() % 16 == 0,
-                                _WIDE[B.dtype])
-    table = _table(cols, None, dev, tpr_log2, memo, row_keys, sddmm=True)
-    shapes = [tuple(c.shape) for c in table.keep[0]]
-    flat = torch.empty(sum(R * L for R, L in shapes), dtype=dY.dtype, device=dev)
-    if flat.numel():
-        sddmm_launches += 1
-        err = kernels.lib().ell_slabs_sddmm_launch(
-            table.slabs.data_ptr(), table.items.data_ptr(), table.items.shape[0],
-            table.slot0.data_ptr(), dY.data_ptr(), B.data_ptr(), _DTYPES[B.dtype], flat.data_ptr(),
-            B.shape[0], k, vec, tpr_log2, None if out_rows is None else out_rows.data_ptr(),
-            kernels.stream_ptr(dev),
-        )
-        kernels.check(err, "ell_slabs_sddmm")
-    out, off = [], 0
-    for R, L in shapes:
-        out.append(flat[off : off + R * L].view(R, L))
-        off += R * L
-    return tuple(out)
+    with span("spmm.ell.sddmm"):
+        dev, k = B.device, B.shape[1]
+        if dev.type == "cpu":
+            return ell_slabs_sddmm_reference(cols, dY, B, out_rows=out_rows)
+        if dev.type != "cuda":
+            raise ValueError(f"ell_slabs_sddmm: unsupported device {dev}")
+        want = torch.float64 if B.dtype == torch.float64 else torch.float32
+        if B.dtype not in _DTYPES or dY.dtype != want:
+            raise TypeError(f"ell_slabs_sddmm: dY {dY.dtype} with B {B.dtype}: the kernel takes a "
+                            "float32 dY with a float32 or bfloat16 B, or float64 for both")
+        rows = sum(int(c.shape[0]) for c in cols)
+        want_rows = rows if out_rows is None else dY.shape[0]
+        if tuple(dY.shape) != (want_rows, k) or dY.device != dev:
+            raise ValueError(f"ell_slabs_sddmm: dY {tuple(dY.shape)} on {dY.device} != {(want_rows, k)} on {dev}")
+        if out_rows is not None and (out_rows.shape != (rows,) or out_rows.dtype != torch.int32):
+            raise ValueError(f"ell_slabs_sddmm: out_rows must be ({rows},) int32")
+        if not (B.is_contiguous() and dY.is_contiguous()) or B.shape[0] < 1 or k < 1:
+            raise ValueError("ell_slabs_sddmm: B and dY must be contiguous, n >= 1 and k >= 1")
+        vec, tpr_log2 = lane_layout(k, B.data_ptr() % 16 == 0 and dY.data_ptr() % 16 == 0,
+                                    _WIDE[B.dtype])
+        table = _table(cols, None, dev, tpr_log2, memo, row_keys, sddmm=True)
+        shapes = [tuple(c.shape) for c in table.keep[0]]
+        flat = torch.empty(sum(R * L for R, L in shapes), dtype=dY.dtype, device=dev)
+        if flat.numel():
+            sddmm_launches += 1
+            err = kernels.lib().ell_slabs_sddmm_launch(
+                table.slabs.data_ptr(), table.items.data_ptr(), table.items.shape[0],
+                table.slot0.data_ptr(), dY.data_ptr(), B.data_ptr(), _DTYPES[B.dtype], flat.data_ptr(),
+                B.shape[0], k, vec, tpr_log2, None if out_rows is None else out_rows.data_ptr(),
+                kernels.stream_ptr(dev),
+            )
+            kernels.check(err, "ell_slabs_sddmm")
+        out, off = [], 0
+        for R, L in shapes:
+            out.append(flat[off : off + R * L].view(R, L))
+            off += R * L
+        return tuple(out)
 
 
 def ell_slab_spmm(

@@ -23,6 +23,7 @@ import torch
 from spmm_tpu_torch.formats.containers import as_numpy, as_tensor
 from spmm_tpu_torch.formats.ell import ELL
 from spmm_tpu_torch.ops.ell_kernel import ell_slabs_spmm_into, ell_slabs_spmm_mapped, table_memo
+from spmm_tpu_torch.utils.profiling import span
 
 
 def slab_row_keys(E: ELL):
@@ -79,25 +80,26 @@ def ell_spmm(E: ELL, B: torch.Tensor, *, accum_dtype=torch.float32,
     B and to the slab values ``E.data`` (``ops/ell_kernel.py``)."""
     from spmm_tpu_torch.ops.spmm import spmm_xla
 
-    B, batch = fold_batch(B)
-    dev = B.device
-    m = E.shape[0]
-    row = m - E.n_rest_rows
-    rest = spmm_xla(E.rest.to(dev), B, accum_dtype=accum_dtype)[: E.n_rest_rows] if E.n_rest_rows else None
-    if permute_back:
-        out_rows, rest_rows, zero_rows = _row_maps(E, dev)
-        y = ell_slabs_spmm_mapped(E.cols, E.data, B, out_rows, m, rest=rest, rest_rows=rest_rows,
-                                  zero_rows=zero_rows, memo=table_memo(E),
-                                  row_keys=lambda: slab_row_keys(E), accum_dtype=accum_dtype)
+    with span("spmm.ell_spmm"):
+        B, batch = fold_batch(B)
+        dev = B.device
+        m = E.shape[0]
+        row = m - E.n_rest_rows
+        rest = spmm_xla(E.rest.to(dev), B, accum_dtype=accum_dtype)[: E.n_rest_rows] if E.n_rest_rows else None
+        if permute_back:
+            out_rows, rest_rows, zero_rows = _row_maps(E, dev)
+            y = ell_slabs_spmm_mapped(E.cols, E.data, B, out_rows, m, rest=rest, rest_rows=rest_rows,
+                                      zero_rows=zero_rows, memo=table_memo(E),
+                                      row_keys=lambda: slab_row_keys(E), accum_dtype=accum_dtype)
+            return unfold_batch(y, batch)
+        y = torch.empty((m, B.shape[1]), dtype=accum_dtype, device=dev)
+        y[: E.n_empty].zero_()
+        if E.data:
+            ell_slabs_spmm_into(y, E.n_empty, E.cols, E.data, B, memo=table_memo(E),
+                                row_keys=lambda: slab_row_keys(E), accum_dtype=accum_dtype)
+        if rest is not None:
+            y[row:] = rest
         return unfold_batch(y, batch)
-    y = torch.empty((m, B.shape[1]), dtype=accum_dtype, device=dev)
-    y[: E.n_empty].zero_()
-    if E.data:
-        ell_slabs_spmm_into(y, E.n_empty, E.cols, E.data, B, memo=table_memo(E),
-                            row_keys=lambda: slab_row_keys(E), accum_dtype=accum_dtype)
-    if rest is not None:
-        y[row:] = rest
-    return unfold_batch(y, batch)
 
 
 def ell_spmv(E: ELL, x: torch.Tensor, *, accum_dtype=torch.float32,

@@ -64,6 +64,7 @@ from spmm_tpu_torch.ops.slab_kernel import (  # noqa: F401  (the plain versions 
 )
 from spmm_tpu_torch.ops.spgemm import spgemm_sorted
 from spmm_tpu_torch.ops.transform import _stable_argsort_smallint
+from spmm_tpu_torch.utils.profiling import span
 
 Array = Any
 
@@ -199,41 +200,42 @@ def _sizing(A: CSR, B: CSR, W: int, classes) -> Sizing:
     """O(nnz + nrow) host sizing: (npa, nsegB, per-row class, counts) and the
     class permutation.  Native C++ pass, numpy without the native library.
     Operands held in tensors go to :func:`_sizing_device`."""
-    if not isinstance(A.data, np.ndarray) or not isinstance(B.data, np.ndarray):
-        return _sizing_device(A, B, W, classes)
-    a_iptr = np.asarray(A.indptr, np.int64)
-    a_ind = np.asarray(A.indices[: A.nnz])
-    b_iptr = np.asarray(B.indptr, np.int64)
-    classes_np = np.asarray(classes, np.int64)
-    res = native.spgemm_sizing(a_iptr, a_ind, b_iptr, W, classes_np)
-    if res is not None:
-        npa, nsegB, cls = res
-    else:
-        lenB = b_iptr[1:] - b_iptr[:-1]
-        nsegB = int(((lenB + W - 1) // W).sum())
-        nseg_a = (lenB[a_ind.astype(np.int64)] + W - 1) // W
-        npa = int(nseg_a.sum())
-        segc = np.zeros(A.nnz + 1, dtype=np.int64)
-        np.cumsum(nseg_a, out=segc[1:])
-        exp_pad_row = W * (segc[np.minimum(a_iptr[1:], A.nnz)] - segc[np.minimum(a_iptr[:-1], A.nnz)])
-        cls = np.searchsorted(classes_np, exp_pad_row, side="left").astype(np.int32)
-        cls[exp_pad_row == 0] = len(classes) + 1
-    if npa * W >= _MAX_EXP_PAD:
-        nseg_row = (b_iptr[1:] - b_iptr[:-1] + W - 1) // W
-        tail = _tail_pairs(a_iptr, a_ind, cls, len(classes), nseg_row)
-        raise _ExpansionTooLarge(npa * W, (npa - tail) * W)
-    counts, remap = _fold_small_classes(np.bincount(cls, minlength=len(classes) + 2), len(classes))
-    cls = remap[cls]
-    rows_sorted = native.counting_argsort_i32(cls, len(classes) + 2)
-    if rows_sorted is None:
-        rows_sorted = np.argsort(cls, kind="stable").astype(np.int32)
-    return Sizing(
-        npa=npa,
-        nsegB=nsegB,
-        cls=cls,
-        counts=tuple(int(c) for c in counts[: len(classes) + 1]),
-        rows_sorted=rows_sorted,
-    )
+    with span("spmm.spgemm.sizing"):
+        if not isinstance(A.data, np.ndarray) or not isinstance(B.data, np.ndarray):
+            return _sizing_device(A, B, W, classes)
+        a_iptr = np.asarray(A.indptr, np.int64)
+        a_ind = np.asarray(A.indices[: A.nnz])
+        b_iptr = np.asarray(B.indptr, np.int64)
+        classes_np = np.asarray(classes, np.int64)
+        res = native.spgemm_sizing(a_iptr, a_ind, b_iptr, W, classes_np)
+        if res is not None:
+            npa, nsegB, cls = res
+        else:
+            lenB = b_iptr[1:] - b_iptr[:-1]
+            nsegB = int(((lenB + W - 1) // W).sum())
+            nseg_a = (lenB[a_ind.astype(np.int64)] + W - 1) // W
+            npa = int(nseg_a.sum())
+            segc = np.zeros(A.nnz + 1, dtype=np.int64)
+            np.cumsum(nseg_a, out=segc[1:])
+            exp_pad_row = W * (segc[np.minimum(a_iptr[1:], A.nnz)] - segc[np.minimum(a_iptr[:-1], A.nnz)])
+            cls = np.searchsorted(classes_np, exp_pad_row, side="left").astype(np.int32)
+            cls[exp_pad_row == 0] = len(classes) + 1
+        if npa * W >= _MAX_EXP_PAD:
+            nseg_row = (b_iptr[1:] - b_iptr[:-1] + W - 1) // W
+            tail = _tail_pairs(a_iptr, a_ind, cls, len(classes), nseg_row)
+            raise _ExpansionTooLarge(npa * W, (npa - tail) * W)
+        counts, remap = _fold_small_classes(np.bincount(cls, minlength=len(classes) + 2), len(classes))
+        cls = remap[cls]
+        rows_sorted = native.counting_argsort_i32(cls, len(classes) + 2)
+        if rows_sorted is None:
+            rows_sorted = np.argsort(cls, kind="stable").astype(np.int32)
+        return Sizing(
+            npa=npa,
+            nsegB=nsegB,
+            cls=cls,
+            counts=tuple(int(c) for c in counts[: len(classes) + 1]),
+            rows_sorted=rows_sorted,
+        )
 
 
 def _sizing_device(A: CSR, B: CSR, W: int, classes) -> Sizing:
@@ -306,10 +308,11 @@ def _is_pattern(M: CSR) -> bool:
     semantics (serial_newblock_clock.cpp:84,96).  An O(nnz) host check;
     values held in tensors are not pulled to the host for it, so the answer
     there is False (callers that know pass ``pattern=True``)."""
-    d = M.data
-    if not isinstance(d, np.ndarray):
-        return False
-    return bool(np.all(d[: M.nnz] == 1))
+    with span("spmm.spgemm.pattern"):
+        d = M.data
+        if not isinstance(d, np.ndarray):
+            return False
+        return bool(np.all(d[: M.nnz] == 1))
 
 
 # ---------------------------------------------------------------------------
@@ -463,11 +466,12 @@ def spgemm_plan(
     check_class_limit(classes, dev)
     if sizing is None:
         sizing = _sizing(A, B, W, classes)
-    tables = _plan_tables(
-        A.to(dev), B.to(dev), _rows_sorted(sizing, dev),
-        W=W, npa_pad=_round_up(sizing.npa, 1024), nsegB_pad=_nseg_pad(sizing.nsegB),
-        nrow_pad=A.nrow + _max_chunk(classes, slot_budget), pattern=pattern,
-    )
+    with span("spmm.spgemm.tables"):
+        tables = _plan_tables(
+            A.to(dev), B.to(dev), _rows_sorted(sizing, dev),
+            W=W, npa_pad=_round_up(sizing.npa, 1024), nsegB_pad=_nseg_pad(sizing.nsegB),
+            nrow_pad=A.nrow + _max_chunk(classes, slot_budget), pattern=pattern,
+        )
     aligned_cols, aligned_vals, aligned_accum = (), (), None
     if expand:
         sched, _ = _chunk_schedule(classes, sizing.counts, slot_budget)
@@ -550,16 +554,18 @@ def _chunks(t, sched, *, W: int, accum_dtype, pattern: bool):
     """Every (R_pad, L) slab chunk ``(L, R_pad, start, count)`` of ``sched``:
     (rows, cols_u, vals_u, nuniq) each, fetched and merged in one pass (K4 b
     on the card, one launch per block-size group)."""
-    merged = chunk_merge_all(t, sched, W=W, accum_dtype=accum_dtype, pattern=pattern)
-    return [(t.rows_sorted[start : start + R_pad],) + m for (_, R_pad, start, _), m in zip(sched, merged)]
+    with span("spmm.spgemm.numeric"):
+        merged = chunk_merge_all(t, sched, W=W, accum_dtype=accum_dtype, pattern=pattern)
+        return [(t.rows_sorted[start : start + R_pad],) + m for (_, R_pad, start, _), m in zip(sched, merged)]
 
 
 def _numeric_aligned(plan: SpgemmPlan, sched, accum_dtype):
     """Every chunk of an aligned-cache plan: sort and merge (K4 c on the
     card, one launch per block-size group), no gathers."""
-    merged = slab_merge_all(plan.aligned_cols, plan.aligned_vals, accum_dtype=accum_dtype,
-                            pattern=plan.pattern)
-    return [(plan.rows_sorted[start : start + R_pad],) + m for (_, R_pad, start, _), m in zip(sched, merged)]
+    with span("spmm.spgemm.numeric"):
+        merged = slab_merge_all(plan.aligned_cols, plan.aligned_vals, accum_dtype=accum_dtype,
+                                pattern=plan.pattern)
+        return [(plan.rows_sorted[start : start + R_pad],) + m for (_, R_pad, start, _), m in zip(sched, merged)]
 
 
 def spgemm_slab_device(
@@ -665,25 +671,27 @@ def spgemm_slab_csr(
 
 
 def _csr_of(outs, shape, nnz_pad: int, accum_dtype, device) -> CSR:
-    data, indices, indptr, knnz = compact_to_csr(
-        outs, nrow=shape[0], nnz_pad=nnz_pad, dtype=accum_dtype, device=device
-    )
-    k = int(knnz)
-    if k > nnz_pad:
-        raise ValueError(f"product has {k} nonzeros, more than nnz_pad={nnz_pad}")
-    return CSR(data=data, indices=indices, indptr=indptr, shape=shape, nnz=k)
+    with span("spmm.spgemm.compact"):
+        data, indices, indptr, knnz = compact_to_csr(
+            outs, nrow=shape[0], nnz_pad=nnz_pad, dtype=accum_dtype, device=device
+        )
+        k = int(knnz)
+        if k > nnz_pad:
+            raise ValueError(f"product has {k} nonzeros, more than nnz_pad={nnz_pad}")
+        return CSR(data=data, indices=indices, indptr=indptr, shape=shape, nnz=k)
 
 
 def _csr_to_host(C: CSR) -> CSR:
     """A device CSR's arrays cut to nnz and copied to the host (int64 indptr,
     as the JAX package's host CSRs)."""
-    return CSR(
-        data=as_numpy(C.data[: C.nnz]),
-        indices=as_numpy(C.indices[: C.nnz]).astype(np.int32, copy=False),
-        indptr=as_numpy(C.indptr).astype(np.int64),
-        shape=C.shape,
-        nnz=C.nnz,
-    )
+    with span("spmm.spgemm.to_host"):
+        return CSR(
+            data=as_numpy(C.data[: C.nnz]),
+            indices=as_numpy(C.indices[: C.nnz]).astype(np.int32, copy=False),
+            indptr=as_numpy(C.indptr).astype(np.int64),
+            shape=C.shape,
+            nnz=C.nnz,
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -730,12 +738,13 @@ def _operand_digest(A: CSR, B: CSR) -> str:
 
 
 def _auto_plan_lookup(key, A, B):
-    ent = _PLAN_CACHE.get(key)
-    if ent is not None and ent[0]() is A and ent[1]() is B:
-        if ent[3] == _operand_fingerprint(A, B):
-            return ent[2]
-        _PLAN_CACHE.pop(key, None)  # operands written in place: invalidate
-    return None
+    with span("spmm.spgemm.plan_lookup"):
+        ent = _PLAN_CACHE.get(key)
+        if ent is not None and ent[0]() is A and ent[1]() is B:
+            if ent[3] == _operand_fingerprint(A, B):
+                return ent[2]
+            _PLAN_CACHE.pop(key, None)  # operands written in place: invalidate
+        return None
 
 
 def _auto_plan_note(key, A, B, build):
@@ -747,7 +756,8 @@ def _auto_plan_note(key, A, B, build):
             weakref.ref(B, lambda r, k=key: _PLAN_SEEN.pop(k, None)),
         )
         return None
-    plan = build()
+    with span("spmm.spgemm.plan_build"):
+        plan = build()
     while len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:
         _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
     _PLAN_CACHE[key] = (
@@ -797,83 +807,87 @@ def spgemm_slab(
     those of scipy's product of the two patterns.  A plan fixes C's
     structure whatever the values, and ``spgemm_plan_revalue`` /
     ``spgemm_dist_revalue`` rely on that."""
-    dev = compute_device(device)
-    check_class_limit(_norm_classes(classes, seg_w), dev)
-    if pattern is None:
-        pattern = _is_pattern(A) and _is_pattern(B)
-    if A.nnz == 0 or B.nnz == 0:
-        out = COO(
-            row=np.zeros(0, np.int32),
-            col=np.zeros(0, np.int32),
-            data=np.zeros(0, np.dtype(_dtype_name(accum_dtype))),
-            shape=(A.nrow, B.ncol),
-            nnz=0,
-        )
-        return to_csr(out) if as_csr else out
-    W = seg_w
-    classes_n = _norm_classes(classes, W)
-    try:
-        sizing = _sizing(A, B, W, classes_n)
-    except _ExpansionTooLarge as e:
-        # uniform row pieces; start the piece search at the slab slots /
-        # (budget / 2): the tail rows' pairs take no slots
-        hint = 2
-        while hint * _MAX_EXP_PAD < int(e.args[1]) * 2:
-            hint *= 2
-        out = spgemm_slab_big(
-            A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget,
-            accum_dtype=accum_dtype, device=dev, pattern=pattern, pieces_hint=hint,
-            checkpoint_dir=checkpoint_dir,
-        )
-        return out if as_csr else to_coo(out)
-    if checkpoint_dir is not None:
-        warnings.warn(
-            "checkpoint_dir ignored: the product fits a single call (no pieces "
-            "to checkpoint); only products above the budget run in pieces",
-            stacklevel=2,
-        )
-
-    ntail = sizing.counts[len(classes_n)]
-    if as_csr and ntail == 0 and sizing.npa * W <= _CSR_COMPACT_MAX:
-        # compact on the device; only the CSR arrays cross to the host
-        plan = None
-        if A.nnz >= AUTO_PLAN_MIN_NNZ and isinstance(A.data, np.ndarray):
-            key = (id(A), id(B), classes_n, W, slot_budget, _dtype_name(accum_dtype), pattern,
-                   str(dev))
-            plan = _auto_plan_lookup(key, A, B)
-            if plan is None:
-                plan = _auto_plan_note(
-                    key, A, B,
-                    lambda: spgemm_plan(
-                        A, B, classes=classes_n, seg_w=W, slot_budget=slot_budget, device=dev,
-                        pattern=pattern, accum_dtype=accum_dtype, sizing=sizing,
-                    ),
-                )
-        if plan is not None:
-            sched, _ = _chunk_schedule(plan.classes, plan.class_counts, plan.slot_budget)
-            Cd = _csr_of(_numeric_aligned(plan, sched, accum_dtype), (A.nrow, B.ncol),
-                         _round_up(plan.npa * W, 1024), accum_dtype, dev)
-        else:
-            Cd = spgemm_slab_csr(
-                A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget,
-                accum_dtype=accum_dtype, device=dev, pattern=pattern, sizing=sizing,
+    with span("spmm.spgemm"):
+        dev = compute_device(device)
+        check_class_limit(_norm_classes(classes, seg_w), dev)
+        if pattern is None:
+            pattern = _is_pattern(A) and _is_pattern(B)
+        if A.nnz == 0 or B.nnz == 0:
+            out = COO(
+                row=np.zeros(0, np.int32),
+                col=np.zeros(0, np.int32),
+                data=np.zeros(0, np.dtype(_dtype_name(accum_dtype))),
+                shape=(A.nrow, B.ncol),
+                nnz=0,
             )
-        return _csr_to_host(Cd)
+            return to_csr(out) if as_csr else out
+        W = seg_w
+        classes_n = _norm_classes(classes, W)
+        try:
+            sizing = _sizing(A, B, W, classes_n)
+        except _ExpansionTooLarge as e:
+            # uniform row pieces; start the piece search at the slab slots /
+            # (budget / 2): the tail rows' pairs take no slots
+            hint = 2
+            while hint * _MAX_EXP_PAD < int(e.args[1]) * 2:
+                hint *= 2
+            out = spgemm_slab_big(
+                A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget,
+                accum_dtype=accum_dtype, device=dev, pattern=pattern, pieces_hint=hint,
+                checkpoint_dir=checkpoint_dir,
+            )
+            return out if as_csr else to_coo(out)
+        if checkpoint_dir is not None:
+            warnings.warn(
+                "checkpoint_dir ignored: the product fits a single call (no pieces "
+                "to checkpoint); only products above the budget run in pieces",
+                stacklevel=2,
+            )
 
-    outs, tail_rows, _ = spgemm_slab_device(
-        A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget, accum_dtype=accum_dtype,
-        device=dev, pattern=pattern, sizing=sizing,
-    )
-    rows_l, cols_l, vals_l = _pull_chunks(outs)
-    del outs
-    if len(tail_rows):
-        tr, tc, tv = _tail_products(A.host(), np.asarray(tail_rows, np.int64), B.host(),
-                                    accum_dtype, dev)
-        rows_l.append(tr)
-        cols_l.append(tc)
-        vals_l.append(tv)
-    out = _assemble_csr(*_concat(rows_l, cols_l, vals_l, accum_dtype), (A.nrow, B.ncol))
-    return out if as_csr else to_coo(out)
+        ntail = sizing.counts[len(classes_n)]
+        if as_csr and ntail == 0 and sizing.npa * W <= _CSR_COMPACT_MAX:
+            # compact on the device; only the CSR arrays cross to the host
+            plan = None
+            if A.nnz >= AUTO_PLAN_MIN_NNZ and isinstance(A.data, np.ndarray):
+                key = (id(A), id(B), classes_n, W, slot_budget, _dtype_name(accum_dtype), pattern,
+                       str(dev))
+                plan = _auto_plan_lookup(key, A, B)
+                if plan is not None:
+                    with span("spmm.spgemm.plan_hit"):  # a marker: its count is the cache's hits
+                        pass
+                else:
+                    plan = _auto_plan_note(
+                        key, A, B,
+                        lambda: spgemm_plan(
+                            A, B, classes=classes_n, seg_w=W, slot_budget=slot_budget, device=dev,
+                            pattern=pattern, accum_dtype=accum_dtype, sizing=sizing,
+                        ),
+                    )
+            if plan is not None:
+                sched, _ = _chunk_schedule(plan.classes, plan.class_counts, plan.slot_budget)
+                Cd = _csr_of(_numeric_aligned(plan, sched, accum_dtype), (A.nrow, B.ncol),
+                             _round_up(plan.npa * W, 1024), accum_dtype, dev)
+            else:
+                Cd = spgemm_slab_csr(
+                    A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget,
+                    accum_dtype=accum_dtype, device=dev, pattern=pattern, sizing=sizing,
+                )
+            return _csr_to_host(Cd)
+
+        outs, tail_rows, _ = spgemm_slab_device(
+            A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget, accum_dtype=accum_dtype,
+            device=dev, pattern=pattern, sizing=sizing,
+        )
+        rows_l, cols_l, vals_l = _pull_chunks(outs)
+        del outs
+        if len(tail_rows):
+            tr, tc, tv = _tail_products(A.host(), np.asarray(tail_rows, np.int64), B.host(),
+                                        accum_dtype, dev)
+            rows_l.append(tr)
+            cols_l.append(tc)
+            vals_l.append(tv)
+        out = _assemble_csr(*_concat(rows_l, cols_l, vals_l, accum_dtype), (A.nrow, B.ncol))
+        return out if as_csr else to_coo(out)
 
 
 def _concat(rows_l, cols_l, vals_l, accum_dtype):

@@ -521,6 +521,36 @@ def test_ell_spmm_backward_launches_and_values_grad(cuda, dtype):
 
 
 @pytest.mark.cuda
+def test_ell_spmm_backward_spans(cuda):
+    """Under ``torch.profiler``, a forward and backward of ``ell_spmm`` with X
+    and the slab values requiring grad records ``spmm.ell_spmm``, and inside
+    ``_EllSlabsSpmm``'s backward node ``spmm.ell.transposed`` (grad X) and
+    ``spmm.ell.sddmm`` (grad values), on autograd's thread."""
+    from torch.profiler import ProfilerActivity, profile
+
+    A = tsyn.webgraph_like(20000, 150000, seed=9)
+    E = ell_pack(A).to(cuda)
+    E = dataclasses.replace(E, data=tuple(d.requires_grad_() for d in E.data))
+    X = torch.from_numpy(rhs(20000, 32, 4)).to(cuda).requires_grad_()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        Y = ops.ell_spmm(E, X)
+        torch.autograd.grad((Y ** 2).sum(), [X, *E.data])
+        torch.cuda.synchronize()
+    enclosing = {}
+    for e in prof.events():
+        if e.name.startswith("spmm."):
+            up, p = [], e.cpu_parent
+            while p is not None:
+                up.append(p.name)
+                p = p.cpu_parent
+            enclosing.setdefault(e.name, []).append(up)
+    assert {"spmm.ell_spmm", "spmm.ell.transposed", "spmm.ell.sddmm"} <= set(enclosing)
+    for name in ("spmm.ell.transposed", "spmm.ell.sddmm"):
+        assert any(any("_EllSlabsSpmmBackward" in n for n in up) for up in enclosing[name]), enclosing[name]
+    assert not any(any("Backward" in n for n in up) for up in enclosing["spmm.ell_spmm"])
+
+
+@pytest.mark.cuda
 def test_bsr_spmm_backward_on_card(cuda):
     A = tsyn.banded_random(2048, 200, 0.3, seed=11)
     Ab = csr_to_bsr(A).to(cuda)

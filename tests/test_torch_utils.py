@@ -82,6 +82,8 @@ def test_profile_fn_smoke():
     assert isinstance(p, Profile) and len(calls) == 1 + 3
     assert isinstance(p.top(3), str) and p.top(3).startswith("device total:")
     assert isinstance(p.by_source(), dict)
+    assert p.spans == {}  # f enters no span of the program (tests/test_torch_tracing.py has those)
+    assert [f.name for f in dataclasses.fields(OpTime)] == ["name", "ms", "source", "count"]
     if not torch.cuda.is_available():
         assert p.ops == [] and math.isnan(p.total_device_ms)
     fenced = []
