@@ -97,6 +97,12 @@ FOLD_THRESHOLD = 256
 #: chunks are pulled one by one and assembled on the host
 _CSR_COMPACT_MAX = 1 << 26
 
+#: ``_csr_to_host`` results landed in pinned host memory, and pinned
+#: allocations that failed so that the result went pageable (operator only;
+#: tests read them)
+pinned_landings = 0
+pinned_fallbacks = 0
+
 
 def _bucket_pow2(x: int, floor: int = 8) -> int:
     b = floor
@@ -681,17 +687,45 @@ def _csr_of(outs, shape, nnz_pad: int, accum_dtype, device) -> CSR:
         return CSR(data=data, indices=indices, indptr=indptr, shape=shape, nnz=k)
 
 
+def _pinned_empty(n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``n`` elements of page-locked host memory from torch's caching host
+    allocator: a block goes back to its cache when the last view of it dies,
+    and the next request of its size class takes it without pinning again."""
+    return torch.empty(n, dtype=dtype, pin_memory=True)
+
+
+def _land_pinned(C: CSR):
+    """A CUDA CSR's (data, indices, int64 indptr) copied into pinned host
+    memory on the current stream, one sync for the three, as numpy views (each
+    keeps its pinned tensor alive); None when the pinned allocation fails."""
+    global pinned_landings, pinned_fallbacks
+    srcs = (C.data[: C.nnz], C.indices[: C.nnz].to(torch.int32), C.indptr.to(torch.int64))
+    try:
+        dsts = [_pinned_empty(s.numel(), s.dtype) for s in srcs]
+    except RuntimeError:  # pinned memory exhausted: this call goes pageable
+        pinned_fallbacks += 1
+        return None
+    for d, s in zip(dsts, srcs):
+        d.copy_(s, non_blocking=True)
+    torch.cuda.current_stream(C.data.device).synchronize()
+    pinned_landings += 1
+    return tuple(d.numpy() for d in dsts)
+
+
 def _csr_to_host(C: CSR) -> CSR:
-    """A device CSR's arrays cut to nnz and copied to the host (int64 indptr,
-    as the JAX package's host CSRs)."""
+    """A device CSR's arrays cut to nnz and copied to the host (int32
+    indices, int64 indptr, as the JAX package's host CSRs).  CUDA arrays land
+    in pinned memory from torch's host cache (``_land_pinned``), pageable
+    where that allocation fails; CPU tensors and numpy arrays (a big-path
+    piece with tail rows, assembled on the host) go through ``as_numpy``."""
     with span("spmm.spgemm.to_host"):
-        return CSR(
-            data=as_numpy(C.data[: C.nnz]),
-            indices=as_numpy(C.indices[: C.nnz]).astype(np.int32, copy=False),
-            indptr=as_numpy(C.indptr).astype(np.int64),
-            shape=C.shape,
-            nnz=C.nnz,
+        got = _land_pinned(C) if isinstance(C.data, torch.Tensor) and C.data.is_cuda else None
+        data, indices, indptr = got or (
+            as_numpy(C.data[: C.nnz]),
+            as_numpy(C.indices[: C.nnz]).astype(np.int32, copy=False),
+            as_numpy(C.indptr).astype(np.int64),
         )
+        return CSR(data=data, indices=indices, indptr=indptr, shape=C.shape, nnz=C.nnz)
 
 
 # ---------------------------------------------------------------------------

@@ -31,9 +31,10 @@ Prints progress lines, as the JAX script does, then one JSON line: the JAX scrip
 clock and CUDA events around ``_piece_csr``, the gather and D2H ms, nnz),
 ``pieces_computed`` / ``pieces_resumed``, ``slab_big_s``,
 ``peak_device_gb`` (rank 0; ``single_peak_device_gb`` for
-``--single``), ``host_rss_gb`` (the largest process's peak) and
-``host_rss_product_gb`` (rank 0's peak when the product returned),
-``launches`` (K4 (b) and K5 on every rank, the product only;
+``--single``, and ``single_pinned_host_gb``, the pinned blocks torch's
+host cache holds after its pieces landed), ``host_rss_gb`` (the largest
+process's peak) and ``host_rss_product_gb`` (rank 0's peak when the
+product returned), ``launches`` (K4 (b) and K5 on every rank, the product only;
 ``single_launches``), ``kernel_build_s`` (the kernels' build or load
 before the product), ``device`` and ``power_limit``.  Exits nonzero on a
 mismatch (after the line), a rank that fails or hangs past its deadline,
@@ -207,6 +208,8 @@ def _rank_main(rank: int, world: int, port: int, A, opts: dict, results) -> None
                 out["single_nnz_out"] = int(Cs["slab_big"].nnz)
                 if device_type == "cuda":
                     out["single_peak_device_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+                    # the pinned blocks torch's host cache keeps after the pieces' landings
+                    out["single_pinned_host_gb"] = torch.cuda.host_memory_stats()["allocated_bytes.current"] / 1e9
                 _log(f"slab_big: out_nnz={Cs['slab_big'].nnz} on one {device_type} device in "
                      f"{out['slab_big_s']:.1f}s")
             if not opts["skip_scipy"]:
@@ -347,6 +350,7 @@ def run(n: int = 10_000_000, nnz: int = 104_600_000, *, pieces: int | None = 4, 
         res["peak_device_gb"] = round(max(r["peak_device_gb"] for r in got.values()), 3)
         if single:
             res["single_peak_device_gb"] = round(r0["single_peak_device_gb"], 3)
+            res["single_pinned_host_gb"] = round(r0["single_pinned_host_gb"], 3)
     res["host_rss_gb"] = round(max([_rss_gb()] + [r["rss_gb"] for r in got.values()]), 3)
     res["host_rss_product_gb"] = round(r0["rss_product_gb"], 3)
     res["launches"] = {k: sum(r["launches"][k] for r in got.values()) for k in r0["launches"]}

@@ -244,6 +244,82 @@ def test_slab_merge_is_deterministic_on_card(cuda):
             assert torch.equal(x1, x2)
 
 
+def _scipy_square(A):
+    S = A.to_scipy()
+    ref = (S @ S).tocsr()
+    ref.sum_duplicates()
+    ref.sort_indices()
+    return ref
+
+
+def _assert_exact(C, ref):
+    np.testing.assert_array_equal(C.indptr, ref.indptr)
+    np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
+    np.testing.assert_array_equal(C.data[: C.nnz], ref.data)  # integer counts: exact
+
+
+@pytest.mark.cuda
+def test_spgemm_result_lands_in_pinned_memory_on_card(cuda):
+    """``ops.spgemm``'s host arrays are views of pinned tensors from torch's
+    host cache, one landing counted per call, bit-equal to the pageable copy
+    of the same device CSR (``as_numpy``, as before the landing)."""
+    from spmm_tpu_torch.formats.containers import as_numpy
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    A = tsyn.webgraph_like(5000, 30000, seed=1)
+    Av = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 5)[0])
+    n0, f0 = ss.pinned_landings, ss.pinned_fallbacks
+    C = ops.spgemm(A, A, device=cuda)
+    Cv = ops.spgemm(Av, Av, device=cuda)
+    Cd = ss.spgemm_slab_csr(Av, Av, device=cuda)
+    H = ss._csr_to_host(Cd)
+    assert (ss.pinned_landings, ss.pinned_fallbacks) == (n0 + 3, f0)
+    _assert_exact(C, _scipy_square(A))
+    for R in (C, Cv, H):
+        assert all(torch.from_numpy(a).is_pinned() for a in (R.data, R.indices, R.indptr))
+        assert (R.data.dtype, R.indices.dtype, R.indptr.dtype) == (np.float32, np.int32, np.int64)
+    pageable = (as_numpy(Cd.data[: Cd.nnz]), as_numpy(Cd.indices[: Cd.nnz]), as_numpy(Cd.indptr).astype(np.int64))
+    for R in (H, Cv):  # the same product twice: K4's sums are deterministic
+        assert [a.tobytes() for a in (R.data, R.indices, R.indptr)] == [a.tobytes() for a in pageable]
+
+
+@pytest.mark.cuda
+def test_held_result_survives_host_cache_reuse_on_card(cuda):
+    """A result the caller holds keeps its values while three more products
+    of other operands land (and are dropped) through the same host cache:
+    no pinned block is handed out twice."""
+    A = tsyn.webgraph_like(5000, 30000, seed=1)
+    A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 7)[0])
+    held = ops.spgemm(A, A, device=cuda)
+    kept = [a.copy() for a in (held.data, held.indices, held.indptr)]
+    for seed in (8, 9, 10):  # the same structure, other values: blocks of the held result's size classes
+        B = dataclasses.replace(A, data=rhs(1, A.nnz_pad, seed)[0])
+        other = ops.spgemm(B, B, device=cuda)
+        assert not np.array_equal(other.data, held.data)
+        del other
+    for a, k in zip((held.data, held.indices, held.indptr), kept):
+        assert a.tobytes() == k.tobytes()
+
+
+@pytest.mark.cuda
+def test_failed_pinned_allocation_goes_pageable_on_card(cuda, monkeypatch):
+    """With the pinned allocation made to raise, the product is still exact
+    against scipy, in pageable arrays, and the fallback is counted."""
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    def exhausted(n, dtype):
+        raise RuntimeError("CUDA error: out of memory (pinned)")
+
+    monkeypatch.setattr(ss, "_pinned_empty", exhausted)
+    A = tsyn.webgraph_like(5000, 30000, seed=1)
+    n0, f0 = ss.pinned_landings, ss.pinned_fallbacks
+    C = ops.spgemm(A, A, device=cuda)
+    assert (ss.pinned_landings, ss.pinned_fallbacks) == (n0, f0 + 1)
+    _assert_exact(C, _scipy_square(A))
+    assert (C.data.dtype, C.indices.dtype, C.indptr.dtype) == (np.float32, np.int32, np.int64)
+    assert not any(torch.from_numpy(a).is_pinned() for a in (C.data, C.indices, C.indptr))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("panel", [False, True])
 def test_blocked_spmm_slab_on_card(cuda, panel):

@@ -545,6 +545,78 @@ def test_tensor_held_operands_stay_on_their_device():
     _check(ss._csr_to_host(C), _oracle(A.to_scipy(), A.to_scipy()))
 
 
+# ---- the result copy: pinned landings on the card, today's copy on the CPU ---
+
+_TO_HOST_CASES = {  # name: (values, accum_dtype)
+    "fp32": (True, torch.float32),
+    "fp64": (True, torch.float64),
+    "pattern": (False, torch.float32),
+}
+
+
+def _tensor_csr(case):
+    """A tensor-held CSR as the device paths hand ``_csr_to_host`` one: data
+    and indices padded past nnz, int32 indptr."""
+    values, acc = _TO_HOST_CASES[case]
+    A = tsyn.webgraph_like(300, 1800, seed=4)
+    if values:
+        A = _with_values(A, 9)
+    C = ss.spgemm_slab_csr(A, A, accum_dtype=acc, device="cpu")
+    assert C.data.shape[0] > C.nnz and C.indptr.dtype == torch.int32
+    return A, C
+
+
+def _assert_host_copy_of(H, C, acc):
+    """H holds C's arrays cut to nnz, bit for bit, with the host CSR's dtypes."""
+    assert H.indices.dtype == np.int32 and H.indptr.dtype == np.int64
+    assert H.data.dtype == torch.empty(0, dtype=acc).numpy().dtype
+    assert (H.nnz, H.shape) == (C.nnz, C.shape)
+    assert H.data.tobytes() == C.data[: C.nnz].numpy().tobytes()
+    np.testing.assert_array_equal(H.indices, C.indices[: C.nnz].numpy())
+    np.testing.assert_array_equal(H.indptr, C.indptr.numpy())
+
+
+@pytest.mark.parametrize("case", list(_TO_HOST_CASES))
+def test_csr_to_host_of_cpu_tensors_is_the_pageable_copy(case):
+    """CPU tensors take ``as_numpy`` as before the pinned landing: the same
+    arrays, dtypes and values, and neither landing counter moves."""
+    A, C = _tensor_csr(case)
+    counts = (ss.pinned_landings, ss.pinned_fallbacks)
+    H = ss._csr_to_host(C)
+    assert (ss.pinned_landings, ss.pinned_fallbacks) == counts
+    _assert_host_copy_of(H, C, _TO_HOST_CASES[case][1])
+    _check(H, _oracle(A.to_scipy(), A.to_scipy()))
+
+
+@pytest.mark.parametrize("case", list(_TO_HOST_CASES))
+def test_pinned_landing_walk_gives_the_pageable_copy(case, monkeypatch):
+    """``_land_pinned``'s slices, casts and copies on CPU tensors, with the
+    pinned allocation (plain ``torch.empty`` here) and the stream stubbed:
+    the arrays ``_csr_to_host`` gives on the CPU, one landing counted."""
+    monkeypatch.setattr(ss, "_pinned_empty", lambda n, dtype: torch.empty(n, dtype=dtype))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("Stream", (), {"synchronize": lambda self: None})())
+    _, C = _tensor_csr(case)
+    counts = (ss.pinned_landings, ss.pinned_fallbacks)
+    data, indices, indptr = ss._land_pinned(C)
+    assert (ss.pinned_landings, ss.pinned_fallbacks) == (counts[0] + 1, counts[1])
+    _assert_host_copy_of(CSR(data=data, indices=indices, indptr=indptr, shape=C.shape, nnz=C.nnz), C,
+                         _TO_HOST_CASES[case][1])
+
+
+def test_failed_pinned_allocation_counts_a_fallback(monkeypatch):
+    """A pinned allocation that raises gives no landing: ``_land_pinned``
+    returns None and counts one fallback, so the call goes pageable."""
+    def exhausted(n, dtype):
+        raise RuntimeError("CUDA error: out of memory (pinned)")
+
+    monkeypatch.setattr(ss, "_pinned_empty", exhausted)
+    _, C = _tensor_csr("fp32")
+    counts = (ss.pinned_landings, ss.pinned_fallbacks)
+    assert ss._land_pinned(C) is None
+    assert (ss.pinned_landings, ss.pinned_fallbacks) == (counts[0], counts[1] + 1)
+
+
 # ---- F9: an empty product's dtype; F10: the structural product --------------
 
 
