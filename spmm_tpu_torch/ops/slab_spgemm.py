@@ -103,6 +103,10 @@ _CSR_COMPACT_MAX = 1 << 26
 pinned_landings = 0
 pinned_fallbacks = 0
 
+#: products that took the streamed piece route, ``spgemm_slab_big``
+#: (operator only; tests read it)
+big_products = 0
+
 
 def _bucket_pow2(x: int, floor: int = 8) -> int:
     b = floor
@@ -865,11 +869,12 @@ def spgemm_slab(
             hint = 2
             while hint * _MAX_EXP_PAD < int(e.args[1]) * 2:
                 hint *= 2
-            out = spgemm_slab_big(
-                A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget,
-                accum_dtype=accum_dtype, device=dev, pattern=pattern, pieces_hint=hint,
-                checkpoint_dir=checkpoint_dir,
-            )
+            with span("spmm.spgemm.big"):
+                out = spgemm_slab_big(
+                    A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget,
+                    accum_dtype=accum_dtype, device=dev, pattern=pattern, pieces_hint=hint,
+                    checkpoint_dir=checkpoint_dir,
+                )
             return out if as_csr else to_coo(out)
         if checkpoint_dir is not None:
             warnings.warn(
@@ -1146,9 +1151,16 @@ def spgemm_slab_big(
     slots.  Runs on ``device``, the card by default.  Returns a host CSR.
 
     ``checkpoint_dir``: persist each finished piece and resume a killed run
-    from them (:class:`_BigCheckpoint`).  The caller owns the directory."""
+    from them (:class:`_BigCheckpoint`).  The caller owns the directory.
+
+    Spans: ``spmm.spgemm.big.split`` (each round of the piece search),
+    ``spmm.spgemm.big.piece`` (each piece, from its sub-CSR to its landed
+    triple, or its checkpoint read) and ``spmm.spgemm.big.stitch``;
+    :func:`spgemm_slab` wraps the whole call in ``spmm.spgemm.big``."""
     from spmm_tpu_torch.parallel.spgemm_spmd import _uniform_schedule
 
+    global big_products
+    big_products += 1
     dev = compute_device(device)
     W = seg_w
     classes = _norm_classes(classes, W)
@@ -1179,23 +1191,24 @@ def spgemm_slab_big(
     nnz_pad_piece = _round_up(body_max * W, 1024)
     piece_csrs = []
     for p in range(P):
-        if ckpt is not None:
-            got = ckpt.load(p)
+        with span("spmm.spgemm.big.piece"):
+            got = ckpt.load(p) if ckpt is not None else None
             if got is not None:
                 piece_csrs.append(got)
                 continue
-        sub = CSR(
-            data=S.data[p], indices=S.indices[p], indptr=S.indptr[p].astype(np.int64),
-            shape=(rows_pad, A.shape[1]), nnz=int(nnz_s[p]),
-        )
-        Cp = _csr_to_host(_piece_csr(sub, cls[p], counts[p], sc_tab[p], B_dev, dev,
-                                     nclasses=len(classes), nnz_pad=nnz_pad_piece, kw=kw))
-        piece = (Cp.data, Cp.indices, Cp.indptr)
-        piece_csrs.append(piece)
-        if ckpt is not None:
-            ckpt.save(p, piece)
+            sub = CSR(
+                data=S.data[p], indices=S.indices[p], indptr=S.indptr[p].astype(np.int64),
+                shape=(rows_pad, A.shape[1]), nnz=int(nnz_s[p]),
+            )
+            Cp = _csr_to_host(_piece_csr(sub, cls[p], counts[p], sc_tab[p], B_dev, dev,
+                                         nclasses=len(classes), nnz_pad=nnz_pad_piece, kw=kw))
+            piece = (Cp.data, Cp.indices, Cp.indptr)
+            piece_csrs.append(piece)
+            if ckpt is not None:
+                ckpt.save(p, piece)
 
-    return _stitch(piece_csrs, A.nrow, B.ncol)
+    with span("spmm.spgemm.big.stitch"):
+        return _stitch(piece_csrs, A.nrow, B.ncol)
 
 
 def _choose_pieces(A: CSR, B: CSR, W: int, classes, pieces: int | None, P0: int, nsh: int = 1,
@@ -1207,25 +1220,27 @@ def _choose_pieces(A: CSR, B: CSR, W: int, classes, pieces: int | None, P0: int,
     A block whose expansion overflows int32 doubles ``P`` in either case.
     Returns (P, the blocks' ShardedCSR, their ``_per_shard_sizing``, the
     largest block's body pairs); ``times`` ends holding each returned
-    block's host sizing ms."""
+    block's host sizing ms.  Each round (a partition and its sizing) is one
+    ``spmm.spgemm.big.split`` span."""
     from spmm_tpu_torch.parallel.partition import partition_rows
     from spmm_tpu_torch.parallel.spgemm_spmd import _per_shard_sizing
 
     P = pieces or P0
     while True:
-        S = partition_rows(A, nsh * P)
-        # one row alone can exceed the budget (it becomes a tail row): stop
-        # splitting at one-row blocks
-        at_min = S.rows_per_shard <= 1 or nsh * P >= A.nrow
-        if times is not None:
-            times.clear()
-        try:
-            sizing = _per_shard_sizing(S, B, W, classes, times=times)
-        except ValueError:  # a block still exceeds the int32 expansion
-            if at_min:
-                raise
-            P *= 2
-            continue
+        with span("spmm.spgemm.big.split"):
+            S = partition_rows(A, nsh * P)
+            # one row alone can exceed the budget (it becomes a tail row): stop
+            # splitting at one-row blocks
+            at_min = S.rows_per_shard <= 1 or nsh * P >= A.nrow
+            if times is not None:
+                times.clear()
+            try:
+                sizing = _per_shard_sizing(S, B, W, classes, times=times)
+            except ValueError:  # a block still exceeds the int32 expansion
+                if at_min:
+                    raise
+                P *= 2
+                continue
         body_max = int(sizing[4].max(initial=0))
         if pieces is not None or body_max * W <= _MAX_EXP_PAD or at_min:
             return P, S, sizing, body_max

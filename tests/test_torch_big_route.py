@@ -1,0 +1,120 @@
+"""``ops.spgemm``'s streamed piece route (``spgemm_slab_big``) on the CPU,
+with ``_MAX_EXP_PAD`` cut so that a web graph of a few thousand rows takes
+it: C against the benchmark's plain reference (``portbench/reference/``),
+the route's counter, and its spans under ``torch.profiler`` (none without
+one).  BASELINE config 5 takes this route at full size on the card."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from portbench.judge import scaled_err
+from portbench.reference.spgemm import spgemm as spgemm_reference
+from spmm_tpu_torch import ops
+from spmm_tpu_torch.formats import synthetic as tsyn
+from spmm_tpu_torch.ops import slab_spgemm as ss
+
+from torch_parity import one_torch_thread, rhs  # noqa: F401  (autouse)
+
+#: ~2^17.5 padded slots of the graphs below: the route starts at 8 pieces
+SMALL_BUDGET = 1 << 16
+BIG_SPANS = ("spmm.spgemm.big", "spmm.spgemm.big.split", "spmm.spgemm.big.piece", "spmm.spgemm.big.stitch")
+
+
+def _graph(seed: int):
+    A = tsyn.webgraph_like(3000, 18000, seed=seed)
+    return dataclasses.replace(A, data=rhs(1, A.nnz_pad, seed)[0])
+
+
+def _span_counts(events) -> dict:
+    out = dict.fromkeys(BIG_SPANS, 0)
+    for e in events:
+        if e.name in out:
+            out[e.name] += 1
+    return out
+
+
+@pytest.mark.parametrize("seed", [5, 2**31 + 7])
+def test_ops_spgemm_takes_the_piece_route_and_matches_the_reference(seed, monkeypatch):
+    """C's structure is the reference's exactly, its values within the
+    benchmark's 1e-4 of each row's sum of absolute partial products (the
+    plain merge's prefix differences keep to the row's scale), and the
+    product is counted once by the route."""
+    monkeypatch.setattr(ss, "_MAX_EXP_PAD", SMALL_BUDGET)
+    A = _graph(seed)
+    before = ss.big_products
+    C = ops.spgemm(A, A, device="cpu")
+    assert ss.big_products - before == 1
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    ip, ix, dv = t(A.indptr), t(A.indices[: A.nnz]), t(A.data[: A.nnz])
+    r_ptr, r_idx, r_val, r_scale = spgemm_reference(ip, ix, dv, ip, ix, dv, A.shape[1])
+    assert np.array_equal(np.asarray(C.indptr, np.int64), r_ptr.numpy())
+    assert np.array_equal(np.asarray(C.indices[: C.nnz], np.int64), r_idx.numpy())
+    rows = torch.repeat_interleave(torch.arange(A.shape[0]), r_ptr.diff())
+    row_scale = torch.zeros(A.shape[0], dtype=torch.float64).index_add_(0, rows, r_scale)[rows]
+    assert scaled_err(torch.from_numpy(np.asarray(C.data[: C.nnz])), r_val, row_scale) <= 1e-4
+
+
+@pytest.mark.parametrize("route", ["ops.spgemm", "one_piece_first", "checkpoint_resume"])
+def test_the_big_spans_count_the_pieces_and_the_rounds(route, monkeypatch, tmp_path):
+    """Under a CPU profiler: one stitch span a product, and one
+    ``spmm.spgemm.big`` where ``ops.spgemm`` chose the route; as many piece
+    spans as the triples ``_stitch`` gets, as many split spans as
+    ``partition_rows`` calls; a search started at one piece takes several
+    rounds, and a resumed product's pieces read from their checkpoint files
+    are pieces too."""
+    from spmm_tpu_torch.parallel import partition
+
+    monkeypatch.setattr(ss, "_MAX_EXP_PAD", SMALL_BUDGET)
+    A = _graph(3)
+    seen = {"pieces": 0, "rounds": 0}
+    stitch, split = ss._stitch, partition.partition_rows
+
+    def counted_stitch(triples, *a):
+        seen["pieces"] += len(triples)
+        return stitch(triples, *a)
+
+    def counted_split(*a, **k):
+        seen["rounds"] += 1
+        return split(*a, **k)
+
+    if route == "ops.spgemm":
+        run = lambda: ops.spgemm(A, A, device="cpu")
+    elif route == "one_piece_first":
+        run = lambda: ss.spgemm_slab_big(A, A, pieces_hint=1, device="cpu")
+    else:
+        ck = str(tmp_path / "ck")
+        ss.spgemm_slab_big(A, A, checkpoint_dir=ck, device="cpu")
+        run = lambda: ss.spgemm_slab_big(A, A, checkpoint_dir=ck, device="cpu")
+    monkeypatch.setattr(ss, "_stitch", counted_stitch)
+    monkeypatch.setattr(partition, "partition_rows", counted_split)
+    before = ss.big_products
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        C = run()
+    spans = _span_counts(prof.events())
+    assert ss.big_products - before == 1 and spans["spmm.spgemm.big.stitch"] == 1
+    assert spans["spmm.spgemm.big"] == (route == "ops.spgemm")
+    assert spans["spmm.spgemm.big.piece"] == seen["pieces"] >= 2
+    assert spans["spmm.spgemm.big.split"] == seen["rounds"] >= (3 if route == "one_piece_first" else 1)
+    S = (A.to_scipy() @ A.to_scipy()).sorted_indices()
+    assert np.array_equal(np.asarray(C.indptr, np.int64), S.indptr)
+    assert np.array_equal(C.indices[: C.nnz], S.indices)
+
+
+def test_no_big_span_is_made_without_a_profiler(monkeypatch):
+    """With no profiler running the route's spans are the shared no-op: no
+    ``record_function`` is made, and the counter still counts."""
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) with no profiler running")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(ss, "_MAX_EXP_PAD", SMALL_BUDGET)
+    A = _graph(4)
+    before = ss.big_products
+    ops.spgemm(A, A, device="cpu")
+    assert ss.big_products - before == 1

@@ -321,6 +321,32 @@ def test_failed_pinned_allocation_goes_pageable_on_card(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
+def test_ops_spgemm_piece_route_on_card(cuda, monkeypatch):
+    """``ops.spgemm`` on a graph above a cut ``_MAX_EXP_PAD`` takes the
+    streamed piece route (``spgemm_slab_big``, as BASELINE config 5 does at
+    full size): C's structure equal to scipy's, its values within fp32
+    rounding, one product counted, its pieces (the triples ``_stitch``
+    gets) landed pinned where tail-free, and no pinned allocation failed."""
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    monkeypatch.setattr(ss, "_MAX_EXP_PAD", 1 << 22)
+    A = tsyn.webgraph_like(200_000, 1_500_000, seed=2)
+    A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 11)[0])
+    stitch, seen = ss._stitch, []
+    monkeypatch.setattr(ss, "_stitch", lambda triples, *a: seen.append(len(triples)) or stitch(triples, *a))
+    counters = lambda: np.array([ss.big_products, ss.pinned_landings, ss.pinned_fallbacks])
+    before = counters()
+    C = ops.spgemm(A, A, device=cuda)
+    products, landings, fallbacks = counters() - before
+    assert products == 1 and len(seen) == 1 and seen[0] >= 2 and fallbacks == 0
+    assert 1 <= landings <= seen[0]
+    ref = _scipy_square(A)
+    np.testing.assert_array_equal(C.indptr, ref.indptr)
+    np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
+    np.testing.assert_allclose(C.data[: C.nnz], ref.data, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("panel", [False, True])
 def test_blocked_spmm_slab_on_card(cuda, panel):
     """One K2 launch over all v8-group buckets, and the kernel path equal to
