@@ -2,10 +2,12 @@
 
 C = A @ B without a global sort of the partial products:
 
-1. **sizing** (host, O(nnz + nrow); ``_sizing_device`` for operands held in
-   tensors): B's rows are cut into W-wide segments; a "pa" is one (A nonzero,
-   B segment) pair.  Each A row's padded expansion is W times its pa count,
-   and puts the row in one of ``DEFAULT_CLASSES`` (~1.25× steps).
+1. **sizing** (O(nnz + nrow), ``_sizing``): on the device the product
+   computes on (``_sizing_device``, from the copy of the operands' structure
+   that the tables then read), by the native host pass for CPU products of
+   host operands.  B's rows are cut into W-wide segments; a "pa" is one (A
+   nonzero, B segment) pair.  Each A row's padded expansion is W times its
+   pa count, and puts the row in one of ``DEFAULT_CLASSES`` (~1.25× steps).
 2. **plan** (``spgemm_plan``, device): the B2 table — B's rows padded to W-wide
    segments, (nsegB_pad, W) int32 columns with ``_INT_MAX`` pads plus a value
    table of the same shape — the pa list in A-row order, and the rows sorted
@@ -107,6 +109,12 @@ pinned_fallbacks = 0
 #: (operator only; tests read it)
 big_products = 0
 
+#: sizings by route: on the device (``_sizing_device``: a CUDA product's host
+#: operands, operands held in tensors) and by the native host pass (CPU
+#: products of host operands) (operator only; tests read them)
+device_sizings = 0
+host_sizings = 0
+
 
 def _bucket_pow2(x: int, floor: int = 8) -> int:
     b = floor
@@ -178,6 +186,10 @@ class Sizing:
     counts: tuple  #: rows per class, then the tail count (len(classes) + 1)
     #: (nrow,) int32 rows in stable class order (host sizing only)
     rows_sorted: np.ndarray | None = None
+    #: device sizing only: ((A's indptr, indices[:nnz]), (B's)) as tensors
+    #: where it ran, B's the same tensors when B is A; the tables read them
+    #: there, so a host operand's structure crosses to the device once
+    structure: tuple | None = None
 
     def __iter__(self):
         return iter((self.npa, self.nsegB, self.cls, self.counts))
@@ -206,13 +218,19 @@ def _tail_pairs(a_iptr, a_ind, cls, tail: int, nseg_row) -> int:
     return int(nseg_row[np.asarray(a_ind)[tpos].astype(np.int64)].sum())
 
 
-def _sizing(A: CSR, B: CSR, W: int, classes) -> Sizing:
-    """O(nnz + nrow) host sizing: (npa, nsegB, per-row class, counts) and the
-    class permutation.  Native C++ pass, numpy without the native library.
-    Operands held in tensors go to :func:`_sizing_device`."""
+def _sizing(A: CSR, B: CSR, W: int, classes, device=None) -> Sizing:
+    """O(nnz + nrow) sizing: (npa, nsegB, per-row class, counts) and the
+    class order, where the product computes: ``device``, else where A's
+    tensors lie, else the host.  Host operands of a CPU product take the
+    native C++ pass (numpy without the native library); every other product
+    :func:`_sizing_device` on that device."""
+    global device_sizings, host_sizings
     with span("spmm.spgemm.sizing"):
-        if not isinstance(A.data, np.ndarray) or not isinstance(B.data, np.ndarray):
-            return _sizing_device(A, B, W, classes)
+        host_held = isinstance(A.data, np.ndarray) and isinstance(B.data, np.ndarray)
+        if not host_held or (device is not None and torch.device(device).type != "cpu"):
+            device_sizings += 1
+            return _sizing_device(A, B, W, classes, device)
+        host_sizings += 1
         a_iptr = np.asarray(A.indptr, np.int64)
         a_ind = np.asarray(A.indices[: A.nnz])
         b_iptr = np.asarray(B.indptr, np.int64)
@@ -248,38 +266,67 @@ def _sizing(A: CSR, B: CSR, W: int, classes) -> Sizing:
         )
 
 
-def _sizing_device(A: CSR, B: CSR, W: int, classes) -> Sizing:
-    """Sizing of operands held in tensors, on their device: the per-row class
-    stays there and only (npa, nsegB, counts) come to the host (one copy of
-    ~35 integers), so a chained product ``spgemm_slab_csr(C, X)`` moves no
-    nnz-scale array.  Sums are int64, so no int32 overflow can hide."""
-    dev = A.data.device
-    a_iptr = torch.as_tensor(A.indptr, device=dev).long()
-    a_ind = torch.as_tensor(A.indices, device=dev).long()
-    b_iptr = torch.as_tensor(B.indptr, device=dev).long()
-    nclasses = len(classes)
-    lenB = b_iptr[1:] - b_iptr[:-1]
-    nsegB_row = (lenB + (W - 1)) // W
-    live = torch.arange(a_ind.shape[0], device=dev) < A.nnz
-    nseg_a = torch.where(live, nsegB_row[a_ind.clamp(0, lenB.shape[0] - 1)], 0)
-    seg_c = torch.cat([nseg_a.new_zeros(1), torch.cumsum(nseg_a, 0)])
-    iptr = a_iptr.clamp(0, a_ind.shape[0])
+def _structure_on(M: CSR, dev) -> tuple:
+    """M's indptr and its indices cut to nnz as tensors on ``dev``: host
+    arrays are copied there (nnz indices, not the padding), tensors already
+    there are themselves."""
+    return torch.as_tensor(M.indptr, device=dev), torch.as_tensor(M.indices[: M.nnz], device=dev)
+
+
+def _counts_of(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) int64 count of each value of ``keys`` (in [0, n)), with no host
+    synchronisation (``torch.bincount`` reads the keys' range on the host).
+    Each key adds into one of 1,024 copies of its counter, picked by its
+    position: ~1M atomic adds into ~33 counters serialise (0.35 ms of device
+    time on web-Google's rows)."""
+    lanes = 1024
+    slot = keys * lanes + torch.arange(keys.numel(), device=keys.device) % lanes
+    counts = torch.zeros(n * lanes, dtype=torch.int64, device=keys.device)
+    return counts.scatter_add_(0, slot, torch.ones_like(slot)).view(n, lanes).sum(1)
+
+
+def _sizing_device(A: CSR, B: CSR, W: int, classes, device=None) -> Sizing:
+    """The sizing in torch ops on ``device`` (default: where A's tensors
+    lie).  The operands' structure goes there once, once for both when B is
+    A, and rides on the result (``Sizing.structure``) for the tables; the
+    per-row class stays there.  Only npa, nsegB, the body slots, the count
+    of A's column indices that are not rows of B and the class counts come
+    to the host, in one copy of ~40 integers, so a chained product
+    ``spgemm_slab_csr(C, X)`` moves no nnz-scale array.  Per-nonzero counts
+    are int32, sums int64.  Raises the native pass's ValueError where a
+    column index of A is not a row of B (the gather reads a clamped index
+    until then)."""
+    dev = A.data.device if device is None else torch.device(device)
+    nnz, nrowB, nclasses = A.nnz, B.shape[0], len(classes)
+    if nnz and not nrowB:
+        raise ValueError("spgemm_sizing: a column index of A is not a row of B")
+    a_iptr, a_ind = _structure_on(A, dev)
+    b_iptr, b_ind = (a_iptr, a_ind) if B is A else _structure_on(B, dev)
+    nsegB_row = ((b_iptr[1:] - b_iptr[:-1]).long() + (W - 1)) // W
+    # seg_c[q]: pairs of A's nonzeros before q
+    seg_c = torch.zeros(nnz + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(nsegB_row.int().index_select(0, a_ind.clamp(0, max(nrowB - 1, 0))), 0,
+                 dtype=torch.int64, out=seg_c[1:])
+    iptr = a_iptr.long().clamp(0, nnz)
     exp_pad_row = W * (seg_c[iptr[1:]] - seg_c[iptr[:-1]])
-    classes_t = torch.tensor(classes, dtype=torch.int64, device=dev)
-    cls = torch.searchsorted(classes_t, exp_pad_row, side="left")
+    cls = torch.searchsorted(torch.tensor(classes, dtype=torch.int64, device=dev), exp_pad_row, side="left")
     cls = torch.where(exp_pad_row == 0, nclasses + 1, cls)
-    counts = torch.bincount(cls, minlength=nclasses + 2)
-    head = torch.cat([seg_c[-1:], nsegB_row.sum().view(1), counts]).cpu().numpy()
-    npa, nsegB = int(head[0]), int(head[1])
+    counts = _counts_of(cls, nclasses + 2)
+    body = torch.where(cls < nclasses, exp_pad_row, 0).sum()
+    bad = ((a_ind < 0) | (a_ind >= nrowB)).sum()
+    head = torch.cat([torch.stack([seg_c[-1], nsegB_row.sum(), body, bad]), counts]).cpu()
+    npa, nsegB, body, bad = head[:4].tolist()
+    if bad:
+        raise ValueError("spgemm_sizing: a column index of A is not a row of B")
     if npa * W >= _MAX_EXP_PAD:
-        raise _ExpansionTooLarge(npa * W, int(exp_pad_row[cls < nclasses].sum()))
-    counts, remap = _fold_small_classes(head[2:], nclasses)
-    cls = torch.from_numpy(remap).to(dev)[cls]
+        raise _ExpansionTooLarge(npa * W, body)
+    counts, remap = _fold_small_classes(head[4:].numpy(), nclasses)
     return Sizing(
         npa=npa,
         nsegB=nsegB,
-        cls=cls,
+        cls=torch.from_numpy(remap).to(dev)[cls],
         counts=tuple(int(c) for c in counts[: nclasses + 1]),
+        structure=((a_iptr, a_ind), (b_iptr, b_ind)),
     )
 
 
@@ -438,6 +485,24 @@ def _plan_tables(
     return _Tables(b2_cols, b2_vals, pa_b2row, pa_aval, rowmeta, rs)
 
 
+def _table_operands(A: CSR, B: CSR, sizing: Sizing, device, pattern: bool) -> tuple:
+    """A and B on ``device`` as :func:`_plan_tables` reads them.  After a
+    device sizing, its structure with the values copied beside it, and in
+    pattern mode no values (the tables read only their dtype); else the
+    operands' ``.to()``.  When B is A, one copy serves both."""
+    if sizing.structure is None:
+        Ad = A.to(device)
+        return Ad, Ad if B is A else B.to(device)
+
+    def on_device(M, structure):
+        indptr, indices = (t.to(device) for t in structure)
+        data = torch.as_tensor(M.data[: 0 if pattern else M.nnz], device=device)
+        return CSR(data=data, indices=indices, indptr=indptr, shape=M.shape, nnz=M.nnz)
+
+    Ad = on_device(A, sizing.structure[0])
+    return Ad, Ad if B is A else on_device(B, sizing.structure[1])
+
+
 def _rows_sorted(sizing: Sizing, device) -> torch.Tensor:
     """The sizing's stable class order on ``device``: the host counting sort
     when the sizing ran on the host, a stable device sort otherwise."""
@@ -460,8 +525,10 @@ def spgemm_plan(
     sizing: Sizing | None = None,
 ) -> SpgemmPlan:
     """Build the expansion layout on ``device`` (default: where A's tensors
-    lie, the card for numpy-held operands).  Host work is the O(nnz + nrow)
-    sizing; all O(expansion) work is on the device.
+    lie, the card for numpy-held operands).  The O(nnz + nrow) sizing runs
+    there too (on the host for a CPU product of host operands), and the
+    tables read the structure it copied; all O(expansion) work is on the
+    device.
     ``pattern=None`` detects all-ones values (value tables omitted).
 
     ``expand=True`` also gathers every chunk's partial products into the
@@ -475,10 +542,10 @@ def spgemm_plan(
     dev = _device(A, device)
     check_class_limit(classes, dev)
     if sizing is None:
-        sizing = _sizing(A, B, W, classes)
+        sizing = _sizing(A, B, W, classes, dev)
     with span("spmm.spgemm.tables"):
         tables = _plan_tables(
-            A.to(dev), B.to(dev), _rows_sorted(sizing, dev),
+            *_table_operands(A, B, sizing, dev, pattern), _rows_sorted(sizing, dev),
             W=W, npa_pad=_round_up(sizing.npa, 1024), nsegB_pad=_nseg_pad(sizing.nsegB),
             nrow_pad=A.nrow + _max_chunk(classes, slot_budget), pattern=pattern,
         )
@@ -505,8 +572,9 @@ def spgemm_plan(
         aligned_accum=aligned_accum,
     )
     # the structure-only sizing rides along (not a field: lost by .to() and
-    # serialization) so spgemm_plan_revalue skips the host pass
-    object.__setattr__(plan, "_sizing_cache", (A.nnz, B.nnz, sizing))
+    # serialization) so spgemm_plan_revalue skips the sizing; without the
+    # operands' structure, which the plan does not need to hold
+    object.__setattr__(plan, "_sizing_cache", (A.nnz, B.nnz, dataclasses.replace(sizing, structure=None)))
     return plan
 
 
@@ -662,15 +730,15 @@ def spgemm_slab_csr(
     bound, which every output nonzero fits under."""
     W = seg_w
     classes_n = _norm_classes(classes, W)
+    dev = _device(A, device)
     if sizing is None:
-        sizing = _sizing(A, B, W, classes_n)
+        sizing = _sizing(A, B, W, classes_n, dev)
     ntail = sizing.counts[len(classes_n)]
     if ntail:
         raise ValueError(
             f"{ntail} rows exceed the largest expansion class; "
             "use spgemm_slab() (host fallback) or raise the class ceiling"
         )
-    dev = _device(A, device)
     outs, _, _ = spgemm_slab_device(
         A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget, accum_dtype=accum_dtype,
         device=dev, pattern=pattern, sizing=sizing,
@@ -862,12 +930,16 @@ def spgemm_slab(
         W = seg_w
         classes_n = _norm_classes(classes, W)
         try:
-            sizing = _sizing(A, B, W, classes_n)
+            sizing = _sizing(A, B, W, classes_n, dev)
         except _ExpansionTooLarge as e:
+            # the pieces run after the handler, which lets go of the
+            # traceback and with it the device sizing's arrays
+            sizing, body_slots = None, int(e.args[1])
+        if sizing is None:
             # uniform row pieces; start the piece search at the slab slots /
             # (budget / 2): the tail rows' pairs take no slots
             hint = 2
-            while hint * _MAX_EXP_PAD < int(e.args[1]) * 2:
+            while hint * _MAX_EXP_PAD < body_slots * 2:
                 hint *= 2
             with span("spmm.spgemm.big"):
                 out = spgemm_slab_big(

@@ -16,6 +16,7 @@ fp64 at a tiny size, and bit-identical repeats (no atomics in K2, K3 or K1).
 
 import dataclasses
 import importlib
+import json
 
 import numpy as np
 import pytest
@@ -27,7 +28,7 @@ from spmm_tpu_torch.formats import CSR, csr_to_bsr, ell_pack
 from spmm_tpu_torch.formats import synthetic as tsyn
 from spmm_tpu_torch.ops import bsr_kernel, ell_kernel
 
-from torch_parity import rhs
+from torch_parity import SIZING_CASES, rhs, sizing_case
 
 
 @pytest.fixture
@@ -324,9 +325,10 @@ def test_failed_pinned_allocation_goes_pageable_on_card(cuda, monkeypatch):
 def test_ops_spgemm_piece_route_on_card(cuda, monkeypatch):
     """``ops.spgemm`` on a graph above a cut ``_MAX_EXP_PAD`` takes the
     streamed piece route (``spgemm_slab_big``, as BASELINE config 5 does at
-    full size): C's structure equal to scipy's, its values within fp32
-    rounding, one product counted, its pieces (the triples ``_stitch``
-    gets) landed pinned where tail-free, and no pinned allocation failed."""
+    full size) after a whole-A sizing on the card that overflows: C's
+    structure equal to scipy's, its values within fp32 rounding, one
+    product counted, its pieces (the triples ``_stitch`` gets) landed pinned
+    where tail-free, and no pinned allocation failed."""
     from spmm_tpu_torch.ops import slab_spgemm as ss
 
     monkeypatch.setattr(ss, "_MAX_EXP_PAD", 1 << 22)
@@ -334,16 +336,88 @@ def test_ops_spgemm_piece_route_on_card(cuda, monkeypatch):
     A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 11)[0])
     stitch, seen = ss._stitch, []
     monkeypatch.setattr(ss, "_stitch", lambda triples, *a: seen.append(len(triples)) or stitch(triples, *a))
-    counters = lambda: np.array([ss.big_products, ss.pinned_landings, ss.pinned_fallbacks])
+    counters = lambda: np.array([ss.big_products, ss.pinned_landings, ss.pinned_fallbacks, ss.device_sizings,
+                                 ss.host_sizings])
     before = counters()
     C = ops.spgemm(A, A, device=cuda)
-    products, landings, fallbacks = counters() - before
+    products, landings, fallbacks, device_sizings, host_sizings = counters() - before
     assert products == 1 and len(seen) == 1 and seen[0] >= 2 and fallbacks == 0
+    assert (device_sizings, host_sizings) == (1, 0)  # the whole-A sizing that overflowed ran on the card
     assert 1 <= landings <= seen[0]
     ref = _scipy_square(A)
     np.testing.assert_array_equal(C.indptr, ref.indptr)
     np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
     np.testing.assert_allclose(C.data[: C.nnz], ref.data, rtol=1e-4, atol=1e-4)
+
+
+def _htod_bytes(prof, path):
+    """Bytes of the host-to-device copies in a profile, from its trace's
+    copy events, and how many copies there were."""
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    return sum(int(e["args"]["bytes"]) for e in copies), len(copies)
+
+
+@pytest.mark.cuda
+def test_ops_spgemm_sizes_on_card_from_one_copy_of_a(cuda, tmp_path):
+    """``ops.spgemm(A, A)`` of host operands on the card sizes there (one
+    device sizing counted, no host pass) and sends A once: a profiled
+    call's host-to-device copies hold at least A's bytes (indptr, indices
+    and values cut to nnz) and at most 1.05 times them; C's structure is
+    scipy's and its values within 1e-4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    A = tsyn.webgraph_like(100_000, 600_000, seed=3)
+    A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 12)[0])
+    warm = dataclasses.replace(A)  # builds and loads the kernels outside the profile
+    ops.spgemm(warm, warm, device=cuda)
+    fresh = dataclasses.replace(A)  # an operand the plan cache has not seen
+    before = (ss.device_sizings, ss.host_sizings)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        C = ops.spgemm(fresh, fresh, device=cuda)
+    assert (ss.device_sizings - before[0], ss.host_sizings - before[1]) == (1, 0)
+    a_bytes = sum(int(np.asarray(x).nbytes) for x in (A.indptr, A.indices[: A.nnz], A.data[: A.nnz]))
+    htod, copies = _htod_bytes(prof, tmp_path / "trace.json")
+    assert copies >= 1 and a_bytes <= htod <= 1.05 * a_bytes, (htod, a_bytes, copies)
+    ref = _scipy_square(A)
+    np.testing.assert_array_equal(C.indptr, ref.indptr)
+    np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
+    np.testing.assert_allclose(C.data[: C.nnz], ref.data, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SIZING_CASES)
+def test_device_sizing_matches_host_on_card(cuda, case, monkeypatch):
+    """``_sizing`` of host operands for the card runs there (counted) and
+    gives the host pass's npa, nsegB, folded classes, counts and class
+    order, or raises as it does with the same args; the out-of-range column
+    raises ValueError and leaves the card working (the gather read clamped
+    indices)."""
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    A, B, W, classes, max_exp, raises = sizing_case(case)
+    if max_exp is not None:
+        monkeypatch.setattr(ss, "_MAX_EXP_PAD", max_exp)
+    before = (ss.device_sizings, ss.host_sizings)
+    if raises is not None:
+        with pytest.raises(raises) as host:
+            ss._sizing(A, B, W, classes)
+        with pytest.raises(raises) as dev:
+            ss._sizing(A, B, W, classes, cuda)
+        assert type(dev.value) is type(host.value) and dev.value.args == host.value.args
+        torch.cuda.synchronize()
+    else:
+        host = ss._sizing(A, B, W, classes)
+        dev = ss._sizing(A, B, W, classes, cuda)
+        assert (dev.npa, dev.nsegB, dev.counts) == (host.npa, host.nsegB, host.counts)
+        np.testing.assert_array_equal(dev.cls.cpu().numpy(), host.cls)
+        np.testing.assert_array_equal(ss._rows_sorted(dev, cuda).cpu().numpy(), host.rows_sorted)
+        assert all(t.is_cuda for pair in dev.structure for t in pair)
+    assert (ss.device_sizings - before[0], ss.host_sizings - before[1]) == (1, 1)
 
 
 @pytest.mark.cuda

@@ -27,7 +27,7 @@ from spmm_tpu_torch.formats import synthetic as tsyn
 from spmm_tpu_torch.ops import slab_spgemm as ss
 from spmm_tpu_torch.ops.slab_spgemm import spgemm_plan, spgemm_slab
 
-from torch_parity import one_torch_thread  # noqa: F401  (autouse)
+from torch_parity import SIZING_CASES, assert_same, one_torch_thread, sizing_case  # noqa: F401  (autouse)
 
 
 def _oracle(A, B):
@@ -170,15 +170,73 @@ def test_spgemm_chain_no_host_roundtrip(monkeypatch):
     np.testing.assert_allclose(Dh.data[: D.nnz], ref.data, rtol=2e-4, atol=2e-4)
 
 
-def test_sizing_device_matches_host():
-    A = tsyn.webgraph_like(2500, 15000, seed=11)
-    W = 4
-    classes = ss._norm_classes(ss.DEFAULT_CLASSES, W)
-    npa_h, nsegB_h, cls_h, counts_h = ss._sizing(A, A, W, classes)
-    npa_d, nsegB_d, cls_d, counts_d = ss._sizing_device(A.to("cpu"), A.to("cpu"), W, classes)
-    assert (npa_h, nsegB_h) == (npa_d, nsegB_d)
-    assert counts_h == counts_d
-    np.testing.assert_array_equal(cls_h, cls_d.numpy())
+@pytest.mark.parametrize("held", ["numpy", "tensors"])
+@pytest.mark.parametrize("case", SIZING_CASES)
+def test_sizing_device_matches_host(case, held, monkeypatch):
+    """The device sizing (on the CPU here: host operands copied there, or
+    operands held in tensors) gives the host pass's npa, nsegB, folded
+    classes, counts and class order, and raises where it raises, with the
+    same args: ``_ExpansionTooLarge`` over a cut budget (padded slots, body
+    slots: the piece hint reads the second), ValueError for a column of A
+    that is not a row of B."""
+    A, B, W, classes, max_exp, raises = sizing_case(case)
+    if max_exp is not None:
+        monkeypatch.setattr(ss, "_MAX_EXP_PAD", max_exp)
+    Ad = A if held == "numpy" else A.to("cpu")
+    Bd = Ad if B is A else B if held == "numpy" else B.to("cpu")
+    if raises is not None:
+        with pytest.raises(raises) as host:
+            ss._sizing(A, B, W, classes)
+        with pytest.raises(raises) as dev:
+            ss._sizing_device(Ad, Bd, W, classes, "cpu")
+        assert type(dev.value) is type(host.value) and dev.value.args == host.value.args
+        if case == "overflow":  # the tail row's pairs are not body slots
+            assert host.value.args[1] < host.value.args[0]
+        return
+    host = ss._sizing(A, B, W, classes)
+    dev = ss._sizing_device(Ad, Bd, W, classes, "cpu")
+    assert (dev.npa, dev.nsegB, dev.counts) == (host.npa, host.nsegB, host.counts)
+    assert (host.counts[len(classes)] > 0) == (case == "tail")
+    np.testing.assert_array_equal(dev.cls.numpy(), host.cls)
+    np.testing.assert_array_equal(ss._rows_sorted(dev, "cpu").numpy(), host.rows_sorted)
+
+
+@pytest.mark.parametrize("held", ["numpy", "tensors"])
+def test_sizing_route_follows_the_compute_device(held):
+    """Host operands of a CPU product take the host pass, operands held in
+    tensors the device sizing: the counters say which route ran."""
+    A = tsyn.webgraph_like(300, 1800, seed=4)
+    A = A if held == "numpy" else A.to("cpu")
+    classes = ss._norm_classes(ss.DEFAULT_CLASSES, 8)
+    before = (ss.device_sizings, ss.host_sizings)
+    s = ss._sizing(A, A, 8, classes, torch.device("cpu"))
+    moved = (ss.device_sizings - before[0], ss.host_sizings - before[1])
+    assert moved == ((1, 0) if held == "tensors" else (0, 1))
+    assert (s.structure is None) == (held == "numpy")
+
+
+@pytest.mark.parametrize("values", ["pattern", "random"])
+@pytest.mark.parametrize("case", ["rectangular", "tail"])
+def test_plan_reads_the_device_sizings_structure(case, values, monkeypatch):
+    """A plan on a device sizing of host operands reads the structure that
+    sizing copied, with the values beside it where the tables read them:
+    no ``CSR.to`` of the operands (B is A: one copy), and the plan equals
+    the one built from the operands' ``.to()`` after the host pass; the
+    plan keeps no copy of the structure."""
+    A, B, W, classes, _, _ = sizing_case(case)
+    if values == "random":
+        A = _with_values(A, 3)
+        B = A if case == "tail" else _with_values(B, 4)
+    ref = spgemm_plan(A, B, classes=classes, seg_w=W, device="cpu", pattern=values == "pattern")
+    sizing = ss._sizing_device(A, B, W, classes, "cpu")
+    moved = []
+    orig_to = CSR.to
+    monkeypatch.setattr(CSR, "to", lambda self, dev: moved.append(self) or orig_to(self, dev))
+    plan = spgemm_plan(A, B, classes=classes, seg_w=W, device="cpu", pattern=values == "pattern",
+                       sizing=sizing)
+    assert not moved
+    assert_same(plan, ref)
+    assert plan._sizing_cache[2].structure is None
 
 
 def test_huge_expansion_row_chunking(monkeypatch):

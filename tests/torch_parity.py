@@ -45,3 +45,44 @@ def assert_same(a, b):
 def rhs(n, k, seed):
     """A seeded (n, k) fp32 dense operand."""
     return np.random.default_rng(seed).standard_normal((n, k)).astype(np.float32)
+
+
+#: the sizing's cases, each run by the host pass and by the device sizing
+SIZING_CASES = ("rectangular", "tail", "overflow", "bad_index")
+
+
+def sizing_case(name):
+    """(A, B, W, classes, the ``_MAX_EXP_PAD`` to set or None, the error
+    both sizings raise or None) of a sizing case: a rectangular product with
+    empty rows in A and in B (W 4, the default classes, small classes
+    folded); a row above the class ceiling (W 8, the default classes); the
+    same over a budget cut to 4,096 slots (``_ExpansionTooLarge``); a column
+    index of A that is not a row of B (ValueError)."""
+    import scipy.sparse as sp
+
+    from spmm_tpu_torch.formats import CSR
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+
+    def emptied(M, every):
+        keep = np.ones(M.shape[0])
+        keep[::every] = 0
+        return sp.diags(keep) @ M
+
+    if name == "rectangular":
+        A = emptied(sp.random(1500, 900, density=0.008, random_state=31, format="csr"), 7)
+        B = emptied(sp.random(900, 700, density=0.02, random_state=32, format="csr"), 5)
+        A, B = CSR.from_scipy(A, np.float32), CSR.from_scipy(B, np.float32)
+        return A, B, 4, ss._norm_classes(ss.DEFAULT_CLASSES, 4), None, None
+    rng = np.random.default_rng(21)
+    A = sp.random(900, 900, density=0.015, random_state=21, format="lil", dtype=np.float32)
+    A[7, :] = rng.standard_normal(900)
+    A = CSR.from_scipy(A.tocsr())
+    classes = ss._norm_classes(ss.DEFAULT_CLASSES, 8)
+    if name == "tail":
+        return A, A, 8, classes, None, None
+    if name == "overflow":
+        return A, A, 8, classes, 4096, ss._ExpansionTooLarge
+    if name == "bad_index":  # B holds only A's first 600 rows
+        Bs = A.to_scipy()[:600]
+        return A, CSR.from_scipy(Bs), 8, classes, None, ValueError
+    raise KeyError(name)
