@@ -260,13 +260,13 @@ def record_headline(b: Bench, A, pre_ms: float, P, baseline_ms: float) -> None:
 
 
 def _cold_spgemm(A, Ad, pattern: bool, W: int, classes):
-    """One cold slab SpGEMM as ``bench.py`` times it: the host sizing of A,
-    then the plan tables, the chunks' gathers and their sort-merge on the
-    device operands, fenced by copying the last chunk's ``nuniq[:1]`` to the
-    host (no compaction, no CSR copy)."""
+    """One cold slab SpGEMM as ``bench.py`` times it: the sizing of A on the
+    device operands' device, then the plan tables, the chunks' gathers and
+    their sort-merge on the device operands, fenced by copying the last
+    chunk's ``nuniq[:1]`` to the host (no compaction, no CSR copy)."""
     from spmm_tpu_torch.ops import slab_spgemm as ss
 
-    sizing = ss._sizing(A, A, W, classes)
+    sizing = ss._sizing(A, A, W, classes, Ad.data.device)
     outs, tails, _ = ss.spgemm_slab_device(Ad, Ad, sizing=sizing, pattern=pattern)
     if outs:
         outs[-1][3][:1].cpu()
@@ -291,7 +291,6 @@ def bench_spgemm(b: Bench, A, device, chip=None) -> None:
     from spmm_tpu_torch.ops import slab_spgemm as ss
     from spmm_tpu_torch.ops.roofline import spgemm_attainable, spgemm_roofline, spgemm_warm_attainable
     from spmm_tpu_torch.parallel.partition import partition_rows
-    from spmm_tpu_torch.parallel.spgemm_spmd import _per_shard_sizing
 
     out = b.result
     dev = torch.device(device)
@@ -338,7 +337,7 @@ def bench_spgemm(b: Bench, A, device, chip=None) -> None:
             for _ in range(2):
                 del plan
                 t0 = time.perf_counter()
-                plan = ss.spgemm_plan(Ad, Ad, sizing=ss._sizing(A, A, W, cl), pattern=pattern)
+                plan = ss.spgemm_plan(Ad, Ad, sizing=ss._sizing(A, A, W, cl, dev), pattern=pattern)
                 plan.rows_sorted[:1].cpu()
                 pts.append((time.perf_counter() - t0) * 1e3)
             out["spgemm_plan_ms"] = round(min(pts), 2)
@@ -387,7 +386,7 @@ def bench_spgemm(b: Bench, A, device, chip=None) -> None:
     # the projected 8-rank efficiency cap of the SPMD SpGEMM (no traffic
     # between shards): mean / max of the shards' padded expansions
     S8 = partition_rows(A, 8)
-    _, counts8, _, _, _ = _per_shard_sizing(S8, A, W, cl)
+    _, counts8, _, _, _ = ss._per_shard_sizing(S8, A, W, cl)
     exp8 = (counts8[:, : len(cl)] * np.asarray(cl)[None, :]).sum(axis=1)
     out["spgemm_shard_balance_8"] = float(exp8.mean() / exp8.max())
 

@@ -397,7 +397,7 @@ def slab_kernel_rows(torch, A, dev, rng, bound, peak) -> dict:
 
     W = ss.DEFAULT_SEG_W
     classes = ss._norm_classes(ss.DEFAULT_CLASSES, W)
-    sizing = ss._sizing(A, A, W, classes)
+    sizing = ss._sizing(A, A, W, classes, dev)
     sched, _ = ss._chunk_schedule(classes, sizing.counts, ss.DEFAULT_SLOT_BUDGET)
     slots = sum(L * R for L, R, _, _ in sched)
     nrow = A.nrow
@@ -570,11 +570,11 @@ def slab_phase(torch, A, dev, rng, cli_spgemm_ms: float):
     t_ref = (time.perf_counter() - t0) * 1e3
     W = ss.DEFAULT_SEG_W
     classes = ss._norm_classes(ss.DEFAULT_CLASSES, W)
-    sizing, t_size = timed(lambda: ss._sizing(A, A, W, classes))
+    sizing, t_size = timed(lambda: ss._sizing(A, A, W, classes, dev))
     sched, _ = ss._chunk_schedule(classes, sizing.counts, ss.DEFAULT_SLOT_BUDGET)
     exp_pad = sizing.npa * W
     slots = sum(L * R for L, R, _, _ in sched)
-    say(f"phase 5 setup: scipy A×A {ref.nnz} nnz ({t_ref:.1f} ms host) | sizing {t_size:.1f} ms: "
+    say(f"phase 5 setup: scipy A×A {ref.nnz} nnz ({t_ref:.1f} ms host) | sizing on {dev} {t_size:.1f} ms: "
         f"npa {sizing.npa}, padded expansion {exp_pad}, {len(sched)} chunks, {slots} slab slots, "
         f"tail rows {sizing.counts[-1]}")
 

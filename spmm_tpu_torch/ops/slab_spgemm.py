@@ -2,10 +2,9 @@
 
 C = A @ B without a global sort of the partial products:
 
-1. **sizing** (O(nnz + nrow), ``_sizing``): on the device the product
-   computes on (``_sizing_device``, from the copy of the operands' structure
-   that the tables then read), by the native host pass for CPU products of
-   host operands.  B's rows are cut into W-wide segments; a "pa" is one (A
+1. **sizing** (O(nnz + nrow), ``_sizing``): torch ops on the device the
+   product computes on, from the copy of the operands' structure that the
+   tables then read.  B's rows are cut into W-wide segments; a "pa" is one (A
    nonzero, B segment) pair.  Each A row's padded expansion is W times its
    pa count, and puts the row in one of ``DEFAULT_CLASSES`` (~1.25× steps).
 2. **plan** (``spgemm_plan``, device): the B2 table — B's rows padded to W-wide
@@ -28,15 +27,17 @@ C = A @ B without a global sort of the partial products:
    columns go to a device CSR; only its arrays cross to the host.
 
 Rows whose padded expansion exceeds the largest class go to the global-sort
-ESC (``ops/spgemm.py``).  Products whose padded expansion exceeds
-``_MAX_EXP_PAD`` run as uniform row pieces (``spgemm_slab_big``) with
-piece-granular checkpoint/resume.
+ESC (``ops/spgemm.py``), and a product with such rows is assembled on the
+host.  Products whose padded expansion exceeds ``_MAX_EXP_PAD`` run as
+uniform row pieces (``spgemm_slab_big``) with piece-granular
+checkpoint/resume.  A product that fits one call, a piece and a shard of the
+distributed path all end in ``_local_csr``.
 
 The JAX package's layouts for the TPU's (8, 128) tiling — folded 128-lane
 tables, bit-cast value channels, set-scatter step functions, windowed
 extracts — are not carried over: B2 is a plain (nsegB_pad, W) table, the pa
-list a ``searchsorted`` expansion.  The sizing and the tables are torch ops
-(and host numpy); the numeric phase and the compaction are K4 and K5 on CUDA
+list a ``searchsorted`` expansion.  The sizing and the tables are torch ops;
+the numeric phase and the compaction are K4 and K5 on CUDA
 tensors, their plain versions on CPU tensors.  Sizes, classes and the chunk
 schedule are the JAX package's, so both give the same chunks.
 """
@@ -48,6 +49,7 @@ import glob
 import hashlib
 import json
 import os
+import time
 import warnings
 import weakref
 import zipfile
@@ -94,11 +96,6 @@ DEFAULT_SLOT_BUDGET = 1 << 24
 #: classes with fewer rows than this fold into the next class up
 FOLD_THRESHOLD = 256
 
-#: ``spgemm_slab`` compacts to CSR on the device while the padded expansion
-#: stays under this (the compaction scratch is ~8 B per slot); past it the
-#: chunks are pulled one by one and assembled on the host
-_CSR_COMPACT_MAX = 1 << 26
-
 #: ``_csr_to_host`` results landed in pinned host memory, and pinned
 #: allocations that failed so that the result went pageable (operator only;
 #: tests read them)
@@ -108,12 +105,6 @@ pinned_fallbacks = 0
 #: products that took the streamed piece route, ``spgemm_slab_big``
 #: (operator only; tests read it)
 big_products = 0
-
-#: sizings by route: on the device (``_sizing_device``: a CUDA product's host
-#: operands, operands held in tensors) and by the native host pass (CPU
-#: products of host operands) (operator only; tests read them)
-device_sizings = 0
-host_sizings = 0
 
 
 def _bucket_pow2(x: int, floor: int = 8) -> int:
@@ -182,13 +173,12 @@ class Sizing:
 
     npa: int
     nsegB: int
-    cls: Any  #: (nrow,) int32 per-row class: numpy (host sizing) or a tensor
+    cls: torch.Tensor  #: (nrow,) int32: each row's folded class, where the sizing ran
     counts: tuple  #: rows per class, then the tail count (len(classes) + 1)
-    #: (nrow,) int32 rows in stable class order (host sizing only)
-    rows_sorted: np.ndarray | None = None
-    #: device sizing only: ((A's indptr, indices[:nnz]), (B's)) as tensors
-    #: where it ran, B's the same tensors when B is A; the tables read them
-    #: there, so a host operand's structure crosses to the device once
+    #: ((A's indptr, indices[:nnz]), (B's)) as tensors where the sizing ran,
+    #: B's the same tensors when B is A; the tables read them there, so a
+    #: host operand's structure crosses to the device once.  None in a plan's
+    #: cached sizing, which does not hold the operands
     structure: tuple | None = None
 
     def __iter__(self):
@@ -218,54 +208,6 @@ def _tail_pairs(a_iptr, a_ind, cls, tail: int, nseg_row) -> int:
     return int(nseg_row[np.asarray(a_ind)[tpos].astype(np.int64)].sum())
 
 
-def _sizing(A: CSR, B: CSR, W: int, classes, device=None) -> Sizing:
-    """O(nnz + nrow) sizing: (npa, nsegB, per-row class, counts) and the
-    class order, where the product computes: ``device``, else where A's
-    tensors lie, else the host.  Host operands of a CPU product take the
-    native C++ pass (numpy without the native library); every other product
-    :func:`_sizing_device` on that device."""
-    global device_sizings, host_sizings
-    with span("spmm.spgemm.sizing"):
-        host_held = isinstance(A.data, np.ndarray) and isinstance(B.data, np.ndarray)
-        if not host_held or (device is not None and torch.device(device).type != "cpu"):
-            device_sizings += 1
-            return _sizing_device(A, B, W, classes, device)
-        host_sizings += 1
-        a_iptr = np.asarray(A.indptr, np.int64)
-        a_ind = np.asarray(A.indices[: A.nnz])
-        b_iptr = np.asarray(B.indptr, np.int64)
-        classes_np = np.asarray(classes, np.int64)
-        res = native.spgemm_sizing(a_iptr, a_ind, b_iptr, W, classes_np)
-        if res is not None:
-            npa, nsegB, cls = res
-        else:
-            lenB = b_iptr[1:] - b_iptr[:-1]
-            nsegB = int(((lenB + W - 1) // W).sum())
-            nseg_a = (lenB[a_ind.astype(np.int64)] + W - 1) // W
-            npa = int(nseg_a.sum())
-            segc = np.zeros(A.nnz + 1, dtype=np.int64)
-            np.cumsum(nseg_a, out=segc[1:])
-            exp_pad_row = W * (segc[np.minimum(a_iptr[1:], A.nnz)] - segc[np.minimum(a_iptr[:-1], A.nnz)])
-            cls = np.searchsorted(classes_np, exp_pad_row, side="left").astype(np.int32)
-            cls[exp_pad_row == 0] = len(classes) + 1
-        if npa * W >= _MAX_EXP_PAD:
-            nseg_row = (b_iptr[1:] - b_iptr[:-1] + W - 1) // W
-            tail = _tail_pairs(a_iptr, a_ind, cls, len(classes), nseg_row)
-            raise _ExpansionTooLarge(npa * W, (npa - tail) * W)
-        counts, remap = _fold_small_classes(np.bincount(cls, minlength=len(classes) + 2), len(classes))
-        cls = remap[cls]
-        rows_sorted = native.counting_argsort_i32(cls, len(classes) + 2)
-        if rows_sorted is None:
-            rows_sorted = np.argsort(cls, kind="stable").astype(np.int32)
-        return Sizing(
-            npa=npa,
-            nsegB=nsegB,
-            cls=cls,
-            counts=tuple(int(c) for c in counts[: len(classes) + 1]),
-            rows_sorted=rows_sorted,
-        )
-
-
 def _structure_on(M: CSR, dev) -> tuple:
     """M's indptr and its indices cut to nnz as tensors on ``dev``: host
     arrays are copied there (nnz indices, not the padding), tensors already
@@ -285,66 +227,136 @@ def _counts_of(keys: torch.Tensor, n: int) -> torch.Tensor:
     return counts.scatter_add_(0, slot, torch.ones_like(slot)).view(n, lanes).sum(1)
 
 
-def _sizing_device(A: CSR, B: CSR, W: int, classes, device=None) -> Sizing:
-    """The sizing in torch ops on ``device`` (default: where A's tensors
-    lie).  The operands' structure goes there once, once for both when B is
-    A, and rides on the result (``Sizing.structure``) for the tables; the
-    per-row class stays there.  Only npa, nsegB, the body slots, the count
-    of A's column indices that are not rows of B and the class counts come
-    to the host, in one copy of ~40 integers, so a chained product
-    ``spgemm_slab_csr(C, X)`` moves no nnz-scale array.  Per-nonzero counts
-    are int32, sums int64.  Raises the native pass's ValueError where a
-    column index of A is not a row of B (the gather reads a clamped index
-    until then)."""
-    dev = A.data.device if device is None else torch.device(device)
-    nnz, nrowB, nclasses = A.nnz, B.shape[0], len(classes)
-    if nnz and not nrowB:
-        raise ValueError("spgemm_sizing: a column index of A is not a row of B")
-    a_iptr, a_ind = _structure_on(A, dev)
-    b_iptr, b_ind = (a_iptr, a_ind) if B is A else _structure_on(B, dev)
-    nsegB_row = ((b_iptr[1:] - b_iptr[:-1]).long() + (W - 1)) // W
-    # seg_c[q]: pairs of A's nonzeros before q
-    seg_c = torch.zeros(nnz + 1, dtype=torch.int64, device=dev)
-    torch.cumsum(nsegB_row.int().index_select(0, a_ind.clamp(0, max(nrowB - 1, 0))), 0,
-                 dtype=torch.int64, out=seg_c[1:])
-    iptr = a_iptr.long().clamp(0, nnz)
-    exp_pad_row = W * (seg_c[iptr[1:]] - seg_c[iptr[:-1]])
-    cls = torch.searchsorted(torch.tensor(classes, dtype=torch.int64, device=dev), exp_pad_row, side="left")
-    cls = torch.where(exp_pad_row == 0, nclasses + 1, cls)
-    counts = _counts_of(cls, nclasses + 2)
-    body = torch.where(cls < nclasses, exp_pad_row, 0).sum()
-    bad = ((a_ind < 0) | (a_ind >= nrowB)).sum()
-    head = torch.cat([torch.stack([seg_c[-1], nsegB_row.sum(), body, bad]), counts]).cpu()
-    npa, nsegB, body, bad = head[:4].tolist()
-    if bad:
-        raise ValueError("spgemm_sizing: a column index of A is not a row of B")
-    if npa * W >= _MAX_EXP_PAD:
-        raise _ExpansionTooLarge(npa * W, body)
-    counts, remap = _fold_small_classes(head[4:].numpy(), nclasses)
-    return Sizing(
-        npa=npa,
-        nsegB=nsegB,
-        cls=torch.from_numpy(remap).to(dev)[cls],
-        counts=tuple(int(c) for c in counts[: nclasses + 1]),
-        structure=((a_iptr, a_ind), (b_iptr, b_ind)),
+def _sizing(A: CSR, B: CSR, W: int, classes, device) -> Sizing:
+    """O(nnz + nrow) sizing in torch ops on ``device``, the device the
+    product computes on: (npa, nsegB, per-row class, counts).  The operands'
+    structure goes there once, once for both when B is A, and rides on the
+    result (``Sizing.structure``) for the tables; the per-row class stays
+    there.  Only npa, nsegB, the body slots, the count of A's column indices
+    that are not rows of B and the class counts come to the host, in one
+    copy of ~40 integers, so a chained product ``spgemm_slab_csr(C, X)``
+    moves no nnz-scale array.  Per-nonzero counts are int32, sums int64.
+    Raises ValueError where a column index of A is not a row of B (the
+    gather reads a clamped index until then), ``_ExpansionTooLarge`` over
+    ``_MAX_EXP_PAD``."""
+    with span("spmm.spgemm.sizing"):
+        dev = torch.device(device)
+        nnz, nrowB, nclasses = A.nnz, B.shape[0], len(classes)
+        if nnz and not nrowB:
+            raise ValueError("spgemm_sizing: a column index of A is not a row of B")
+        a_iptr, a_ind = _structure_on(A, dev)
+        b_iptr, b_ind = (a_iptr, a_ind) if B is A else _structure_on(B, dev)
+        nsegB_row = ((b_iptr[1:] - b_iptr[:-1]).long() + (W - 1)) // W
+        # seg_c[q]: pairs of A's nonzeros before q
+        seg_c = torch.zeros(nnz + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(nsegB_row.int().index_select(0, a_ind.clamp(0, max(nrowB - 1, 0))), 0,
+                     dtype=torch.int64, out=seg_c[1:])
+        iptr = a_iptr.long().clamp(0, nnz)
+        exp_pad_row = W * (seg_c[iptr[1:]] - seg_c[iptr[:-1]])
+        cls = torch.searchsorted(torch.tensor(classes, dtype=torch.int64, device=dev), exp_pad_row, side="left")
+        cls = torch.where(exp_pad_row == 0, nclasses + 1, cls)
+        counts = _counts_of(cls, nclasses + 2)
+        body = torch.where(cls < nclasses, exp_pad_row, 0).sum()
+        bad = ((a_ind < 0) | (a_ind >= nrowB)).sum()
+        head = torch.cat([torch.stack([seg_c[-1], nsegB_row.sum(), body, bad]), counts]).cpu()
+        npa, nsegB, body, bad = head[:4].tolist()
+        if bad:
+            raise ValueError("spgemm_sizing: a column index of A is not a row of B")
+        if npa * W >= _MAX_EXP_PAD:
+            raise _ExpansionTooLarge(npa * W, body)
+        counts, remap = _fold_small_classes(head[4:].numpy(), nclasses)
+        return Sizing(
+            npa=npa,
+            nsegB=nsegB,
+            cls=torch.from_numpy(remap).to(dev)[cls],
+            counts=tuple(int(c) for c in counts[: nclasses + 1]),
+            structure=((a_iptr, a_ind), (b_iptr, b_ind)),
+        )
+
+
+def _per_shard_sizing(S, B: CSR | None, W: int, classes, b_iptr_per_shard=None,
+                      times: list | None = None):
+    """Host sizing of each shard of ``S`` (a ``parallel.partition.ShardedCSR``)
+    against one B: (cls (nsh, rows_pad) int32, counts (nsh, nclasses + 1)
+    int64, npa_max, nnz (nsh,) int32, npa_body (nsh,) int64), classes not
+    folded.  ``b_iptr_per_shard``: each shard's own local B indptr (the halo
+    paths; ``B`` is then not read), else one B for all.  ``npa_body`` counts
+    only the pairs of rows below the class ceiling: a tail row goes to the
+    global-sort ESC, so its pairs take no slab slots.  ``times``: each
+    shard's host ms is appended to it.  Raises ValueError when a shard's
+    padded expansion exceeds the int32 range."""
+    b_iptr_rep = None if b_iptr_per_shard is not None else np.asarray(B.host().indptr, np.int64)
+    ind = np.asarray(S.indices)
+    iptr = np.asarray(S.indptr, dtype=np.int64)
+    classes_np = np.asarray(classes, np.int64)
+    tail = len(classes)
+    cls_all, counts_all, npa_max, nnz_s, body = [], [], 0, [], []
+    for s in range(S.n_shards):
+        t0 = time.perf_counter()
+        b_iptr = b_iptr_rep if b_iptr_rep is not None else np.asarray(b_iptr_per_shard[s], np.int64)
+        nsegB_row = (b_iptr[1:] - b_iptr[:-1] + W - 1) // W
+        nnz = int(iptr[s, -1])
+        nnz_s.append(nnz)
+        res = native.spgemm_sizing(iptr[s], ind[s, :nnz], b_iptr, W, classes_np)
+        if res is not None:
+            npa, _, cls = res
+        else:
+            nseg = nsegB_row[ind[s, :nnz].astype(np.int64)]
+            npa = int(nseg.sum())
+            segc = np.zeros(nnz + 1, dtype=np.int64)
+            np.cumsum(nseg, out=segc[1:])
+            exp_pad = W * (segc[iptr[s, 1:]] - segc[iptr[s, :-1]])
+            cls = np.searchsorted(classes_np, exp_pad, side="left").astype(np.int32)
+            cls[exp_pad == 0] = len(classes) + 1
+        if npa * W >= 2**31:
+            raise ValueError(
+                f"shard {s}: padded expansion exceeds int32 range; "
+                "use more shards or chunk rows first"
+            )
+        npa_max = max(npa_max, npa)
+        body.append(npa - _tail_pairs(iptr[s], ind[s], cls, tail, nsegB_row))
+        counts_all.append(np.bincount(cls, minlength=len(classes) + 2)[: len(classes) + 1])
+        cls_all.append(cls)
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return (
+        np.stack(cls_all),
+        np.stack(counts_all).astype(np.int64),
+        npa_max,
+        np.asarray(nnz_s, np.int32),
+        np.asarray(body, np.int64),
     )
 
 
-def _chunk_schedule(classes, counts, slot_budget):
-    """(L, R_pad, start, count) per chunk from the class counts, and the
-    offset of the tail rows in rows_sorted.  R_pad rounds to 1K-row granules
-    (powers of two below) to bound the slab padding."""
-    sched = []
-    offset = 0
-    for ci, L in enumerate(classes):
-        n = int(counts[ci])
+def _uniform_schedule(classes, counts, slot_budget):
+    """Chunk schedule ``[(L, R_pad), ...]`` covering the per-class maximum
+    count over shards (``counts``: (nsh, nclasses + 1)), per-shard (start,
+    count) tables (nsh, nchunks) int32, and each shard's offset of its tail
+    rows in its class order.  R_pad rounds to 1K-row granules (powers of two
+    below) to bound the slab padding."""
+    counts = np.asarray(counts, np.int64)
+    offsets = np.concatenate([np.zeros((counts.shape[0], 1), np.int64), np.cumsum(counts, axis=1)], axis=1)
+    sched, chunk_ci, chunk_lo, chunk_rows = [], [], [], []
+    for ci, (L, n) in enumerate(zip(classes, counts.max(axis=0).tolist())):
         rows_per_chunk = max(slot_budget // L, 8)
         for lo in range(0, n, rows_per_chunk):
-            cnt = min(rows_per_chunk, n - lo)
-            R_pad = min(_bucket_pow2(cnt), _round_up(cnt, 1 << 10))
-            sched.append((L, R_pad, offset + lo, cnt))
-        offset += n
-    return sched, offset
+            cap = min(rows_per_chunk, n - lo)
+            sched.append((L, min(_bucket_pow2(cap), _round_up(cap, 1 << 10))))
+            chunk_ci.append(ci)
+            chunk_lo.append(lo)
+            chunk_rows.append(rows_per_chunk)
+    ci, lo = np.asarray(chunk_ci, np.int64), np.asarray(chunk_lo, np.int64)
+    starts = (offsets[:, ci] + lo).astype(np.int32)
+    cnts = np.clip(counts[:, ci] - lo, 0, np.asarray(chunk_rows, np.int64)).astype(np.int32)
+    return sched, starts, cnts, offsets[:, len(classes)]
+
+
+def _chunk_schedule(classes, counts, slot_budget):
+    """(L, R_pad, start, count) per chunk from one product's class counts
+    (``Sizing.counts``), and the offset of its tail rows in rows_sorted: the
+    one-shard view of :func:`_uniform_schedule`."""
+    sched, starts, cnts, tail = _uniform_schedule(classes, np.asarray(counts, np.int64)[None], slot_budget)
+    return [(L, R_pad, st, c) for (L, R_pad), st, c in zip(sched, starts[0].tolist(), cnts[0].tolist())], int(tail[0])
 
 
 def attainable_kwargs(sizing: Sizing, nrow_b: int, out_nnz: int, classes, *, W: int = DEFAULT_SEG_W,
@@ -486,10 +498,11 @@ def _plan_tables(
 
 
 def _table_operands(A: CSR, B: CSR, sizing: Sizing, device, pattern: bool) -> tuple:
-    """A and B on ``device`` as :func:`_plan_tables` reads them.  After a
-    device sizing, its structure with the values copied beside it, and in
-    pattern mode no values (the tables read only their dtype); else the
-    operands' ``.to()``.  When B is A, one copy serves both."""
+    """A and B on ``device`` as :func:`_plan_tables` reads them: the
+    sizing's structure with the values copied beside it, and in pattern mode
+    no values (the tables read only their dtype); the operands' ``.to()``
+    for a plan's cached sizing, which holds no structure.  When B is A, one
+    copy serves both."""
     if sizing.structure is None:
         Ad = A.to(device)
         return Ad, Ad if B is A else B.to(device)
@@ -504,10 +517,8 @@ def _table_operands(A: CSR, B: CSR, sizing: Sizing, device, pattern: bool) -> tu
 
 
 def _rows_sorted(sizing: Sizing, device) -> torch.Tensor:
-    """The sizing's stable class order on ``device``: the host counting sort
-    when the sizing ran on the host, a stable device sort otherwise."""
-    if sizing.rows_sorted is not None:
-        return torch.from_numpy(np.ascontiguousarray(sizing.rows_sorted, np.int32)).to(device)
+    """The sizing's stable class order on ``device``, by a stable sort where
+    the sizing ran."""
     return torch.sort(sizing.cls, stable=True).indices.to(device, torch.int32)
 
 
@@ -526,9 +537,8 @@ def spgemm_plan(
 ) -> SpgemmPlan:
     """Build the expansion layout on ``device`` (default: where A's tensors
     lie, the card for numpy-held operands).  The O(nnz + nrow) sizing runs
-    there too (on the host for a CPU product of host operands), and the
-    tables read the structure it copied; all O(expansion) work is on the
-    device.
+    there too, and the tables read the structure it copied; all
+    O(expansion) work is on the device.
     ``pattern=None`` detects all-ones values (value tables omitted).
 
     ``expand=True`` also gathers every chunk's partial products into the
@@ -589,7 +599,7 @@ def spgemm_plan_revalue(
 ) -> SpgemmPlan:
     """A new plan for NEW VALUES on the SAME sparsity structure (the
     cuSPARSE spgemm-reuse contract; the reference's preprocess-once premise,
-    SURVEY.md §0).  The structure-only host sizing is reused from ``plan``;
+    SURVEY.md §0).  The structure-only sizing is reused from ``plan``;
     the value tables and the aligned value blocks are rebuilt.  The caller
     guarantees A/B have exactly the structure ``plan`` was built from (only
     nrow/nnz are checked).  A plan that lost its sizing cache (moved with
@@ -955,49 +965,36 @@ def spgemm_slab(
                 stacklevel=2,
             )
 
-        ntail = sizing.counts[len(classes_n)]
-        if as_csr and ntail == 0 and sizing.npa * W <= _CSR_COMPACT_MAX:
-            # compact on the device; only the CSR arrays cross to the host
-            plan = None
-            if A.nnz >= AUTO_PLAN_MIN_NNZ and isinstance(A.data, np.ndarray):
-                key = (id(A), id(B), classes_n, W, slot_budget, _dtype_name(accum_dtype), pattern,
-                       str(dev))
-                plan = _auto_plan_lookup(key, A, B)
-                if plan is not None:
-                    with span("spmm.spgemm.plan_hit"):  # a marker: its count is the cache's hits
-                        pass
-                else:
-                    plan = _auto_plan_note(
-                        key, A, B,
-                        lambda: spgemm_plan(
-                            A, B, classes=classes_n, seg_w=W, slot_budget=slot_budget, device=dev,
-                            pattern=pattern, accum_dtype=accum_dtype, sizing=sizing,
-                        ),
-                    )
+        # one finish, as a piece's: the chunks of a plan hit or of the
+        # tables, then _local_csr (the tail rows' products join on the host)
+        plan = None
+        if sizing.counts[len(classes_n)] == 0 and A.nnz >= AUTO_PLAN_MIN_NNZ and isinstance(A.data, np.ndarray):
+            key = (id(A), id(B), classes_n, W, slot_budget, _dtype_name(accum_dtype), pattern, str(dev))
+            plan = _auto_plan_lookup(key, A, B)
             if plan is not None:
-                sched, _ = _chunk_schedule(plan.classes, plan.class_counts, plan.slot_budget)
-                Cd = _csr_of(_numeric_aligned(plan, sched, accum_dtype), (A.nrow, B.ncol),
-                             _round_up(plan.npa * W, 1024), accum_dtype, dev)
+                with span("spmm.spgemm.plan_hit"):  # a marker: its count is the cache's hits
+                    pass
             else:
-                Cd = spgemm_slab_csr(
-                    A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget,
-                    accum_dtype=accum_dtype, device=dev, pattern=pattern, sizing=sizing,
+                plan = _auto_plan_note(
+                    key, A, B,
+                    lambda: spgemm_plan(
+                        A, B, classes=classes_n, seg_w=W, slot_budget=slot_budget, device=dev,
+                        pattern=pattern, accum_dtype=accum_dtype, sizing=sizing,
+                    ),
                 )
-            return _csr_to_host(Cd)
-
-        outs, tail_rows, _ = spgemm_slab_device(
-            A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget, accum_dtype=accum_dtype,
-            device=dev, pattern=pattern, sizing=sizing,
-        )
-        rows_l, cols_l, vals_l = _pull_chunks(outs)
-        del outs
-        if len(tail_rows):
-            tr, tc, tv = _tail_products(A.host(), np.asarray(tail_rows, np.int64), B.host(),
-                                        accum_dtype, dev)
-            rows_l.append(tr)
-            cols_l.append(tc)
-            vals_l.append(tv)
-        out = _assemble_csr(*_concat(rows_l, cols_l, vals_l, accum_dtype), (A.nrow, B.ncol))
+        tail = None
+        if plan is not None:
+            sched, _ = _chunk_schedule(plan.classes, plan.class_counts, plan.slot_budget)
+            outs = _numeric_aligned(plan, sched, accum_dtype)
+        else:
+            outs, tail_rows, _ = spgemm_slab_device(
+                A, B, classes=classes_n, seg_w=W, slot_budget=slot_budget, accum_dtype=accum_dtype,
+                device=dev, pattern=pattern, sizing=sizing,
+            )
+            if len(tail_rows):
+                tail = _tail_products(A.host(), np.asarray(tail_rows, np.int64), B.host(), accum_dtype, dev)
+        out = _csr_to_host(_local_csr(outs, tail, (A.nrow, B.ncol), _round_up(sizing.npa * W, 1024),
+                                      accum_dtype, dev))
         return out if as_csr else to_coo(out)
 
 
@@ -1074,9 +1071,10 @@ def _piece_csr(sub: CSR, cls, counts, sc, B_dev: CSR, dev, *, nclasses: int, nnz
 
 
 def _local_csr(outs, tail, shape, nnz_pad: int, accum_dtype, dev) -> CSR:
-    """A piece's (or shard's) chunk outputs and its tail rows' products
-    (``(rows, cols, vals)`` host arrays, or None) as its local CSR: compacted
-    on the device without tail rows, assembled on the host with them."""
+    """The chunk outputs of a product, a piece or a shard and its tail rows'
+    products (``(rows, cols, vals)`` host arrays, or None) as its CSR:
+    compacted on the device without tail rows, assembled on the host with
+    them."""
     if tail is None and not outs:  # the piece holds only empty rows
         return CSR(data=torch.zeros(0, dtype=_torch_dtype(accum_dtype), device=dev),
                    indices=torch.zeros(0, dtype=torch.int32, device=dev),
@@ -1229,8 +1227,6 @@ def spgemm_slab_big(
     ``spmm.spgemm.big.piece`` (each piece, from its sub-CSR to its landed
     triple, or its checkpoint read) and ``spmm.spgemm.big.stitch``;
     :func:`spgemm_slab` wraps the whole call in ``spmm.spgemm.big``."""
-    from spmm_tpu_torch.parallel.spgemm_spmd import _uniform_schedule
-
     global big_products
     big_products += 1
     dev = compute_device(device)
@@ -1295,7 +1291,6 @@ def _choose_pieces(A: CSR, B: CSR, W: int, classes, pieces: int | None, P0: int,
     block's host sizing ms.  Each round (a partition and its sizing) is one
     ``spmm.spgemm.big.split`` span."""
     from spmm_tpu_torch.parallel.partition import partition_rows
-    from spmm_tpu_torch.parallel.spgemm_spmd import _per_shard_sizing
 
     P = pieces or P0
     while True:

@@ -40,7 +40,6 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from spmm_tpu_torch import native
 from spmm_tpu_torch.formats.containers import CSR, as_tensor
 from spmm_tpu_torch.ops.slab_kernel import check_class_limit, chunk_fetch_all, compact_to_csr, slab_merge_all
 from spmm_tpu_torch.ops.slab_spgemm import (
@@ -48,12 +47,12 @@ from spmm_tpu_torch.ops.slab_spgemm import (
     DEFAULT_SEG_W,
     DEFAULT_SLOT_BUDGET,
     _BigCheckpoint,
-    _bucket_pow2,
     _choose_pieces,
     _dtype_name,
     _is_pattern,
     _local_csr,
     _norm_classes,
+    _per_shard_sizing,
     _piece_csr,
     _piece_exec,
     _piece_kw,
@@ -61,86 +60,11 @@ from spmm_tpu_torch.ops.slab_spgemm import (
     _round_up,
     _stable_argsort_smallint,
     _stitch,
-    _tail_pairs,
     _tail_products,
+    _uniform_schedule,
 )
 from spmm_tpu_torch.parallel.mesh import axis_size, check_on_mesh, mesh_device
 from spmm_tpu_torch.parallel.partition import ShardedCSR, local_shard, rows_per_shard
-
-
-def _per_shard_sizing(S: ShardedCSR, B: CSR | None, W: int, classes, b_iptr_per_shard=None,
-                      times: list | None = None):
-    """Host sizing of each shard against one B: (cls (nsh, rows_pad) int32,
-    counts (nsh, nclasses + 1) int64, npa_max, nnz (nsh,) int32, npa_body
-    (nsh,) int64).  ``b_iptr_per_shard``: each shard's own local B indptr
-    (the halo paths; ``B`` is then not read), else one B for all.
-    ``npa_body`` counts only the pairs of rows below the class ceiling: a
-    tail row goes to the global-sort ESC, so its pairs take no slab slots.
-    ``times``: each shard's host ms is appended to it.  Raises ValueError
-    when a shard's padded expansion exceeds the int32 range."""
-    b_iptr_rep = None if b_iptr_per_shard is not None else np.asarray(B.host().indptr, np.int64)
-    ind = np.asarray(S.indices)
-    iptr = np.asarray(S.indptr, dtype=np.int64)
-    classes_np = np.asarray(classes, np.int64)
-    tail = len(classes)
-    cls_all, counts_all, npa_max, nnz_s, body = [], [], 0, [], []
-    for s in range(S.n_shards):
-        t0 = time.perf_counter()
-        b_iptr = b_iptr_rep if b_iptr_rep is not None else np.asarray(b_iptr_per_shard[s], np.int64)
-        nsegB_row = (b_iptr[1:] - b_iptr[:-1] + W - 1) // W
-        nnz = int(iptr[s, -1])
-        nnz_s.append(nnz)
-        res = native.spgemm_sizing(iptr[s], ind[s, :nnz], b_iptr, W, classes_np)
-        if res is not None:
-            npa, _, cls = res
-        else:
-            nseg = nsegB_row[ind[s, :nnz].astype(np.int64)]
-            npa = int(nseg.sum())
-            segc = np.zeros(nnz + 1, dtype=np.int64)
-            np.cumsum(nseg, out=segc[1:])
-            exp_pad = W * (segc[iptr[s, 1:]] - segc[iptr[s, :-1]])
-            cls = np.searchsorted(classes_np, exp_pad, side="left").astype(np.int32)
-            cls[exp_pad == 0] = len(classes) + 1
-        if npa * W >= 2**31:
-            raise ValueError(
-                f"shard {s}: padded expansion exceeds int32 range; "
-                "use more shards or chunk rows first"
-            )
-        npa_max = max(npa_max, npa)
-        body.append(npa - _tail_pairs(iptr[s], ind[s], cls, tail, nsegB_row))
-        counts_all.append(np.bincount(cls, minlength=len(classes) + 2)[: len(classes) + 1])
-        cls_all.append(cls)
-        if times is not None:
-            times.append((time.perf_counter() - t0) * 1e3)
-    return (
-        np.stack(cls_all),
-        np.stack(counts_all).astype(np.int64),
-        npa_max,
-        np.asarray(nnz_s, np.int32),
-        np.asarray(body, np.int64),
-    )
-
-
-def _uniform_schedule(classes, counts, slot_budget):
-    """Chunk schedule ``[(L, R_pad), ...]`` covering the per-class maximum
-    count over shards, per-shard (start, count) tables (nsh, nchunks) int32,
-    and each shard's offset of its tail rows in its class order."""
-    nsh = counts.shape[0]
-    max_counts = counts.max(axis=0)
-    offsets = np.concatenate([np.zeros((nsh, 1), np.int64), np.cumsum(counts, axis=1)], axis=1)
-    sched, starts, cnts = [], [], []
-    for ci, L in enumerate(classes):
-        n = int(max_counts[ci])
-        rows_per_chunk = max(slot_budget // L, 8)
-        for lo in range(0, n, rows_per_chunk):
-            cap = min(rows_per_chunk, n - lo)
-            R_pad = min(_bucket_pow2(cap), _round_up(cap, 1 << 10))
-            sched.append((L, R_pad))
-            starts.append(offsets[:, ci] + lo)
-            cnts.append(np.clip(counts[:, ci] - lo, 0, rows_per_chunk))
-    starts = np.stack(starts, axis=1).astype(np.int32) if sched else np.zeros((nsh, 0), np.int32)
-    cnts = np.stack(cnts, axis=1).astype(np.int32) if sched else np.zeros((nsh, 0), np.int32)
-    return sched, starts, cnts, offsets[:, len(classes)].astype(np.int64)
 
 
 def _detect_shard_pattern(S: ShardedCSR, B: CSR) -> bool:

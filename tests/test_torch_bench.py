@@ -184,7 +184,7 @@ def test_attainable_kwargs_charge_the_tables_the_plan_builds(graph):
     W = ss.DEFAULT_SEG_W
     cl = ss._norm_classes(ss.DEFAULT_CLASSES, W)
     plan = ss.spgemm_plan(A, A, device="cpu")
-    kw = ss.attainable_kwargs(ss._sizing(A, A, W, cl), A.shape[0], 123, cl, W=W)
+    kw = ss.attainable_kwargs(ss._sizing(A, A, W, cl, "cpu"), A.shape[0], 123, cl, W=W)
     b2 = plan.b2_cols
     assert kw["b2_table_bytes"] == b2.numel() * b2.element_size()
     assert kw["b2_row_bytes"] == b2.shape[1] * b2.element_size() == W * 4

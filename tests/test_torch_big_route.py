@@ -14,6 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 from portbench.judge import scaled_err
 from portbench.reference.spgemm import spgemm as spgemm_reference
 from spmm_tpu_torch import ops
+from spmm_tpu_torch.formats import CSR
 from spmm_tpu_torch.formats import synthetic as tsyn
 from spmm_tpu_torch.ops import slab_spgemm as ss
 
@@ -118,3 +119,34 @@ def test_no_big_span_is_made_without_a_profiler(monkeypatch):
     before = ss.big_products
     ops.spgemm(A, A, device="cpu")
     assert ss.big_products - before == 1
+
+
+def _with_heavy_row(A, values: bool):
+    """A with row 7 made dense: its padded expansion is above the largest
+    class, so it takes the global-sort ESC as a tail row."""
+    S = A.to_scipy().tolil()
+    S[7, :] = rhs(1, A.shape[1], 17)[0] if values else 1.0
+    return CSR.from_scipy(S.tocsr(), np.float32)
+
+
+@pytest.mark.parametrize("values", [False, True], ids=["pattern", "values"])
+@pytest.mark.parametrize("heavy", [False, True], ids=["no_tail_row", "one_heavy_row"])
+def test_one_call_and_pieces_give_the_same_c(heavy, values, monkeypatch):
+    """The same product through ``ops.spgemm``'s single call and, with
+    ``_MAX_EXP_PAD`` cut, through its piece route: ``indptr`` and
+    ``indices`` equal, data within 1e-6 relative (pieces size without the
+    class fold, so their chunks may differ)."""
+    A = _graph(6) if values else tsyn.webgraph_like(3000, 18000, seed=6)
+    if heavy:
+        A = _with_heavy_row(A, values)
+    classes = ss._norm_classes(ss.DEFAULT_CLASSES, ss.DEFAULT_SEG_W)
+    assert (ss._sizing(A, A, ss.DEFAULT_SEG_W, classes, "cpu").counts[-1] > 0) == heavy
+    before = ss.big_products
+    one = ops.spgemm(A, A, device="cpu")
+    assert ss.big_products == before
+    monkeypatch.setattr(ss, "_MAX_EXP_PAD", SMALL_BUDGET)
+    pieces = ops.spgemm(A, A, device="cpu")
+    assert ss.big_products == before + 1
+    np.testing.assert_array_equal(np.asarray(pieces.indptr, np.int64), np.asarray(one.indptr, np.int64))
+    np.testing.assert_array_equal(pieces.indices[: pieces.nnz], one.indices[: one.nnz])
+    np.testing.assert_allclose(pieces.data[: pieces.nnz], one.data[: one.nnz], rtol=1e-6, atol=0)

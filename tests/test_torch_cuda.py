@@ -336,18 +336,32 @@ def test_ops_spgemm_piece_route_on_card(cuda, monkeypatch):
     A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 11)[0])
     stitch, seen = ss._stitch, []
     monkeypatch.setattr(ss, "_stitch", lambda triples, *a: seen.append(len(triples)) or stitch(triples, *a))
-    counters = lambda: np.array([ss.big_products, ss.pinned_landings, ss.pinned_fallbacks, ss.device_sizings,
-                                 ss.host_sizings])
+    sized_on = _spy_sizing_structure(ss, monkeypatch)
+    counters = lambda: np.array([ss.big_products, ss.pinned_landings, ss.pinned_fallbacks])
     before = counters()
     C = ops.spgemm(A, A, device=cuda)
-    products, landings, fallbacks, device_sizings, host_sizings = counters() - before
+    products, landings, fallbacks = counters() - before
     assert products == 1 and len(seen) == 1 and seen[0] >= 2 and fallbacks == 0
-    assert (device_sizings, host_sizings) == (1, 0)  # the whole-A sizing that overflowed ran on the card
+    assert sized_on == [True]  # the whole-A sizing that overflowed ran on the card
     assert 1 <= landings <= seen[0]
     ref = _scipy_square(A)
     np.testing.assert_array_equal(C.indptr, ref.indptr)
     np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
     np.testing.assert_allclose(C.data[: C.nnz], ref.data, rtol=1e-4, atol=1e-4)
+
+
+def _spy_sizing_structure(ss, monkeypatch) -> list:
+    """Where each ``_sizing`` put an operand's structure: one ``is_cuda`` a
+    copy, recorded also when the sizing then raises."""
+    structure_on, sized_on = ss._structure_on, []
+
+    def spy(M, dev):
+        got = structure_on(M, dev)
+        sized_on.append(all(t.is_cuda for t in got))
+        return got
+
+    monkeypatch.setattr(ss, "_structure_on", spy)
+    return sized_on
 
 
 def _htod_bytes(prof, path):
@@ -361,9 +375,9 @@ def _htod_bytes(prof, path):
 
 
 @pytest.mark.cuda
-def test_ops_spgemm_sizes_on_card_from_one_copy_of_a(cuda, tmp_path):
+def test_ops_spgemm_sizes_on_card_from_one_copy_of_a(cuda, tmp_path, monkeypatch):
     """``ops.spgemm(A, A)`` of host operands on the card sizes there (one
-    device sizing counted, no host pass) and sends A once: a profiled
+    copy of A's structure, on the card) and sends A once: a profiled
     call's host-to-device copies hold at least A's bytes (indptr, indices
     and values cut to nnz) and at most 1.05 times them; C's structure is
     scipy's and its values within 1e-4."""
@@ -376,10 +390,10 @@ def test_ops_spgemm_sizes_on_card_from_one_copy_of_a(cuda, tmp_path):
     warm = dataclasses.replace(A)  # builds and loads the kernels outside the profile
     ops.spgemm(warm, warm, device=cuda)
     fresh = dataclasses.replace(A)  # an operand the plan cache has not seen
-    before = (ss.device_sizings, ss.host_sizings)
+    sized_on = _spy_sizing_structure(ss, monkeypatch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         C = ops.spgemm(fresh, fresh, device=cuda)
-    assert (ss.device_sizings - before[0], ss.host_sizings - before[1]) == (1, 0)
+    assert sized_on == [True]
     a_bytes = sum(int(np.asarray(x).nbytes) for x in (A.indptr, A.indices[: A.nnz], A.data[: A.nnz]))
     htod, copies = _htod_bytes(prof, tmp_path / "trace.json")
     assert copies >= 1 and a_bytes <= htod <= 1.05 * a_bytes, (htod, a_bytes, copies)
@@ -392,32 +406,30 @@ def test_ops_spgemm_sizes_on_card_from_one_copy_of_a(cuda, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", SIZING_CASES)
 def test_device_sizing_matches_host_on_card(cuda, case, monkeypatch):
-    """``_sizing`` of host operands for the card runs there (counted) and
-    gives the host pass's npa, nsegB, folded classes, counts and class
-    order, or raises as it does with the same args; the out-of-range column
-    raises ValueError and leaves the card working (the gather read clamped
-    indices)."""
+    """``_sizing`` of host operands for the card runs there and gives the
+    CPU sizing's npa, nsegB, folded classes, counts and class order on the
+    same inputs, or raises as it does with the same args; the out-of-range
+    column raises ValueError and leaves the card working (the gather read
+    clamped indices)."""
     from spmm_tpu_torch.ops import slab_spgemm as ss
 
     A, B, W, classes, max_exp, raises = sizing_case(case)
     if max_exp is not None:
         monkeypatch.setattr(ss, "_MAX_EXP_PAD", max_exp)
-    before = (ss.device_sizings, ss.host_sizings)
     if raises is not None:
         with pytest.raises(raises) as host:
-            ss._sizing(A, B, W, classes)
+            ss._sizing(A, B, W, classes, "cpu")
         with pytest.raises(raises) as dev:
             ss._sizing(A, B, W, classes, cuda)
         assert type(dev.value) is type(host.value) and dev.value.args == host.value.args
         torch.cuda.synchronize()
-    else:
-        host = ss._sizing(A, B, W, classes)
-        dev = ss._sizing(A, B, W, classes, cuda)
-        assert (dev.npa, dev.nsegB, dev.counts) == (host.npa, host.nsegB, host.counts)
-        np.testing.assert_array_equal(dev.cls.cpu().numpy(), host.cls)
-        np.testing.assert_array_equal(ss._rows_sorted(dev, cuda).cpu().numpy(), host.rows_sorted)
-        assert all(t.is_cuda for pair in dev.structure for t in pair)
-    assert (ss.device_sizings - before[0], ss.host_sizings - before[1]) == (1, 1)
+        return
+    host = ss._sizing(A, B, W, classes, "cpu")
+    dev = ss._sizing(A, B, W, classes, cuda)
+    assert (dev.npa, dev.nsegB, dev.counts) == (host.npa, host.nsegB, host.counts)
+    np.testing.assert_array_equal(dev.cls.cpu().numpy(), host.cls.numpy())
+    np.testing.assert_array_equal(ss._rows_sorted(dev, cuda).cpu().numpy(), ss._rows_sorted(host, "cpu").numpy())
+    assert all(t.is_cuda for pair in dev.structure for t in pair)
 
 
 @pytest.mark.cuda
@@ -1767,8 +1779,8 @@ def test_k4a_one_launch_per_plan(cuda, pattern):
     if not pattern:
         A = dataclasses.replace(A, data=rhs(1, A.nnz_pad, 4)[0])
     for budget in (ss.DEFAULT_SLOT_BUDGET, 1 << 12):
-        sched, _ = ss._chunk_schedule(ss._norm_classes(ss.DEFAULT_CLASSES, 8),
-                                      ss._sizing(A, A, 8, ss._norm_classes(ss.DEFAULT_CLASSES, 8)).counts, budget)
+        classes = ss._norm_classes(ss.DEFAULT_CLASSES, 8)
+        sched, _ = ss._chunk_schedule(classes, ss._sizing(A, A, 8, classes, "cpu").counts, budget)
         want = -(-len(sched) // sk.MAX_LAUNCH_CHUNKS)
         e0 = sk.slab_launches["fetch"]
         plan = ss.spgemm_plan(A, A, device=cuda, slot_budget=budget, pattern=pattern)

@@ -21,7 +21,7 @@ import torch
 from spmm_tpu.formats import synthetic as jsyn
 from spmm_tpu.ops import slab_spgemm as js
 
-from spmm_tpu_torch import native, ops
+from spmm_tpu_torch import ops
 from spmm_tpu_torch.formats import CSR
 from spmm_tpu_torch.formats import synthetic as tsyn
 from spmm_tpu_torch.ops import slab_spgemm as ss
@@ -170,65 +170,80 @@ def test_spgemm_chain_no_host_roundtrip(monkeypatch):
     np.testing.assert_allclose(Dh.data[: D.nnz], ref.data, rtol=2e-4, atol=2e-4)
 
 
+def _jax_csr(M):
+    """The JAX package's CSR over the same host arrays as the port's ``M``."""
+    from spmm_tpu.formats import CSR as JCSR
+
+    return JCSR(data=np.asarray(M.data), indices=np.asarray(M.indices), indptr=np.asarray(M.indptr),
+                shape=M.shape, nnz=M.nnz)
+
+
 @pytest.mark.parametrize("held", ["numpy", "tensors"])
 @pytest.mark.parametrize("case", SIZING_CASES)
-def test_sizing_device_matches_host(case, held, monkeypatch):
-    """The device sizing (on the CPU here: host operands copied there, or
-    operands held in tensors) gives the host pass's npa, nsegB, folded
-    classes, counts and class order, and raises where it raises, with the
-    same args: ``_ExpansionTooLarge`` over a cut budget (padded slots, body
-    slots: the piece hint reads the second), ValueError for a column of A
-    that is not a row of B."""
+def test_sizing_matches_jax_on_every_case(case, held, monkeypatch):
+    """``_sizing`` on the CPU (host operands copied there, or operands held
+    in tensors) gives the JAX package's npa, nsegB, folded classes, counts
+    and class order on the same inputs, and raises where it should:
+    ``_ExpansionTooLarge`` over a cut budget, with args (padded slots, body
+    slots: the piece hint reads the second) equal to the JAX sizing's npa·W
+    and (npa - tail pairs)·W with the budget uncut; ValueError for a column
+    of A that is not a row of B."""
     A, B, W, classes, max_exp, raises = sizing_case(case)
     if max_exp is not None:
         monkeypatch.setattr(ss, "_MAX_EXP_PAD", max_exp)
     Ad = A if held == "numpy" else A.to("cpu")
     Bd = Ad if B is A else B if held == "numpy" else B.to("cpu")
     if raises is not None:
-        with pytest.raises(raises) as host:
-            ss._sizing(A, B, W, classes)
-        with pytest.raises(raises) as dev:
-            ss._sizing_device(Ad, Bd, W, classes, "cpu")
-        assert type(dev.value) is type(host.value) and dev.value.args == host.value.args
+        with pytest.raises(raises) as got:
+            ss._sizing(Ad, Bd, W, classes, "cpu")
+        assert type(got.value) is raises
         if case == "overflow":  # the tail row's pairs are not body slots
-            assert host.value.args[1] < host.value.args[0]
+            sj = js._sizing(_jax_csr(A), _jax_csr(B), W, classes)
+            segs = (np.diff(np.asarray(B.indptr, np.int64)) + W - 1) // W
+            row_pairs = sp.csr_matrix((segs[np.asarray(A.indices[: A.nnz], np.int64)], A.indices[: A.nnz],
+                                       A.indptr), shape=A.shape).sum(axis=1).A1.astype(np.int64)
+            tail_pairs = int(row_pairs[np.asarray(sj.cls) == len(classes)].sum())
+            assert tail_pairs > 0
+            assert got.value.args == (sj.npa * W, (sj.npa - tail_pairs) * W)
         return
-    host = ss._sizing(A, B, W, classes)
-    dev = ss._sizing_device(Ad, Bd, W, classes, "cpu")
-    assert (dev.npa, dev.nsegB, dev.counts) == (host.npa, host.nsegB, host.counts)
-    assert (host.counts[len(classes)] > 0) == (case == "tail")
-    np.testing.assert_array_equal(dev.cls.numpy(), host.cls)
-    np.testing.assert_array_equal(ss._rows_sorted(dev, "cpu").numpy(), host.rows_sorted)
+    got = ss._sizing(Ad, Bd, W, classes, "cpu")
+    sj = js._sizing(_jax_csr(A), _jax_csr(B), W, classes)
+    assert (got.npa, got.nsegB, got.counts) == (sj.npa, sj.nsegB, sj.counts)
+    assert (got.counts[len(classes)] > 0) == (case == "tail")
+    np.testing.assert_array_equal(got.cls.numpy(), np.asarray(sj.cls))
+    np.testing.assert_array_equal(ss._rows_sorted(got, "cpu").numpy(), np.asarray(sj.rows_sorted))
 
 
 @pytest.mark.parametrize("held", ["numpy", "tensors"])
 def test_sizing_route_follows_the_compute_device(held):
-    """Host operands of a CPU product take the host pass, operands held in
-    tensors the device sizing: the counters say which route ran."""
+    """Host operands and operands held in tensors both leave the sizing's
+    ``structure`` on the compute device, and when B is A the same tensors
+    serve B."""
     A = tsyn.webgraph_like(300, 1800, seed=4)
     A = A if held == "numpy" else A.to("cpu")
     classes = ss._norm_classes(ss.DEFAULT_CLASSES, 8)
-    before = (ss.device_sizings, ss.host_sizings)
     s = ss._sizing(A, A, 8, classes, torch.device("cpu"))
-    moved = (ss.device_sizings - before[0], ss.host_sizings - before[1])
-    assert moved == ((1, 0) if held == "tensors" else (0, 1))
-    assert (s.structure is None) == (held == "numpy")
+    (a_iptr, a_ind), (b_iptr, b_ind) = s.structure
+    assert all(isinstance(t, torch.Tensor) and t.device.type == "cpu" for t in (a_iptr, a_ind))
+    assert b_iptr is a_iptr and b_ind is a_ind
+    assert a_ind.numel() == A.nnz and s.cls.device.type == "cpu"
 
 
 @pytest.mark.parametrize("values", ["pattern", "random"])
 @pytest.mark.parametrize("case", ["rectangular", "tail"])
 def test_plan_reads_the_device_sizings_structure(case, values, monkeypatch):
-    """A plan on a device sizing of host operands reads the structure that
-    sizing copied, with the values beside it where the tables read them:
-    no ``CSR.to`` of the operands (B is A: one copy), and the plan equals
-    the one built from the operands' ``.to()`` after the host pass; the
-    plan keeps no copy of the structure."""
+    """A plan on a sizing of host operands reads the structure that sizing
+    copied, with the values beside it where the tables read them: no
+    ``CSR.to`` of the operands (B is A: one copy), and the plan equals the
+    one built from the operands' ``.to()`` (a sizing without its structure,
+    as a plan caches it); the plan keeps no copy of the structure."""
     A, B, W, classes, _, _ = sizing_case(case)
     if values == "random":
         A = _with_values(A, 3)
         B = A if case == "tail" else _with_values(B, 4)
-    ref = spgemm_plan(A, B, classes=classes, seg_w=W, device="cpu", pattern=values == "pattern")
-    sizing = ss._sizing_device(A, B, W, classes, "cpu")
+    sizing = ss._sizing(A, B, W, classes, "cpu")
+    ref = spgemm_plan(A, B, classes=classes, seg_w=W, device="cpu", pattern=values == "pattern",
+                      sizing=dataclasses.replace(sizing, structure=None))
     moved = []
     orig_to = CSR.to
     monkeypatch.setattr(CSR, "to", lambda self, dev: moved.append(self) or orig_to(self, dev))
@@ -394,15 +409,11 @@ def test_plan_revalue_new_values(monkeypatch):
 
     def run(plan, M, N):
         outs, tails, _ = ss.spgemm_slab_device(M, N, plan=plan)
-        rows, cols, vals = ss._pull_chunks(outs)
-        if len(tails):
-            tr, tc, tv = ss._tail_products(M.host(), np.asarray(tails, np.int64), N.host(),
-                                           torch.float32, "cpu")
-            rows.append(tr)
-            cols.append(tc)
-            vals.append(tv)
-        return ss._assemble_csr(np.concatenate(rows), np.concatenate(cols),
-                                np.concatenate(vals), (M.nrow, N.ncol))
+        tail = (ss._tail_products(M.host(), np.asarray(tails, np.int64), N.host(), torch.float32, "cpu")
+                if len(tails) else None)
+        C = ss._local_csr(outs, tail, (M.nrow, N.ncol), ss._round_up(plan.npa * plan.seg_w, 1024),
+                          torch.float32, "cpu")
+        return ss._csr_to_host(C)
 
     def boom(*a, **k):
         raise AssertionError("host sizing must not re-run on revalue")
@@ -454,19 +465,16 @@ def test_spgemm_slab_matches_jax(values):
 
 
 @pytest.mark.parametrize("seg_w", [4, 8])
-def test_sizing_matches_jax(seg_w, monkeypatch):
-    """npa, nsegB, per-row class and counts equal the JAX package's, by the
-    native pass and by the numpy pass."""
+def test_sizing_matches_jax(seg_w):
+    """npa, nsegB, per-row class, counts and class order equal the JAX
+    package's."""
     A, Aj = _pair(2500, 15000, 11)
     classes = ss._norm_classes(ss.DEFAULT_CLASSES, seg_w)
     sj = js._sizing(Aj, Aj, seg_w, classes)
-    s = ss._sizing(A, A, seg_w, classes)
-    monkeypatch.setattr(native, "spgemm_sizing", lambda *a, **k: None)
-    s_np = ss._sizing(A, A, seg_w, classes)
-    for got in (s, s_np):
-        assert (got.npa, got.nsegB, got.counts) == (sj.npa, sj.nsegB, sj.counts)
-        np.testing.assert_array_equal(got.cls, np.asarray(sj.cls))
-        np.testing.assert_array_equal(got.rows_sorted, np.asarray(sj.rows_sorted))
+    got = ss._sizing(A, A, seg_w, classes, "cpu")
+    assert (got.npa, got.nsegB, got.counts) == (sj.npa, sj.nsegB, sj.counts)
+    np.testing.assert_array_equal(got.cls.numpy(), np.asarray(sj.cls))
+    np.testing.assert_array_equal(ss._rows_sorted(got, "cpu").numpy(), np.asarray(sj.rows_sorted))
 
 
 @pytest.mark.parametrize("values", ["pattern", "random"])
@@ -513,17 +521,21 @@ def test_ops_spgemm_is_the_slab_path():
 
 
 def test_routes_tail_rows_by_sizing_not_by_catching(monkeypatch):
-    """Rows above the largest class take the host assembly because the
-    sizing counts them; an error inside the device path propagates."""
+    """Rows above the largest class reach the finish, ``_local_csr``, with
+    their products for the host assembly because the sizing counts them; an
+    error inside the device compaction propagates."""
     n = 300
     A = sp.random(n, n, density=0.03, random_state=3, format="lil", dtype=np.float32)
     A[5, :] = 1.0
     Ac = CSR.from_scipy(A.tocsr())
+    finish = ss._local_csr
 
-    def broken(*a, **k):
-        raise ValueError("device fault")
+    def broken(outs, tail, *a):
+        if tail is None:
+            raise ValueError("device fault")
+        return finish(outs, tail, *a)
 
-    monkeypatch.setattr(ss, "spgemm_slab_csr", broken)
+    monkeypatch.setattr(ss, "_local_csr", broken)
     _check(spgemm_slab(Ac, Ac, classes=(4, 8), device="cpu"), _oracle(Ac.to_scipy(), Ac.to_scipy()))
     B = tsyn.webgraph_like(300, 1500, seed=2)
     with pytest.raises(ValueError, match="device fault"):

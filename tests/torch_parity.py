@@ -47,13 +47,13 @@ def rhs(n, k, seed):
     return np.random.default_rng(seed).standard_normal((n, k)).astype(np.float32)
 
 
-#: the sizing's cases, each run by the host pass and by the device sizing
+#: the sizing's cases, each run on the CPU against the JAX package and on the card against the CPU
 SIZING_CASES = ("rectangular", "tail", "overflow", "bad_index")
 
 
 def sizing_case(name):
     """(A, B, W, classes, the ``_MAX_EXP_PAD`` to set or None, the error
-    both sizings raise or None) of a sizing case: a rectangular product with
+    the sizing raises or None) of a sizing case: a rectangular product with
     empty rows in A and in B (W 4, the default classes, small classes
     folded); a row above the class ceiling (W 8, the default classes); the
     same over a budget cut to 4,096 slots (``_ExpansionTooLarge``); a column
