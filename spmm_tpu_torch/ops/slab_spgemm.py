@@ -49,7 +49,6 @@ import glob
 import hashlib
 import json
 import os
-import time
 import warnings
 import weakref
 import zipfile
@@ -102,9 +101,12 @@ FOLD_THRESHOLD = 256
 pinned_landings = 0
 pinned_fallbacks = 0
 
-#: products that took the streamed piece route, ``spgemm_slab_big``
-#: (operator only; tests read it)
+#: products that took the streamed piece route, ``spgemm_slab_big``, and
+#: those of them whose piece split read the per-row result of the whole-A
+#: sizing that overflowed, so ``big_products - split_from_sizing`` computed
+#: the per-row pass themselves (operator only; tests read them)
 big_products = 0
+split_from_sizing = 0
 
 
 def _bucket_pow2(x: int, floor: int = 8) -> int:
@@ -152,7 +154,13 @@ class _ExpansionTooLarge(ValueError):
     """Padded expansion exceeds ``_MAX_EXP_PAD``.  ``spgemm_slab`` catches it
     and runs the product in pieces (``spgemm_slab_big``); from the lower-level
     entry points it propagates as a ValueError naming that remedy.  Args:
-    (padded slots, padded slots of the rows below the class ceiling)."""
+    (padded slots, padded slots of the rows below the class ceiling).
+    ``rows``: the sizing's per-row result, all that the piece split reads
+    (see :func:`_choose_pieces`)."""
+
+    def __init__(self, slots: int, body: int, rows: list):
+        super().__init__(slots, body)
+        self.rows = rows
 
     def __str__(self):
         return (
@@ -227,6 +235,45 @@ def _counts_of(keys: torch.Tensor, n: int) -> torch.Tensor:
     return counts.scatter_add_(0, slot, torch.ones_like(slot)).view(n, lanes).sum(1)
 
 
+def _per_row(a_iptr, a_ind, b_iptr, W: int, classes, nnz: int, nrowB: int):
+    """The sizing's per-row pass over A's and B's structure (tensors on one
+    device): B's segments per row, ``seg_c`` (pairs of A's nonzeros before
+    each), each A row's padded expansion (int64 slots) and its raw class
+    (``len(classes)`` above the ceiling, ``len(classes) + 1`` for an empty
+    expansion).  A row's class and slots depend only on that row of A and on
+    B's row lengths."""
+    dev = a_iptr.device
+    nsegB_row = ((b_iptr[1:] - b_iptr[:-1]).long() + (W - 1)) // W
+    # seg_c[q]: pairs of A's nonzeros before q
+    seg_c = torch.zeros(nnz + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(nsegB_row.int().index_select(0, a_ind.clamp(0, max(nrowB - 1, 0))), 0,
+                 dtype=torch.int64, out=seg_c[1:])
+    iptr = a_iptr.long().clamp(0, nnz)
+    exp_pad_row = W * (seg_c[iptr[1:]] - seg_c[iptr[:-1]])
+    cls = torch.searchsorted(torch.tensor(classes, dtype=torch.int64, device=dev), exp_pad_row, side="left")
+    cls = torch.where(exp_pad_row == 0, len(classes) + 1, cls)
+    return nsegB_row, seg_c, exp_pad_row, cls
+
+
+def _row_expansion(A: CSR, B: CSR, W: int, classes, device) -> list:
+    """``[padded expansion, raw class]`` of each row of A, tensors on
+    ``device``, by the sizing's own per-row pass (:func:`_per_row`): what
+    the piece split reads where no whole-A sizing handed it over (a direct
+    :func:`spgemm_slab_big`, the distributed big path).  Raises ValueError
+    where a column index of A is not a row of B."""
+    with span("spmm.spgemm.sizing"):
+        dev = torch.device(device)
+        nnz, nrowB = A.nnz, B.shape[0]
+        if nnz and not nrowB:
+            raise ValueError("spgemm_sizing: a column index of A is not a row of B")
+        a_iptr, a_ind = _structure_on(A, dev)
+        b_iptr = a_iptr if B is A else torch.as_tensor(B.indptr, device=dev)
+        _, _, exp_pad_row, cls = _per_row(a_iptr, a_ind, b_iptr, W, classes, nnz, nrowB)
+        if bool(((a_ind < 0) | (a_ind >= nrowB)).any()):
+            raise ValueError("spgemm_sizing: a column index of A is not a row of B")
+        return [exp_pad_row, cls]
+
+
 def _sizing(A: CSR, B: CSR, W: int, classes, device) -> Sizing:
     """O(nnz + nrow) sizing in torch ops on ``device``, the device the
     product computes on: (npa, nsegB, per-row class, counts).  The operands'
@@ -238,7 +285,8 @@ def _sizing(A: CSR, B: CSR, W: int, classes, device) -> Sizing:
     moves no nnz-scale array.  Per-nonzero counts are int32, sums int64.
     Raises ValueError where a column index of A is not a row of B (the
     gather reads a clamped index until then), ``_ExpansionTooLarge`` over
-    ``_MAX_EXP_PAD``."""
+    ``_MAX_EXP_PAD``, carrying each row's padded expansion and raw class
+    (where the sizing ran) to the piece split; the rest is let go."""
     with span("spmm.spgemm.sizing"):
         dev = torch.device(device)
         nnz, nrowB, nclasses = A.nnz, B.shape[0], len(classes)
@@ -246,15 +294,7 @@ def _sizing(A: CSR, B: CSR, W: int, classes, device) -> Sizing:
             raise ValueError("spgemm_sizing: a column index of A is not a row of B")
         a_iptr, a_ind = _structure_on(A, dev)
         b_iptr, b_ind = (a_iptr, a_ind) if B is A else _structure_on(B, dev)
-        nsegB_row = ((b_iptr[1:] - b_iptr[:-1]).long() + (W - 1)) // W
-        # seg_c[q]: pairs of A's nonzeros before q
-        seg_c = torch.zeros(nnz + 1, dtype=torch.int64, device=dev)
-        torch.cumsum(nsegB_row.int().index_select(0, a_ind.clamp(0, max(nrowB - 1, 0))), 0,
-                     dtype=torch.int64, out=seg_c[1:])
-        iptr = a_iptr.long().clamp(0, nnz)
-        exp_pad_row = W * (seg_c[iptr[1:]] - seg_c[iptr[:-1]])
-        cls = torch.searchsorted(torch.tensor(classes, dtype=torch.int64, device=dev), exp_pad_row, side="left")
-        cls = torch.where(exp_pad_row == 0, nclasses + 1, cls)
+        nsegB_row, seg_c, exp_pad_row, cls = _per_row(a_iptr, a_ind, b_iptr, W, classes, nnz, nrowB)
         counts = _counts_of(cls, nclasses + 2)
         body = torch.where(cls < nclasses, exp_pad_row, 0).sum()
         bad = ((a_ind < 0) | (a_ind >= nrowB)).sum()
@@ -263,7 +303,7 @@ def _sizing(A: CSR, B: CSR, W: int, classes, device) -> Sizing:
         if bad:
             raise ValueError("spgemm_sizing: a column index of A is not a row of B")
         if npa * W >= _MAX_EXP_PAD:
-            raise _ExpansionTooLarge(npa * W, body)
+            raise _ExpansionTooLarge(npa * W, body, [exp_pad_row, cls])
         counts, remap = _fold_small_classes(head[4:].numpy(), nclasses)
         return Sizing(
             npa=npa,
@@ -274,17 +314,15 @@ def _sizing(A: CSR, B: CSR, W: int, classes, device) -> Sizing:
         )
 
 
-def _per_shard_sizing(S, B: CSR | None, W: int, classes, b_iptr_per_shard=None,
-                      times: list | None = None):
+def _per_shard_sizing(S, B: CSR | None, W: int, classes, b_iptr_per_shard=None):
     """Host sizing of each shard of ``S`` (a ``parallel.partition.ShardedCSR``)
     against one B: (cls (nsh, rows_pad) int32, counts (nsh, nclasses + 1)
     int64, npa_max, nnz (nsh,) int32, npa_body (nsh,) int64), classes not
     folded.  ``b_iptr_per_shard``: each shard's own local B indptr (the halo
     paths; ``B`` is then not read), else one B for all.  ``npa_body`` counts
     only the pairs of rows below the class ceiling: a tail row goes to the
-    global-sort ESC, so its pairs take no slab slots.  ``times``: each
-    shard's host ms is appended to it.  Raises ValueError when a shard's
-    padded expansion exceeds the int32 range."""
+    global-sort ESC, so its pairs take no slab slots.  Raises ValueError
+    when a shard's padded expansion exceeds the int32 range."""
     b_iptr_rep = None if b_iptr_per_shard is not None else np.asarray(B.host().indptr, np.int64)
     ind = np.asarray(S.indices)
     iptr = np.asarray(S.indptr, dtype=np.int64)
@@ -292,7 +330,6 @@ def _per_shard_sizing(S, B: CSR | None, W: int, classes, b_iptr_per_shard=None,
     tail = len(classes)
     cls_all, counts_all, npa_max, nnz_s, body = [], [], 0, [], []
     for s in range(S.n_shards):
-        t0 = time.perf_counter()
         b_iptr = b_iptr_rep if b_iptr_rep is not None else np.asarray(b_iptr_per_shard[s], np.int64)
         nsegB_row = (b_iptr[1:] - b_iptr[:-1] + W - 1) // W
         nnz = int(iptr[s, -1])
@@ -317,8 +354,6 @@ def _per_shard_sizing(S, B: CSR | None, W: int, classes, b_iptr_per_shard=None,
         body.append(npa - _tail_pairs(iptr[s], ind[s], cls, tail, nsegB_row))
         counts_all.append(np.bincount(cls, minlength=len(classes) + 2)[: len(classes) + 1])
         cls_all.append(cls)
-        if times is not None:
-            times.append((time.perf_counter() - t0) * 1e3)
     return (
         np.stack(cls_all),
         np.stack(counts_all).astype(np.int64),
@@ -923,6 +958,7 @@ def spgemm_slab(
     those of scipy's product of the two patterns.  A plan fixes C's
     structure whatever the values, and ``spgemm_plan_revalue`` /
     ``spgemm_dist_revalue`` rely on that."""
+    global split_from_sizing
     with span("spmm.spgemm"):
         dev = compute_device(device)
         check_class_limit(_norm_classes(classes, seg_w), dev)
@@ -943,19 +979,20 @@ def spgemm_slab(
             sizing = _sizing(A, B, W, classes_n, dev)
         except _ExpansionTooLarge as e:
             # the pieces run after the handler, which lets go of the
-            # traceback and with it the device sizing's arrays
-            sizing, body_slots = None, int(e.args[1])
+            # traceback and with it the device sizing's arrays, all but the
+            # per-row result that the split reads (and then lets go of)
+            sizing, body_slots, rows = None, int(e.args[1]), e.rows
         if sizing is None:
             # uniform row pieces; start the piece search at the slab slots /
             # (budget / 2): the tail rows' pairs take no slots
             hint = 2
             while hint * _MAX_EXP_PAD < body_slots * 2:
                 hint *= 2
+            split_from_sizing += 1
             with span("spmm.spgemm.big"):
-                out = spgemm_slab_big(
-                    A, B, classes=classes, seg_w=seg_w, slot_budget=slot_budget,
-                    accum_dtype=accum_dtype, device=dev, pattern=pattern, pieces_hint=hint,
-                    checkpoint_dir=checkpoint_dir,
+                out = _slab_big(
+                    A, B, rows, classes=classes_n, W=W, slot_budget=slot_budget, accum_dtype=accum_dtype,
+                    dev=dev, pattern=pattern, pieces=None, pieces_hint=hint, checkpoint_dir=checkpoint_dir,
                 )
             return out if as_csr else to_coo(out)
         if checkpoint_dir is not None:
@@ -1052,12 +1089,12 @@ def _piece_csr(sub: CSR, cls, counts, sc, B_dev: CSR, dev, *, nclasses: int, nnz
                kw: dict) -> CSR:
     """One uniform piece (or shard) of a row-partitioned product as its local
     CSR (the piece's rows, B's columns): ``cls`` / ``counts`` are its rows'
-    classes and class counts from ``_per_shard_sizing``, ``sc`` its (start,
-    count) per chunk, ``kw`` the shared ``_piece_exec`` keywords.  Without
-    tail rows the chunks compact on the device (``nnz_pad`` bounds the
-    output) and the CSR stays there; with tail rows the chunks are pulled,
-    the tail rows' global-sort products of ``sub`` with ``B_dev`` itself
-    added, and the CSR is a host one."""
+    raw classes and class counts (``_choose_pieces``, ``_per_shard_sizing``),
+    ``sc`` its (start, count) per chunk, ``kw`` the shared ``_piece_exec``
+    keywords.  Without tail rows the chunks compact on the device
+    (``nnz_pad`` bounds the output) and the CSR stays there; with tail rows
+    the chunks are pulled, the tail rows' global-sort products of ``sub``
+    with ``B_dev`` itself added, and the CSR is a host one."""
     accum_dtype = kw["accum_dtype"]
     rows_sorted = _stable_argsort_smallint(np.asarray(cls), nclasses + 2).astype(np.int32)
     _, outs = _piece_exec(sub.to(dev), torch.from_numpy(rows_sorted).to(dev), sc, B_dev, **kw)
@@ -1223,28 +1260,40 @@ def spgemm_slab_big(
     ``checkpoint_dir``: persist each finished piece and resume a killed run
     from them (:class:`_BigCheckpoint`).  The caller owns the directory.
 
-    Spans: ``spmm.spgemm.big.split`` (each round of the piece search),
+    Spans: ``spmm.spgemm.sizing`` (the per-row pass the split reads, run
+    here; ``spgemm_slab`` hands over that of its whole-A sizing instead),
+    ``spmm.spgemm.big.split`` (each round of the piece search),
     ``spmm.spgemm.big.piece`` (each piece, from its sub-CSR to its landed
     triple, or its checkpoint read) and ``spmm.spgemm.big.stitch``;
     :func:`spgemm_slab` wraps the whole call in ``spmm.spgemm.big``."""
-    global big_products
-    big_products += 1
     dev = compute_device(device)
     W = seg_w
     classes = _norm_classes(classes, W)
     check_class_limit(classes, dev)
     if pattern is None:
         pattern = _is_pattern(A) and _is_pattern(B)
-
-    P, S, (cls, counts, npa_max, nnz_s, _), body_max = _choose_pieces(
-        A, B, W, classes, pieces, pieces_hint or 2)
-    sched, starts, cnts, _ = _uniform_schedule(
-        classes=classes, counts=counts[:, : len(classes) + 1], slot_budget=slot_budget
+    return _slab_big(
+        A, B, _row_expansion(A, B, W, classes, dev), classes=classes, W=W, slot_budget=slot_budget,
+        accum_dtype=accum_dtype, dev=dev, pattern=pattern, pieces=pieces, pieces_hint=pieces_hint,
+        checkpoint_dir=checkpoint_dir,
     )
+
+
+def _slab_big(A: CSR, B: CSR, rows: list, *, classes, W: int, slot_budget: int, accum_dtype, dev, pattern: bool,
+              pieces: int | None, pieces_hint: int | None, checkpoint_dir: str | None) -> CSR:
+    """The piece route of :func:`spgemm_slab_big` from ``rows``, A's per-row
+    sizing (:func:`_choose_pieces` reads it, then empties it); ``classes``
+    normalised, ``dev`` a device.  Each piece's sub-CSR is its rows of A:
+    views of A's host ``data`` / ``indices`` and a rebased ``indptr``."""
+    global big_products
+    big_products += 1
+    P, rows_pad, (cls, counts, npa_max, _, _), body_max = _choose_pieces(
+        A, rows, W, classes, pieces, pieces_hint or 2)
+    sched, starts, cnts, _ = _uniform_schedule(classes=classes, counts=counts, slot_budget=slot_budget)
     sc_tab = np.stack([starts, cnts], axis=1)  # (P, 2, nchunks)
 
-    Bh = B.host()
-    rows_pad = S.rows_per_shard
+    Ah, Bh = A.host(), B.host()
+    a_iptr = np.asarray(Ah.indptr, np.int64)
     kw = _piece_kw(Bh.indptr, W, npa_max, rows_pad, sched, starts, accum_dtype, pattern)
     B_dev = Bh.to(dev)
 
@@ -1264,10 +1313,7 @@ def spgemm_slab_big(
             if got is not None:
                 piece_csrs.append(got)
                 continue
-            sub = CSR(
-                data=S.data[p], indices=S.indices[p], indptr=S.indptr[p].astype(np.int64),
-                shape=(rows_pad, A.shape[1]), nnz=int(nnz_s[p]),
-            )
+            sub = _block_csr(Ah, a_iptr, p * rows_pad, rows_pad)
             Cp = _csr_to_host(_piece_csr(sub, cls[p], counts[p], sc_tab[p], B_dev, dev,
                                          nclasses=len(classes), nnz_pad=nnz_pad_piece, kw=kw))
             piece = (Cp.data, Cp.indices, Cp.indptr)
@@ -1279,39 +1325,86 @@ def spgemm_slab_big(
         return _stitch(piece_csrs, A.nrow, B.ncol)
 
 
-def _choose_pieces(A: CSR, B: CSR, W: int, classes, pieces: int | None, P0: int, nsh: int = 1,
-                   times: list | None = None):
+def _block_csr(Ah: CSR, a_iptr: np.ndarray, lo: int, rows: int) -> CSR:
+    """Rows ``[lo, lo + rows)`` of the host CSR ``Ah`` as a ``rows``-row
+    CSR: ``data`` / ``indices`` are views of Ah's, ``indptr`` (int64) is
+    rebased to the block's first nonzero and, past A's last row, repeats its
+    last offset (empty rows)."""
+    lo, hi = min(lo, Ah.nrow), min(lo + rows, Ah.nrow)
+    first, last = int(a_iptr[lo]), int(a_iptr[hi])
+    indptr = np.full(rows + 1, last - first, np.int64)
+    indptr[: hi - lo + 1] = a_iptr[lo : hi + 1] - first
+    return CSR(data=Ah.data[first:last], indices=Ah.indices[first:last], indptr=indptr,
+               shape=(rows, Ah.shape[1]), nnz=last - first)
+
+
+def _choose_pieces(A: CSR, rows: list, W: int, classes, pieces: int | None, P0: int, nsh: int = 1):
     """The piece count of a streamed product: A's rows cut into ``nsh * P``
-    uniform blocks (``nsh`` shards of ``P`` pieces each), ``P`` as given by
-    ``pieces``, else from ``P0`` doubled until every block's slab slots fit
+    uniform blocks (``nsh`` shards of ``P`` pieces each, as
+    ``partition_rows(A, nsh * P)`` cuts them), ``P`` as given by ``pieces``,
+    else from ``P0`` doubled until every block's slab slots fit
     ``_MAX_EXP_PAD`` (tail rows' pairs take none) or the blocks are one row.
     A block whose expansion overflows int32 doubles ``P`` in either case.
-    Returns (P, the blocks' ShardedCSR, their ``_per_shard_sizing``, the
-    largest block's body pairs); ``times`` ends holding each returned
-    block's host sizing ms.  Each round (a partition and its sizing) is one
-    ``spmm.spgemm.big.split`` span."""
-    from spmm_tpu_torch.parallel.partition import partition_rows
 
+    ``rows`` is ``[padded expansion, raw class]`` of each row of A, tensors
+    on one device (:func:`_per_row`): a row's class and pairs do not depend
+    on where the blocks are cut.  A round reads the prefix sums of its slots
+    and body slots at the block bounds, one small copy; the last also counts
+    (block, class) keys and copies the classes once, padded to whole blocks.
+    No round walks A's nonzeros or B's rows.  ``rows`` is emptied before the
+    return, so the pieces run without those tensors.
+
+    Returns (P, the rows of a block, the blocks' sizing as
+    ``_per_shard_sizing(partition_rows(A, nsh * P), B, W, classes)`` gives
+    it, element for element, the largest block's body pairs).  Each round is
+    one ``spmm.spgemm.big.split`` span."""
+    from spmm_tpu_torch.parallel.partition import rows_per_shard
+
+    exp_pad, cls_row = rows
+    dev, m, nclasses = exp_pad.device, A.nrow, len(classes)
+    a_iptr = np.asarray(as_numpy(A.indptr), np.int64)
+    cum = None
     P = pieces or P0
     while True:
         with span("spmm.spgemm.big.split"):
-            S = partition_rows(A, nsh * P)
+            if cum is None:  # prefix sums of the rows' slots and body slots (rows below the ceiling)
+                cum = torch.zeros((2, m + 1), dtype=torch.int64, device=dev)
+                torch.cumsum(exp_pad, 0, out=cum[0, 1:])
+                torch.cumsum(torch.where(cls_row < nclasses, exp_pad, 0), 0, out=cum[1, 1:])
+            nb = nsh * P
+            R = rows_per_shard(m, nb)
             # one row alone can exceed the budget (it becomes a tail row): stop
             # splitting at one-row blocks
-            at_min = S.rows_per_shard <= 1 or nsh * P >= A.nrow
-            if times is not None:
-                times.clear()
-            try:
-                sizing = _per_shard_sizing(S, B, W, classes, times=times)
-            except ValueError:  # a block still exceeds the int32 expansion
+            at_min = R <= 1 or nb >= m
+            bounds = np.minimum(np.arange(nb + 1, dtype=np.int64) * R, m)
+            npa, body = np.diff(cum[:, torch.from_numpy(bounds).to(dev)].cpu().numpy(), axis=1) // W
+            over = np.nonzero(npa * W >= 2**31)[0]
+            if len(over):  # a block still exceeds the int32 expansion
                 if at_min:
-                    raise
+                    raise ValueError(
+                        f"shard {int(over[0])}: padded expansion exceeds int32 range; "
+                        "use more shards or chunk rows first"
+                    )
                 P *= 2
                 continue
-        body_max = int(sizing[4].max(initial=0))
-        if pieces is not None or body_max * W <= _MAX_EXP_PAD or at_min:
-            return P, S, sizing, body_max
-        P *= 2
+            body_max = int(body.max(initial=0))
+            if pieces is None and body_max * W > _MAX_EXP_PAD and not at_min:
+                P *= 2
+                continue
+            keys = torch.arange(m, device=dev) // R * (nclasses + 2) + cls_row
+            counts = torch.bincount(keys, minlength=nb * (nclasses + 2)).view(nb, nclasses + 2)
+            # rows past A's last fill the last blocks with the empty class
+            cls = torch.full((nb * R,), nclasses + 1, dtype=torch.int32, device=dev)
+            cls[:m] = cls_row
+            sizing = (
+                cls.view(nb, R).cpu().numpy(),
+                counts[:, : nclasses + 1].cpu().numpy(),
+                int(npa.max(initial=0)),
+                (a_iptr[bounds[1:]] - a_iptr[bounds[:-1]]).astype(np.int32),
+                body,
+            )
+            rows.clear()
+            return P, R, sizing, body_max
 
 
 def _stitch(triples, nrow: int, ncol: int) -> CSR:

@@ -58,13 +58,14 @@ from spmm_tpu_torch.ops.slab_spgemm import (
     _piece_kw,
     _plan_tables,
     _round_up,
+    _row_expansion,
     _stable_argsort_smallint,
     _stitch,
     _tail_products,
     _uniform_schedule,
 )
 from spmm_tpu_torch.parallel.mesh import axis_size, check_on_mesh, mesh_device
-from spmm_tpu_torch.parallel.partition import ShardedCSR, local_shard, rows_per_shard
+from spmm_tpu_torch.parallel.partition import ShardedCSR, local_shard, partition_rows, rows_per_shard
 
 
 def _detect_shard_pattern(S: ShardedCSR, B: CSR) -> bool:
@@ -790,14 +791,17 @@ def spgemm_dist_big(
     directory that every rank sees: rank 0 alone writes it.  Every rank
     returns the same global host CSR.
 
+    The split sizes A's rows on this rank's device (``_row_expansion``) and
+    cuts every rank's ``n * P`` blocks from that one per-row result
+    (``_choose_pieces``), then partitions A into those blocks.
+
     ``stats``: a dict this rank fills with ``pieces`` (P), ``sizing_ms``
-    (the host partition and sizing of every block), ``stitch_ms`` and, per
-    piece, ``piece``: ``{"sizing_ms", "piece_ms", "device_ms", "d2h_ms",
-    "nnz", "resumed"}`` -- its block's host sizing, the host clock around
-    ``_piece_csr`` (to its result), CUDA events around it (None off the
-    card), the gather of every rank's triple and its copy to the host, and
-    this rank's nonzeros (a piece read back from the checkpoint has only
-    ``resumed``)."""
+    (the per-row sizing, the split and the partition), ``stitch_ms`` and,
+    per piece, ``piece``: ``{"piece_ms", "device_ms", "d2h_ms", "nnz",
+    "resumed"}`` -- the host clock around ``_piece_csr`` (to its result),
+    CUDA events around it (None off the card), the gather of every rank's
+    triple and its copy to the host, and this rank's nonzeros (a piece read
+    back from the checkpoint has only ``resumed``)."""
     n = axis_size(mesh, axis)
     me, group, dev = mesh.get_local_rank(axis), mesh.get_group(axis), mesh_device(mesh)
     W = seg_w
@@ -807,15 +811,15 @@ def spgemm_dist_big(
     if pattern is None:
         pattern = _is_pattern(A) and _is_pattern(Bh)
 
-    t_size, size_ms = time.perf_counter(), []
-    P, S, (cls, counts, npa_max, nnz_s, _), body_max = _choose_pieces(
-        A, Bh, W, classes, pieces, 1, nsh=n, times=size_ms)
+    t_size = time.perf_counter()
+    P, _, (cls, counts, npa_max, nnz_s, _), body_max = _choose_pieces(
+        A, _row_expansion(A, Bh, W, classes, dev), W, classes, pieces, 1, nsh=n)
+    S = partition_rows(A, n * P)
     if stats is not None:
         stats.update(pieces=P, sizing_ms=(time.perf_counter() - t_size) * 1e3, piece=[])
     timed = stats is not None and dev.type == "cuda"
     ncls = len(classes)
-    sched, starts, cnts, _ = _uniform_schedule(classes=classes, counts=counts[:, : ncls + 1],
-                                               slot_budget=slot_budget)
+    sched, starts, cnts, _ = _uniform_schedule(classes=classes, counts=counts, slot_budget=slot_budget)
     sc_tab = np.stack([starts, cnts], axis=1)  # (n * P, 2, nchunks)
     rows_pad = S.rows_per_shard
     b_iptr = np.asarray(Bh.indptr, np.int64)
@@ -859,7 +863,7 @@ def spgemm_dist_big(
             C = _piece_csr(sub, cls[b], counts[b], sc_tab[b], B_dev, dev, nclasses=ncls,
                            nnz_pad=nnz_pad, kw=kw)
         if stats is not None:
-            rec = {"sizing_ms": size_ms[b], "piece_ms": None, "device_ms": None, "nnz": int(C.nnz),
+            rec = {"piece_ms": None, "device_ms": None, "nnz": int(C.nnz),
                    "resumed": False}
             if timed:
                 ev[1].record()

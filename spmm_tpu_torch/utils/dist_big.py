@@ -27,8 +27,8 @@ Prints progress lines, as the JAX script does, then one JSON line: the JAX scrip
 (``n``, ``nnz_in``, ``nnz_out``, ``n_shards``, ``pieces``, ``dist_big_s``,
 ``mnnz_out_per_s``, ``scipy_s``, ``parity``), then ``gen_s``,
 ``pieces_chosen``, rank 0's ``sizing_s``, ``stitch_s`` and per piece
-``piece_stats`` (``spgemm_dist_big(stats=)``: host sizing ms, the host
-clock and CUDA events around ``_piece_csr``, the gather and D2H ms, nnz),
+``piece_stats`` (``spgemm_dist_big(stats=)``: the host clock and CUDA
+events around ``_piece_csr``, the gather and D2H ms, nnz),
 ``pieces_computed`` / ``pieces_resumed``, ``slab_big_s``,
 ``peak_device_gb`` (rank 0; ``single_peak_device_gb`` for
 ``--single``, and ``single_pinned_host_gb``, the pinned blocks torch's

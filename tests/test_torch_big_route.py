@@ -65,15 +65,15 @@ def test_the_big_spans_count_the_pieces_and_the_rounds(route, monkeypatch, tmp_p
     """Under a CPU profiler: one stitch span a product, and one
     ``spmm.spgemm.big`` where ``ops.spgemm`` chose the route; as many piece
     spans as the triples ``_stitch`` gets, as many split spans as
-    ``partition_rows`` calls; a search started at one piece takes several
-    rounds, and a resumed product's pieces read from their checkpoint files
-    are pieces too."""
+    ``rows_per_shard`` calls (a round's block height); a search started at
+    one piece takes several rounds, and a resumed product's pieces read from
+    their checkpoint files are pieces too."""
     from spmm_tpu_torch.parallel import partition
 
     monkeypatch.setattr(ss, "_MAX_EXP_PAD", SMALL_BUDGET)
     A = _graph(3)
     seen = {"pieces": 0, "rounds": 0}
-    stitch, split = ss._stitch, partition.partition_rows
+    stitch, split = ss._stitch, partition.rows_per_shard
 
     def counted_stitch(triples, *a):
         seen["pieces"] += len(triples)
@@ -92,7 +92,7 @@ def test_the_big_spans_count_the_pieces_and_the_rounds(route, monkeypatch, tmp_p
         ss.spgemm_slab_big(A, A, checkpoint_dir=ck, device="cpu")
         run = lambda: ss.spgemm_slab_big(A, A, checkpoint_dir=ck, device="cpu")
     monkeypatch.setattr(ss, "_stitch", counted_stitch)
-    monkeypatch.setattr(partition, "partition_rows", counted_split)
+    monkeypatch.setattr(partition, "rows_per_shard", counted_split)
     before = ss.big_products
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         C = run()
@@ -150,3 +150,114 @@ def test_one_call_and_pieces_give_the_same_c(heavy, values, monkeypatch):
     np.testing.assert_array_equal(np.asarray(pieces.indptr, np.int64), np.asarray(one.indptr, np.int64))
     np.testing.assert_array_equal(pieces.indices[: pieces.nnz], one.indices[: one.nnz])
     np.testing.assert_allclose(pieces.data[: pieces.nnz], one.data[: one.nnz], rtol=1e-6, atol=0)
+
+
+def _block_by_block_split(A, B, W, classes, pieces, P0, nsh):
+    """The piece search block by block, as a reference: ``partition_rows``
+    and ``_per_shard_sizing`` each round,
+    P doubled on an int32 overflow and, unless ``pieces`` is given, until the
+    largest block's body slots fit the budget or the blocks are one row."""
+    from spmm_tpu_torch.parallel.partition import partition_rows
+
+    P = pieces or P0
+    while True:
+        S = partition_rows(A, nsh * P)
+        at_min = S.rows_per_shard <= 1 or nsh * P >= A.nrow
+        try:
+            sizing = ss._per_shard_sizing(S, B, W, classes)
+        except ValueError:
+            if at_min:
+                raise
+            P *= 2
+            continue
+        if pieces is not None or sizing[4].max(initial=0) * W <= ss._MAX_EXP_PAD or at_min:
+            return P, S.rows_per_shard, sizing
+        P *= 2
+
+
+#: name: (A or (A, B), W, classes or None for the defaults, nsh, pieces,
+#: P0, budget); each last block is padded past A's last row
+SPLIT_CASES = {
+    "heavy_row_search": (lambda: _with_heavy_row(_graph(6), True), 8, None, 1, None, 1, SMALL_BUDGET),
+    "heavy_row_three_shards": (lambda: _with_heavy_row(_graph(6), True), 8, None, 3, None, 1, SMALL_BUDGET),
+    "given_pieces_three_shards": (lambda: _graph(7), 8, None, 3, 4, 1, None),
+    "rectangular_b": (lambda: (tsyn.webgraph_like(3001, 20000, seed=8), tsyn.webgraph_like(3001, 9000, seed=9)),
+                      4, None, 1, None, 1, SMALL_BUDGET),
+    "one_row_blocks": (lambda: tsyn.webgraph_like(21, 120, seed=10), 8, None, 1, None, 1, 64),
+    # every pair is 2^20 slots: blocks of over 2,047 nonzeros overflow int32,
+    # so P doubles past the pieces asked for
+    "int32_doubling": (lambda: _graph(11), 1 << 20, (1 << 20,), 3, 2, 1, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_the_split_from_the_per_row_sizing_equals_the_per_block_host_sizing(case, monkeypatch):
+    """``_choose_pieces`` cut from each row's padded expansion and raw class
+    gives the P of the block-by-block search and, element for element, the
+    ``_per_shard_sizing(partition_rows(A, nsh * P), B, W, classes)`` of its
+    blocks (classes, counts, npa_max, nnz, body pairs) in their dtypes and
+    shapes; it empties the per-row list it was handed."""
+    make, W, classes, nsh, pieces, P0, budget = SPLIT_CASES[case]
+    if budget is not None:
+        monkeypatch.setattr(ss, "_MAX_EXP_PAD", budget)
+    got = make()
+    A, B = got if isinstance(got, tuple) else (got, got)
+    classes = classes or ss._norm_classes(ss.DEFAULT_CLASSES, W)
+    P, R, want = _block_by_block_split(A, B, W, classes, pieces, P0, nsh)
+    rows = ss._row_expansion(A, B, W, classes, "cpu")
+    got_P, got_R, sizing, body_max = ss._choose_pieces(A, rows, W, classes, pieces, P0, nsh=nsh)
+    assert rows == [] and (got_P, got_R) == (P, R) and body_max == int(want[4].max(initial=0))
+    assert nsh * P * R > A.nrow
+    if case == "given_pieces_three_shards":
+        assert P == pieces
+    else:  # the others take more than one round
+        assert P > (pieces or P0)
+    for name, g, w in zip(("cls", "counts", "npa_max", "nnz", "body"), sizing, want):
+        if isinstance(w, np.ndarray):
+            assert (g.dtype, g.shape) == (w.dtype, w.shape), name
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            assert g == w, name
+    if case == "int32_doubling":
+        from spmm_tpu_torch.parallel.partition import partition_rows
+
+        with pytest.raises(ValueError, match="int32"):
+            ss._per_shard_sizing(partition_rows(A, nsh * P // 2), B, W, classes)
+
+
+@pytest.mark.parametrize("heavy", [False, True], ids=["no_tail_row", "one_heavy_row"])
+def test_the_piece_route_splits_from_the_sizing_it_already_ran(heavy, monkeypatch):
+    """``ops.spgemm`` on the piece route cuts its pieces from the per-row
+    result of the whole-A sizing that overflowed: no ``partition_rows`` and
+    no per-block host sizing, ``split_from_sizing`` one up a product.  A
+    direct ``spgemm_slab_big`` from the same piece hint computes that
+    per-row pass itself (the counter stays) and gives the same C, bit for
+    bit."""
+    from spmm_tpu_torch.parallel import partition
+
+    monkeypatch.setattr(ss, "_MAX_EXP_PAD", SMALL_BUDGET)
+    A = _graph(12)
+    if heavy:
+        A = _with_heavy_row(A, True)
+    hints, choose = [], ss._choose_pieces
+
+    def spy(A, rows, W, classes, pieces, P0, nsh=1):
+        hints.append(P0)
+        return choose(A, rows, W, classes, pieces, P0, nsh)
+
+    def refuse(*a, **k):
+        raise AssertionError("the piece route walked A's blocks on the host")
+
+    monkeypatch.setattr(ss, "_choose_pieces", spy)
+    monkeypatch.setattr(ss, "_per_shard_sizing", refuse)
+    monkeypatch.setattr(partition, "partition_rows", refuse)
+    before = (ss.big_products, ss.split_from_sizing)
+    routed = [ops.spgemm(A, A, device="cpu") for _ in range(2)]
+    assert (ss.big_products - before[0], ss.split_from_sizing - before[1]) == (2, 2)
+    direct = ss.spgemm_slab_big(A, A, pieces_hint=hints[0], device="cpu")
+    assert (ss.big_products - before[0], ss.split_from_sizing - before[1]) == (3, 2)
+    assert len(set(hints)) == 1
+    for C in routed:
+        for name in ("indptr", "indices", "data"):
+            g, w = getattr(C, name), getattr(direct, name)
+            assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), name

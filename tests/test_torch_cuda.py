@@ -350,6 +350,55 @@ def test_ops_spgemm_piece_route_on_card(cuda, monkeypatch):
     np.testing.assert_allclose(C.data[: C.nnz], ref.data, rtol=1e-4, atol=1e-4)
 
 
+
+@pytest.mark.cuda
+def test_piece_route_on_card_splits_from_the_sizing_and_lets_it_go(cuda, monkeypatch):
+    """``ops.spgemm``'s piece route on the card at a cut budget cuts its
+    pieces from the per-row result of the whole-A sizing that overflowed:
+    no ``partition_rows`` and no per-block host sizing, ``split_from_sizing``
+    one up with ``big_products``, C exact against scipy (a pattern graph:
+    every value a count).  The per-row tensors are gone before the first
+    piece runs, and the device holds after the call what it held before (a
+    first call builds the kernels and anything torch makes once)."""
+    import weakref
+
+    from spmm_tpu_torch.ops import slab_spgemm as ss
+    from spmm_tpu_torch.parallel import partition
+
+    monkeypatch.setattr(ss, "_MAX_EXP_PAD", 1 << 22)
+    A = tsyn.webgraph_like(200_000, 1_500_000, seed=3)
+    ops.spgemm(A, A, device=cuda)
+
+    def refuse(*a, **k):
+        raise AssertionError("the piece route walked A's blocks on the host")
+
+    choose, piece_csr, carried, live = ss._choose_pieces, ss._piece_csr, [], []
+
+    def spy_choose(A, rows, *a, **k):
+        carried.extend(weakref.ref(t) for t in rows)
+        return choose(A, rows, *a, **k)
+
+    def spy_piece(*a, **k):
+        live.append(sum(r() is not None for r in carried))
+        return piece_csr(*a, **k)
+
+    monkeypatch.setattr(ss, "_per_shard_sizing", refuse)
+    monkeypatch.setattr(partition, "partition_rows", refuse)
+    monkeypatch.setattr(ss, "_choose_pieces", spy_choose)
+    monkeypatch.setattr(ss, "_piece_csr", spy_piece)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    before = (ss.big_products, ss.split_from_sizing)
+    C = ops.spgemm(A, A, device=cuda)
+    torch.cuda.synchronize()
+    assert (ss.big_products - before[0], ss.split_from_sizing - before[1]) == (1, 1)
+    assert len(carried) == 2 and len(live) >= 2 and set(live) == {0}
+    assert torch.cuda.memory_allocated() == held
+    ref = _scipy_square(A)
+    np.testing.assert_array_equal(np.asarray(C.indptr, np.int64), ref.indptr)
+    np.testing.assert_array_equal(C.indices[: C.nnz], ref.indices)
+    np.testing.assert_array_equal(C.data[: C.nnz], ref.data)
+
 def _spy_sizing_structure(ss, monkeypatch) -> list:
     """Where each ``_sizing`` put an operand's structure: one ``is_cuda`` a
     copy, recorded also when the sizing then raises."""
@@ -1850,7 +1899,7 @@ def test_dist_big_module_at_a_moderate_size_on_card(cuda, pieces):
     nnz, ``indptr`` and ``indices`` equal to scipy's, every piece timed by
     CUDA events, K4 (b) launched, and K5 once for every piece without a
     heavy-tail row (the graph has one; its piece is assembled on the host)."""
-    from spmm_tpu_torch.ops.slab_spgemm import DEFAULT_CLASSES, _choose_pieces, _norm_classes
+    from spmm_tpu_torch.ops.slab_spgemm import DEFAULT_CLASSES, _choose_pieces, _norm_classes, _row_expansion
     from spmm_tpu_torch.utils import dist_big
 
     n, nnz = 1_000_000, 10_460_000
@@ -1858,8 +1907,8 @@ def test_dist_big_module_at_a_moderate_size_on_card(cuda, pieces):
     assert res["parity"] == "exact" and res["nnz_out"] == res["scipy_nnz"]
     assert res["device"] == torch.cuda.get_device_name(0) and res["n_shards"] == 1
     classes = _norm_classes(DEFAULT_CLASSES, 8)
-    P, _, (_, counts, _, _, _), _ = _choose_pieces(tsyn.webgraph_like(n, nnz, seed=5), tsyn.webgraph_like(
-        n, nnz, seed=5), 8, classes, pieces, 1)
+    A = tsyn.webgraph_like(n, nnz, seed=5)
+    P, _, (_, counts, _, _, _), _ = _choose_pieces(A, _row_expansion(A, A, 8, classes, cuda), 8, classes, pieces, 1)
     with_tail = int((counts[:, len(classes)] > 0).sum())
     assert res["pieces_chosen"] == P == len(res["piece_stats"]) and (pieces is None or P == pieces)
     assert all(p["device_ms"] > 0 for p in res["piece_stats"])

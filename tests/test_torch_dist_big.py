@@ -64,7 +64,7 @@ def test_dist_big_exact_against_scipy_and_jax(ranks, pieces, ref_nnz):
     assert res["pieces_computed"] == P == len(res["piece_stats"]) and res["pieces_resumed"] == 0
     for p in res["piece_stats"]:
         assert p["device_ms"] is None  # no device number from a CPU run
-        assert p["piece_ms"] > 0 and p["d2h_ms"] > 0 and p["sizing_ms"] > 0 and p["nnz"] > 0
+        assert p["piece_ms"] > 0 and p["d2h_ms"] > 0 and p["nnz"] > 0
     assert res["launches"] == {"slab_fetch_merge": 0, "slab_compact": 0}  # CPU tensors take the plain versions
     assert "peak_device_gb" not in res and "power_limit" not in res
 
