@@ -41,6 +41,7 @@ from spmm_tpu_torch.ops.blocked import (
     blocked_spmm_xla,
 )
 from spmm_tpu_torch.ops.sddmm import sddmm, sddmm_values
+from spmm_tpu_torch.ops.attention import ell_edge_softmax, ell_sddmm, ell_with_values
 from spmm_tpu_torch.ops.segments import boundary_segments
 from spmm_tpu_torch.ops.transform import (
     add,
@@ -103,6 +104,9 @@ __all__ = [
     "blocked_spmm",
     "sddmm",
     "sddmm_values",
+    "ell_sddmm",
+    "ell_edge_softmax",
+    "ell_with_values",
     "boundary_segments",
     "transpose",
     "add",

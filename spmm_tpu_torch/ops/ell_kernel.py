@@ -15,7 +15,10 @@ Two optional maps read inside K2: an output row per slab row
 (:func:`ell_slabs_spmm_mapped`: ``ell_spmm`` writes every row of A at its
 original row, with no un-permute after the launch) and a value index per
 slot into one flat value array (the transposed pack reads A's values where
-they are stored).
+they are stored).  A memoized table holds its slabs' value pointers; called
+with other value tensors of the same shapes (values computed anew each step,
+as an attention layer's), it writes their pointers into its device copy with
+one small asynchronous copy and keeps its structure (:func:`_repoint`).
 
 Gradients.  The kernels launch through ctypes, which autograd cannot see, so
 on CUDA tensors a product whose B or slab values require grad goes through a
@@ -65,6 +68,8 @@ from spmm_tpu_torch.utils.profiling import span
 launches = 0
 transposed_launches = 0
 sddmm_launches = 0
+#: memoized K2 tables re-pointed at other value slabs (:func:`_repoint`)
+repoints = 0
 
 _DTYPES = {torch.float32: kernels.F32, torch.bfloat16: kernels.BF16, torch.float64: kernels.F64}
 #: columns per lane in the wide lane layout: 16 bytes of fp32 or fp64, 8 of bf16
@@ -221,14 +226,16 @@ def sddmm_table(shapes, tpr_log2: int, *, row_keys=None):
 class SlabTable:
     """The device form of one work table: the (S, 6) int64 slab table
     (pointers, then ``meta``), the items, each slab's offset in a flat
-    per-slot array (K3's output), and the slab tensors whose pointers it
-    holds (kept alive with it)."""
+    per-slot array (K3's output), the slab tensors whose pointers it
+    holds (kept alive with it) and the value slabs as the caller gave them
+    (``src``: the same objects again need no new pointers)."""
 
     slabs: torch.Tensor
     items: torch.Tensor
     slot0: torch.Tensor
     data_code: int
     keep: tuple
+    src: tuple = ()
 
 
 def table_memo(owner) -> dict | None:
@@ -244,13 +251,11 @@ def _slab_table(cols, data, device, tpr_log2: int, row_keys=None, split_l: int =
     ``data`` int32 slabs: value indices into a flat array that K2 is given
     at launch (its value dtype then comes with the launch).  ``sddmm``: K3's
     slot-major items (:func:`sddmm_table`) in place of K2's."""
+    src = () if data is None else tuple(data)
     cols = [as_tensor(c, device) for c in cols]
     if data is not None:
         data = [as_tensor(d, device) for d in data]
-        dtypes = {d.dtype for d in data}
-        if len(dtypes) > 1 or not dtypes <= {*_DTYPES, torch.int32}:
-            raise TypeError(f"ell_slabs_spmm: slab data {sorted(map(str, dtypes))} not one dtype of "
-                            "float32, bfloat16, float64")
+        _data_code(data)
     for i, c in enumerate(cols):
         if c.dtype != torch.int32:
             raise TypeError(f"ell_slabs_spmm: cols must be int32, got {c.dtype}")
@@ -279,20 +284,56 @@ def _slab_table(cols, data, device, tpr_log2: int, row_keys=None, split_l: int =
         slabs=torch.from_numpy(host).to(device),
         items=torch.from_numpy(items).to(device),
         slot0=torch.from_numpy(np.cumsum(slots) - slots).to(device),
-        data_code=_DTYPES.get(data[0].dtype, kernels.F32) if data else kernels.F32,
+        data_code=_data_code(data) if data else kernels.F32,
         keep=(cols, data),
+        src=src,
     )
+
+
+def _data_code(data) -> int:
+    """The kernels' dtype code of slab values (int32 value indices read as
+    fp32: their launch names the value dtype); raises unless every slab has
+    one dtype the kernels take."""
+    dtypes = {d.dtype for d in data}
+    if len(dtypes) > 1 or not dtypes <= {*_DTYPES, torch.int32}:
+        raise TypeError(f"ell_slabs_spmm: slab data {sorted(map(str, dtypes))} not one dtype of "
+                        "float32, bfloat16, float64")
+    return _DTYPES.get(data[0].dtype, kernels.F32)
+
+
+def _repoint(table: SlabTable, data, device) -> SlabTable:
+    """``table`` over other value slabs of the same shapes: their pointers
+    copied into the device table (from page-locked memory, without waiting:
+    the copy is ordered on the stream before the next launch and after the
+    last one that read the old pointers), the structure and items kept."""
+    global repoints
+    repoints += 1
+    src = tuple(data)
+    data = [as_tensor(d, device) for d in data]
+    cols = table.keep[0]
+    if len(data) != len(cols) or any(d.shape != c.shape or not d.is_contiguous() for d, c in zip(data, cols)):
+        raise ValueError("ell_slabs_spmm: new slab values must be contiguous and shaped as the memoized slabs")
+    code = _data_code(data) if data else kernels.F32
+    ptrs = torch.tensor([d.data_ptr() for d in data], dtype=torch.int64)
+    if device.type == "cuda":
+        ptrs = ptrs.pin_memory()
+    table.slabs[:, 1].copy_(ptrs, non_blocking=True)
+    return dataclasses.replace(table, data_code=code, keep=(cols, tuple(data)), src=src)
 
 
 def _table(cols, data, device, tpr_log2: int, memo, row_keys, sddmm: bool = False) -> SlabTable:
     """The work table of these slabs on ``device`` for one lane layout (K2's,
-    or with ``sddmm`` K3's), from ``memo`` when it holds one."""
+    or with ``sddmm`` K3's), from ``memo`` when it holds one; a memoized K2
+    table given other value slabs than it points at is re-pointed
+    (:func:`_repoint`)."""
     key = ("sddmm", device, tpr_log2) if sddmm else (device, tpr_log2)
     table = memo.get(key) if memo is not None else None
     if table is None:
         table = _slab_table(cols, data, device, tpr_log2, row_keys, sddmm=sddmm)
         if memo is not None:
             memo[key] = table
+    elif data is not None and (len(data) != len(table.src) or any(a is not b for a, b in zip(data, table.src))):
+        table = memo[key] = _repoint(table, data, torch.device(device))
     return table
 
 
@@ -634,6 +675,9 @@ def flat_values(data, bufs: dict | None = None) -> torch.Tensor:
     one slice per slab."""
     if len(data) == 1:
         return data[0].reshape(-1)
+    run = _one_run(data)
+    if run is not None:
+        return run
     ent = (bufs or {}).get(data[0].dtype)
     if ent is None or len(ent[1]) != len(data) or any(a is not b for a, b in zip(ent[1], data)):
         flats = [d.detach().reshape(-1) for d in data]
@@ -644,6 +688,22 @@ def flat_values(data, bufs: dict | None = None) -> torch.Tensor:
     buf, _, targets, sources = ent
     torch._foreach_copy_(targets, sources)
     return buf
+
+
+def _one_run(data) -> torch.Tensor | None:
+    """The slabs as one flat view when they lie one after another in one
+    storage (the views of one flat array, as K3 and the edge softmax give
+    their slabs), else None."""
+    first = data[0]
+    base = first.untyped_storage().data_ptr()
+    ptr = first.data_ptr()
+    for d in data:
+        if not d.is_contiguous() or d.dtype != first.dtype or d.untyped_storage().data_ptr() != base \
+                or d.data_ptr() != ptr:
+            return None
+        ptr += d.numel() * d.element_size()
+    return first.detach().as_strided(((ptr - first.data_ptr()) // first.element_size(),), (1,),
+                                     first.storage_offset())
 
 
 def _transposed_product(cols, data, dY: torch.Tensor, n: int, memo, product, out_rows=None) -> torch.Tensor:

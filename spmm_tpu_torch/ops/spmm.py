@@ -51,9 +51,31 @@ def spmm_xla(A: CSR, B: torch.Tensor, *, accum_dtype=torch.float32) -> torch.Ten
     batched form (``vmap`` over B in the JAX package)."""
     B, batch = fold_batch(B)
     dev = B.device
-    gathered = B.index_select(0, as_tensor(A.indices, dev).long()).to(accum_dtype)
-    contrib = gathered * as_tensor(A.data, dev).to(accum_dtype)[:, None]
+    contrib = _ScaledRows.apply(B, as_tensor(A.data, dev), as_tensor(A.indices, dev).long(), accum_dtype)
     return unfold_batch(segment_sum(contrib, plan=_rows_plan(A, dev)), batch)
+
+
+class _ScaledRows(torch.autograd.Function):
+    """``B[idx] * v[:, None]`` in ``dtype``, differentiated as autograd
+    differentiates the gather, the casts and the product, but keeping B, v
+    and idx for the backward, not the nnz × k rows gathered: the backward
+    gathers them again for v's gradient."""
+
+    @staticmethod
+    def forward(ctx, B, v, idx, dtype):
+        ctx.save_for_backward(B, v, idx)
+        return B.index_select(0, idx).to(dtype) * v.to(dtype)[:, None]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        B, v, idx = ctx.saved_tensors
+        dB = dv = None
+        if ctx.needs_input_grad[0]:
+            dB = torch.zeros_like(B).index_add_(0, idx, (g * v.to(g.dtype)[:, None]).to(B.dtype))
+        if ctx.needs_input_grad[1]:
+            dv = (g * B.index_select(0, idx).to(g.dtype)).sum(1).to(v.dtype)
+        return dB, dv, None, None
 
 
 def spmv_xla(A: CSR, x: torch.Tensor, *, accum_dtype=torch.float32) -> torch.Tensor:

@@ -1914,3 +1914,63 @@ def test_dist_big_module_at_a_moderate_size_on_card(cuda, pieces):
     assert all(p["device_ms"] > 0 for p in res["piece_stats"])
     assert res["launches"]["slab_fetch_merge"] > 0 and res["launches"]["slab_compact"] == P - with_tail
     assert 0 < res["peak_device_gb"] < 80
+
+
+# sparse attention (ops/attention.py): K3 for the scores, K2 for the
+# aggregation over values computed each step
+
+
+def _attention_graph(n, seed):
+    """An n × n pattern with empty rows, rows of 1-60 entries and a few of
+    300-700 (padded in the step-of-32 classes, or left over under a small
+    ``max_len``), columns ascending."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 61, n)
+    lens[::13] = 0
+    lens[rng.choice(n, 8, replace=False)] = rng.integers(300, 700, 8)
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    indices = np.concatenate([np.sort(rng.choice(n, int(k), replace=False)) for k in lens]).astype(np.int32)
+    return CSR(data=np.ones(len(indices), np.float32), indices=indices, indptr=indptr, shape=(n, n),
+               nnz=len(indices))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [16, 64])
+@pytest.mark.parametrize("max_len", [2048, 128])
+def test_attention_scores_on_k3_and_aggregation_on_k2_match_plain(cuda, k, max_len):
+    """``ops.ell_sddmm`` (K3), ``ops.ell_edge_softmax`` and ``ops.ell_spmm``
+    over the softmax's values (K2 re-pointed at them), and the backward of
+    all three (K2 with the row map and on the transposed pack, K3), against
+    the same ops on the CPU's plain versions at 1e-5 of each tensor's
+    largest element; the launches counted; with no leftover rows, a second
+    step gives the same bits."""
+    from spmm_tpu_torch.ops import attention
+
+    A = _attention_graph(3000, 40 + k)
+    E = ell_pack(A, max_len=max_len)
+    assert (E.n_rest_rows > 0) == (max_len == 128)
+    Ec = E.to(cuda)
+    g = torch.Generator().manual_seed(k)
+    Q, K, V, W = (torch.randn(3000, k, generator=g) for _ in range(4))
+
+    def step(E, dev):
+        q, kk, v = (t.to(dev).requires_grad_() for t in (Q, K, V))
+        S = ops.ell_sddmm(E, q, kk)
+        a = ops.ell_edge_softmax(E, S, scale=k ** -0.5)
+        y = ops.ell_spmm(a, v)
+        grads = torch.autograd.grad((y * W.to(dev)).sum(), [q, kk, v])
+        return [*S.data, *a.data, y, *grads]
+
+    want = step(E, torch.device("cpu"))
+    n0, t0, s0, a0 = ell_kernel.launches, ell_kernel.transposed_launches, ell_kernel.sddmm_launches, \
+        attention.score_launches
+    got = step(Ec, cuda)
+    torch.cuda.synchronize()
+    assert attention.score_launches - a0 == 1
+    assert ell_kernel.sddmm_launches - s0 == 2  # the scores, and dα in the aggregation's backward
+    assert ell_kernel.launches - n0 == 4 and ell_kernel.transposed_launches - t0 == 2  # y; dV, dQ, dK
+    for a, b in zip(got, want, strict=True):
+        assert _rel(a.cpu(), b) <= 1e-5
+    if max_len == 2048:
+        again = step(Ec, cuda)
+        assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
