@@ -131,12 +131,12 @@ def main() -> int:
                               out_rows=T.out_rows, values=vals)
 
             print(f"grad B k={k} cut={cut}: {len(T.cols)} slabs, {T.rows} slab rows, {T.hub_rows.numel()} rows "
-                  f"cut into up to {T.hub_idx.shape[1]} pieces ({T.scratch} scratch rows) | whole route "
+                  f"cut into up to {int(T.hub_plan.offsets.diff().max())} pieces ({T.scratch} scratch rows) | whole route "
                   f"{ms(route):.4f} ms | host enqueue {host_ms(route):.4f} | values' concatenation "
                   f"{ms(lambda: ek.flat_values(E.data, T.bufs)):.4f} | K2 alone {ms(k2):.4f} | K2 alone, slab by slab "
                   f"{ms(lambda: k2(False), 3):.4f} | empty rows' fill "
                   f"{ms(lambda: y[:n].index_fill_(0, T.empty_rows, 0)):.4f} | cut rows' join "
-                  f"{ms(lambda: y[T.hub_idx].sum(1)):.4f}", flush=True)
+                  f"{ms(lambda: ek._join(y, n, T.hub_rows, T.hub_plan)):.4f}", flush=True)
         T = ek.transposed_slabs(E.cols, n, dev, out_rows=out_rows)
         memo = {key: T}
         print(profile_fn(lambda: ek.ell_slabs_spmm_transposed(E.cols, E.data, dY, n, memo=memo,

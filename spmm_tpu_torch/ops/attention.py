@@ -20,15 +20,20 @@ table at them (``ops/ell_kernel.py: _repoint``).
   over each row's edges, padding masked (α 0 there), its backward ``dS =
   c·α·(dα - Σ_j α·dα)``; per slab dense row reductions (no atomics), the
   same torch ops on every device.
-- Rows longer than the pack's ``max_len`` (``E.rest``, a CSR) take plain
-  gathers, a segment max and the ordered segment sum
-  (``ops/segments.py``); their scores keep no gathered row for the
-  backward (``_RestScores`` gathers again), the softmax is differentiated
-  by autograd.
+- Rows longer than the pack's ``max_len`` (``E.rest``, a CSR) ride in the
+  same launches as the slabs, cut into pieces of at most ``T_CUT`` entries
+  (``ell_kernel.RestPieces``): K3 reads Q at each piece's row, K2 writes a
+  cut row's pieces to scratch rows that one ordered sum joins, and the
+  transposed pack holds the pieces' entries.  Their softmax runs on a
+  (pieces × ≤ T_CUT) tile: a masked max and sum per piece, joined per row
+  (the max by a segment max, the sums by the ordered segment sum), the
+  backward's Σ α·dα by the same join.  Their values keep the CSR's order,
+  reordered to the pieces' or the tile's by one scalar gather: no nnz × d
+  tensor is made for them.
 
 A row with no edge aggregates to zero (``ell_spmm`` fills the empty rows).
 Spans: ``spmm.attn.scores``, ``.scores_bwd``, ``.softmax``, ``.softmax_bwd``;
-counters below.
+counters below and ``ell_kernel.rest_piece_launches``.
 """
 
 from __future__ import annotations
@@ -42,13 +47,16 @@ from spmm_tpu_torch.formats.containers import as_tensor
 from spmm_tpu_torch.formats.ell import ELL
 from spmm_tpu_torch.ops import ell_kernel
 from spmm_tpu_torch.ops.ell_kernel import (
+    _views,
     ell_slabs_sddmm,
     ell_slabs_spmm_mapped,
     ell_slabs_spmm_transposed,
+    inverse_map,
+    read_at,
     table_memo,
 )
-from spmm_tpu_torch.ops.ell_spmm import _row_maps, slab_row_keys
-from spmm_tpu_torch.ops.segments import boundary_segments, offsets_plan, segment_sum
+from spmm_tpu_torch.ops.ell_spmm import _row_maps, _slabs_of
+from spmm_tpu_torch.ops.segments import offsets_plan, segment_sum
 from spmm_tpu_torch.utils.profiling import span
 
 #: CUDA launches in this process: K3 for the scores, and K2 (with the row map
@@ -62,8 +70,9 @@ softmax_grad_calls = 0
 
 def ell_with_values(E: ELL, data, rest_data=None) -> ELL:
     """E's structure with other values: ``data`` one tensor per slab, shaped
-    as E's, and ``rest_data`` the leftover rows' values (E's own when None).
-    It shares E's memo, so products over it reuse E's work tables."""
+    as E's, and ``rest_data`` the leftover rows' values in their CSR's order
+    (E's own when None).  It shares E's memo, so products over it reuse E's
+    work tables."""
     V = dataclasses.replace(E, data=tuple(data),
                             rest=E.rest if rest_data is None else dataclasses.replace(E.rest, data=rest_data))
     memo = table_memo(E)
@@ -74,10 +83,12 @@ def ell_with_values(E: ELL, data, rest_data=None) -> ELL:
 
 def _layout(E: ELL, device):
     """What the attention ops read of E on ``device``, memoized beside its
-    work tables: each slab's padding mask (None for a slab with none), the
-    rows that no slab row writes (empty and leftover), and for the leftover
-    rows each entry's original row, its edge mask and the rows' segment
-    plan."""
+    work tables: the slabs K2 and K3 run over with their maps
+    (``ell_spmm._slabs_of``: E's, or with leftover rows E's and their
+    pieces), each pack slab's padding mask (None for a slab with none) and
+    the empty rows; with leftover rows also the CSR entries that are
+    padding in E (``dead``, None when there are none) and the softmax's tile
+    (:func:`_tile`)."""
     memo = table_memo(E)
     key = ("attn", device)
     if memo is not None and key in memo:
@@ -85,86 +96,91 @@ def _layout(E: ELL, device):
     data = [as_tensor(d, device) for d in E.data]
     pad = [d == 0 for d in data]
     any_pad = torch.stack([p.any() for p in pad]).tolist() if pad else []
-    pads = tuple(p if a else None for p, a in zip(pad, any_pad))
-    _, rest_rows, zero_rows = _row_maps(E, device)
-    lay = types.SimpleNamespace(pads=pads, other_rows=torch.cat([zero_rows, rest_rows]), rest=None)
-    if E.n_rest_rows:
-        R = E.rest.to(device)
-        nnz = R.nnz
-        row = boundary_segments(R.indptr, nnz, dtype=torch.int64, device=device)
-        lay.rest = types.SimpleNamespace(
-            nnz=nnz, nnz_pad=R.data.shape[0], cols=as_tensor(R.indices, device)[:nnz].long(),
-            rows=rest_rows[row], row_ids=rest_rows, seg=row, live=as_tensor(R.data, device)[:nnz] != 0,
-            plan=offsets_plan(as_tensor(R.indptr, device), device))
+    lay = _slabs_of(E, device)
+    lay.pads = tuple(p if a else None for p, a in zip(pad, any_pad))
+    lay.zero_rows, lay.m, lay.dead, lay.tile = _row_maps(E, device)[2], E.shape[0], None, None
+    if lay.pieces is not None:
+        dead = as_tensor(E.rest.data, device) == 0
+        if bool(dead[: E.rest.nnz].any()):
+            lay.dead = dead
+        lay.tile = _tile(lay.pieces, dead, device)
     if memo is not None:
         memo[key] = lay
     return lay
 
 
+def _tile(P, dead: torch.Tensor, device):
+    """The leftover rows' pieces as the rows of one (pieces × L) tile in row
+    order, L the longest piece: ``src`` (int64, one per tile slot) the CSR
+    entry each slot reads (``nnz_pad``, a zero appended, on padding), ``dst``
+    each entry's slot, ``pad`` the slots that are no edge of E, ``row`` each
+    piece's leftover row and ``plan`` each row's pieces, for the joins."""
+    L = int(P.piece_len.max())
+    start = torch.from_numpy(P.piece_start).to(device)
+    pos = torch.arange(L, device=device)
+    live = pos[None, :] < torch.from_numpy(P.piece_len).to(device)[:, None]
+    src = torch.where(live, start[:, None] + pos[None, :], P.nnz_pad).reshape(-1)
+    pad = torch.cat([dead, dead.new_ones(1)])[src].view(-1, L)
+    return types.SimpleNamespace(src=src, dst=inverse_map(src, P.nnz_pad), pad=pad, shape=(P.count, L),
+                                 row=torch.from_numpy(P.piece_row).to(device),
+                                 plan=offsets_plan(P.piece_offsets, device))
+
+
 class _EllSddmm(torch.autograd.Function):
-    """The slabs' scores by K3 (one output per slab, views of one array),
-    padding zeroed; backward: dQ by K2 with the row map, dK by K2 over the
-    transposed pack."""
+    """The slabs' scores by K3 (one output per pack slab, views of one
+    array), padding zeroed, and with leftover pieces the leftover entries'
+    scores in their CSR's order; backward: dQ by K2 with the row map (the
+    pieces' scratch rows joined), dK by K2 over the transposed pack."""
 
     @staticmethod
-    def forward(ctx, Q, K, call):
+    def forward(ctx, Q, K, lay):
         global score_launches
-        ctx.call = call
+        ctx.lay = lay
         ctx.save_for_backward(Q, K)
         before = ell_kernel.sddmm_launches
-        S = ell_slabs_sddmm(call.cols, Q, K, memo=call.memo, row_keys=call.row_keys, out_rows=call.out_rows)
+        S = ell_slabs_sddmm(lay.cols, Q, K, memo=lay.memo, row_keys=lay.row_keys, out_rows=lay.read_rows)
         score_launches += ell_kernel.sddmm_launches - before
-        for s, pad in zip(S, call.pads):
+        packs = len(lay.pads)
+        for s, pad in zip(S, lay.pads):
             if pad is not None:
                 s.masked_fill_(pad, 0)
-        return S
+        if lay.pieces is None:
+            return S
+        rest = lay.pieces.to_csr(S[packs:])
+        if lay.dead is not None:
+            rest.masked_fill_(lay.dead, 0)
+        return (*S[:packs], rest)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, *gS):
         global score_grad_launches
         Q, K = ctx.saved_tensors
-        call = ctx.call
+        lay = ctx.lay
         with span("spmm.attn.scores_bwd"):
-            g = [gs.contiguous() if pad is None else gs.masked_fill(pad, 0) for gs, pad in zip(gS, call.pads)]
+            # every slab's gradient, padding zeroed, in one array: the
+            # transposed product then reads it in place
+            flat = gS[0].new_empty(sum(int(c.shape[0]) * int(c.shape[1]) for c in lay.cols))
+            g = _views(flat, lay.cols)
+            zero = flat.new_zeros(())
+            for gs, pad, out in zip(gS, lay.pads, g):
+                if pad is None:
+                    out.copy_(gs)
+                else:
+                    torch.where(pad, zero, gs, out=out)
+            if lay.pieces is not None:
+                rest = gS[-1] if lay.dead is None else gS[-1].masked_fill(lay.dead, 0)
+                flat[flat.shape[0] - lay.pieces.src.shape[0] :] = read_at(rest, lay.pieces.src)
             before = ell_kernel.launches
             dQ = dK = None
             if ctx.needs_input_grad[0]:
-                dQ = ell_slabs_spmm_mapped(call.cols, g, K, call.out_rows, Q.shape[0], zero_rows=call.other_rows,
-                                           memo=call.memo, row_keys=call.row_keys, accum_dtype=Q.dtype)
+                dQ = ell_slabs_spmm_mapped(lay.cols, g, K, lay.write_rows, lay.m, zero_rows=lay.zero_rows,
+                                           memo=lay.memo, row_keys=lay.row_keys, accum_dtype=Q.dtype,
+                                           pieces=lay.pieces)
             if ctx.needs_input_grad[1]:
-                dK = ell_slabs_spmm_transposed(call.cols, g, Q, K.shape[0], memo=call.memo,
-                                               out_rows=call.out_rows)
+                dK = ell_slabs_spmm_transposed(lay.cols, g, Q, K.shape[0], memo=lay.memo,
+                                               out_rows=lay.read_rows)
             score_grad_launches += ell_kernel.launches - before
-        return dQ, dK, None
-
-
-class _RestScores(torch.autograd.Function):
-    """The leftover rows' scores ``Q_row · K_col`` per entry (0 on padding),
-    keeping Q and K for the backward and not the entries' gathered rows (an
-    nnz × d pair a head): the backward gathers again.  dQ is each leftover
-    row's ordered segment sum, written to its row once; dK an ``index_add_``
-    over the columns."""
-
-    @staticmethod
-    def forward(ctx, Q, K, r):
-        ctx.r = r
-        ctx.save_for_backward(Q, K)
-        s = (Q.index_select(0, r.rows) * K.index_select(0, r.cols)).sum(1) * r.live
-        return torch.cat([s, s.new_zeros(r.nnz_pad - r.nnz)])
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, g):
-        Q, K = ctx.saved_tensors
-        r = ctx.r
-        g = (g[: r.nnz] * r.live)[:, None]
-        dQ = dK = None
-        if ctx.needs_input_grad[0]:
-            per_row = segment_sum(g * K.index_select(0, r.cols), plan=r.plan)
-            dQ = torch.zeros_like(Q).index_copy_(0, r.row_ids, per_row)
-        if ctx.needs_input_grad[1]:
-            dK = torch.zeros_like(K).index_add_(0, r.cols, g * Q.index_select(0, r.rows))
         return dQ, dK, None
 
 
@@ -172,9 +188,9 @@ def ell_sddmm(E: ELL, Q: torch.Tensor, K: torch.Tensor) -> ELL:
     """The ELL of E's structure with ``S_ij = Q_i · K_j`` on each edge (i, j)
     of E and 0 on padding, summed in Q's dtype (fp32 or fp64, Q and K
     alike), on Q's device; Q (m, d) and K (n, d), m and n E's shape.
-    Differentiable with respect to Q and K.  On CUDA tensors the slabs are
-    ONE launch of K3 and their backward two of K2; CPU tensors take the
-    plain versions.  The leftover rows' scores are gathers."""
+    Differentiable with respect to Q and K.  On CUDA tensors the slabs and
+    the leftover rows' pieces are ONE launch of K3 and their backward two
+    of K2; CPU tensors take the plain versions."""
     dev = Q.device
     if Q.dim() != 2 or K.dim() != 2 or Q.shape[1] != K.shape[1] or Q.dtype != K.dtype:
         raise ValueError(f"ell_sddmm: Q {tuple(Q.shape)} {Q.dtype} and K {tuple(K.shape)} {K.dtype} "
@@ -183,40 +199,45 @@ def ell_sddmm(E: ELL, Q: torch.Tensor, K: torch.Tensor) -> ELL:
         raise ValueError(f"ell_sddmm: Q's and K's rows {(Q.shape[0], K.shape[0])} != E's shape {E.shape}")
     with span("spmm.attn.scores"):
         lay = _layout(E, dev)
-        out_rows, _, _ = _row_maps(E, dev)
-        call = types.SimpleNamespace(cols=E.cols, memo=table_memo(E), row_keys=lambda: slab_row_keys(E),
-                                     out_rows=out_rows, pads=lay.pads, other_rows=lay.other_rows)
         Q, K = Q.contiguous(), K.contiguous()
-        S = _EllSddmm.apply(Q, K, call) if E.cols else ()
-        rest = None if lay.rest is None else _RestScores.apply(Q, K, lay.rest)
-        return ell_with_values(E, S, rest)
+        S = _EllSddmm.apply(Q, K, lay) if lay.cols else ()
+        if lay.pieces is None:
+            return ell_with_values(E, S)
+        return ell_with_values(E, S[:-1], S[-1])
 
 
 class _EdgeSoftmax(torch.autograd.Function):
     """Softmax over each slab row (padding masked), one output per slab,
-    views of one array; backward ``dS = c·α·(dα - Σ α·dα)``."""
+    views of one array, and with leftover rows over each of them, its last
+    input and output in the CSR's order; backward ``dS = c·α·(dα - Σ α·dα)``."""
 
     @staticmethod
-    def forward(ctx, call, *S):
+    def forward(ctx, lay, scale, *S):
         global softmax_calls
         softmax_calls += 1
-        sizes = [s.numel() for s in S]
+        packs = len(lay.pads)
+        slabs = S[:packs]
+        sizes = [s.numel() for s in slabs]
         flat = S[0].new_empty(sum(sizes))
-        A = tuple(a.view(s.shape) for a, s in zip(torch.split(flat, sizes), S))
-        for s, a, pad in zip(S, A, call.pads):
+        A = tuple(a.view(s.shape) for a, s in zip(torch.split(flat, sizes), slabs))
+        for s, a, pad in zip(slabs, A, lay.pads):
             x = s if pad is None else s.masked_fill(pad, float("-inf"))
             m = x.amax(1, keepdim=True)
             if pad is not None:  # a row of padding alone gives 0, not NaN
                 m.clamp_(min=torch.finfo(m.dtype).min)
             torch.sub(x, m, out=a)
-            a.mul_(call.scale).exp_()
+            a.mul_(scale).exp_()
             den = a.sum(1, keepdim=True)
             if pad is not None:
                 den.clamp_(min=torch.finfo(den.dtype).tiny)
             a.div_(den)
-        ctx.call = call
-        ctx.save_for_backward(*A)
-        return A
+        ctx.lay, ctx.scale = lay, scale
+        if lay.tile is None:
+            ctx.save_for_backward(*A)
+            return A
+        a = _tile_softmax(lay.tile, S[packs], scale)
+        ctx.save_for_backward(*A, a)
+        return (*A, read_at(a, lay.tile.dst))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -224,29 +245,37 @@ class _EdgeSoftmax(torch.autograd.Function):
         global softmax_grad_calls
         softmax_grad_calls += 1
         A = ctx.saved_tensors
+        lay, scale = ctx.lay, ctx.scale
         with span("spmm.attn.softmax_bwd"):
-            sizes = [a.numel() for a in A]
+            packs = len(lay.pads)
+            sizes = [a.numel() for a in A[:packs]]
             flat = A[0].new_empty(sum(sizes))
             dS = tuple(d.view(a.shape) for d, a in zip(torch.split(flat, sizes), A))
             for a, g, d in zip(A, dA, dS):
                 torch.mul(a, g, out=d)
                 r = d.sum(1, keepdim=True)
                 torch.sub(g, r, out=d)
-                d.mul_(a).mul_(ctx.call.scale)
-        return (None, *dS)
+                d.mul_(a).mul_(scale)
+            if lay.tile is None:
+                return (None, None, *dS)
+            t, a = lay.tile, A[packs]
+            d = read_at(dA[packs], t.src).view(a.shape)
+            r = segment_sum((a * d).sum(1), plan=t.plan)
+            d.sub_(r.index_select(0, t.row)[:, None]).mul_(a).mul_(scale)
+            return (None, None, *dS, read_at(d, t.dst))
 
 
-def _rest_softmax(lay, s: torch.Tensor, scale: float) -> torch.Tensor:
-    """The leftover rows' softmax over their edges (plain ops; autograd
-    differentiates them): the max is a shift, taken without gradient."""
-    r = lay.rest
-    x = torch.where(r.live, s[: r.nnz] * scale, float("-inf"))
-    m = torch.segment_reduce(x.detach(), "max", offsets=r.plan.offsets, axis=0)
-    m = m.clamp(min=torch.finfo(m.dtype).min)
-    e = torch.exp(x - m[r.seg])
-    den = segment_sum(e, plan=r.plan).clamp(min=torch.finfo(e.dtype).tiny)
-    a = e / den[r.seg]
-    return torch.cat([a, a.new_zeros(r.nnz_pad - r.nnz)])
+def _tile_softmax(t, s: torch.Tensor, scale: float) -> torch.Tensor:
+    """α on the leftover rows' tile from their scores ``s`` in the CSR's
+    order: per piece a masked max, the row's max the largest of its pieces'
+    (a segment max over a few values a row), then per piece the sum of
+    ``exp(scale·(s - max))``, the row's the ordered sum of its pieces'."""
+    x = read_at(s, t.src).view(t.shape).masked_fill_(t.pad, float("-inf"))
+    m = torch.segment_reduce(x.amax(1), "max", offsets=t.plan.offsets, axis=0)
+    m.clamp_(min=torch.finfo(m.dtype).min)  # a row of padding alone gives 0, not NaN
+    x.sub_(m.index_select(0, t.row)[:, None]).mul_(scale).exp_()
+    den = segment_sum(x.sum(1), plan=t.plan).clamp_(min=torch.finfo(x.dtype).tiny)
+    return x.div_(den.index_select(0, t.row)[:, None])
 
 
 def ell_edge_softmax(E: ELL, S: ELL, *, scale: float = 1.0) -> ELL:
@@ -262,8 +291,10 @@ def ell_edge_softmax(E: ELL, S: ELL, *, scale: float = 1.0) -> ELL:
     dev = (S.data[0] if S.data else S.rest.data).device
     with span("spmm.attn.softmax"):
         lay = _layout(E, dev)
-        call = types.SimpleNamespace(pads=lay.pads, scale=float(scale))
         data = tuple(s.contiguous() for s in S.data)
-        A = _EdgeSoftmax.apply(call, *data) if data else ()
-        rest = None if lay.rest is None else _rest_softmax(lay, S.rest.data, float(scale))
-        return ell_with_values(E, A, rest)
+        if lay.tile is not None:
+            data = (*data, as_tensor(S.rest.data, dev))
+        A = _EdgeSoftmax.apply(lay, float(scale), *data) if data else ()
+        if lay.tile is None:
+            return ell_with_values(E, A)
+        return ell_with_values(E, A[:-1], A[-1])

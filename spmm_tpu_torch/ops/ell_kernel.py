@@ -30,14 +30,22 @@ on CUDA tensors a product whose B or slab values require grad goes through a
   index (learnable values stay current) and writes each row of Aᵀ at its
   row of the gradient; rows of Aᵀ longer than ``T_CUT`` are cut into pieces
   (a web graph's in-degree hubs hold a quarter of its entries) that K2 sums
-  apart into scratch rows and one gather + sum joins -- no atomics, so two
-  backward runs give the same bits;
+  apart into scratch rows and one ordered segment sum joins -- no atomics,
+  so two backward runs give the same bits;
 - grad data is K3, one launch over its own slot-major work table
   (:func:`sddmm_table`), memoized beside K2's.
 
 The JAX package has no backward kernel (its gradients are XLA's transposes
 of the gathers and sums); CPU tensors take the plain versions, which autograd
 differentiates as they stand.
+
+Leftover rows.  An ELL's rows longer than its pack's ``max_len`` (``E.rest``,
+a CSR) are cut into pieces of at most ``T_CUT`` entries laid out as more
+slabs (:class:`RestPieces`, built once per pack), which ride in the same K2
+and K3 launches as the pack's: a read map names each piece's row for K3 and
+the transposed pack, a write map sends a cut row's pieces to scratch rows
+that one ordered segment sum joins, so those rows take no gathers of dense
+rows and no atomics.
 
 Types.  The sums are fp32 for fp32 / bf16 operands and fp64 for fp64 data
 times an fp64 B (``accum_dtype``, by default the promotion of the data type
@@ -59,8 +67,9 @@ import numpy as np
 import torch
 
 from spmm_tpu_torch import kernels
-from spmm_tpu_torch.formats.containers import as_tensor, memo_of
+from spmm_tpu_torch.formats.containers import as_numpy, as_tensor, memo_of
 from spmm_tpu_torch.formats.ell import _slab_plan
+from spmm_tpu_torch.ops.segments import SegmentPlan, offsets_plan, segment_sum
 from spmm_tpu_torch.utils.profiling import span
 
 #: CUDA launches in this process (chip_smoke.py resets and reads them): K2 in
@@ -70,6 +79,9 @@ transposed_launches = 0
 sddmm_launches = 0
 #: memoized K2 tables re-pointed at other value slabs (:func:`_repoint`)
 repoints = 0
+#: K2 and K3 launches (the transposed pack's among them) whose slabs carried
+#: an ELL's leftover rows as pieces (:class:`RestPieces`)
+rest_piece_launches = 0
 
 _DTYPES = {torch.float32: kernels.F32, torch.bfloat16: kernels.BF16, torch.float64: kernels.F64}
 #: columns per lane in the wide lane layout: 16 bytes of fp32 or fp64, 8 of bf16
@@ -85,7 +97,8 @@ UNROLL = 8
 SPLIT_L = 64
 #: int64 fields per slab in the device table (the kernel's kSlabFields)
 SLAB_FIELDS = 6
-#: rows of a transposed pack longer than this are cut into pieces of it
+#: rows of a transposed pack, and an ELL's leftover rows, longer than this
+#: are cut into pieces of it
 T_CUT = 2048
 #: K3: slots a lane keeps in flight (a sub-batch) and steps per warp (the
 #: kernel's kSub and kSteps); a warp step is 32 * max(1, K3_SUB // TPR) slots
@@ -385,7 +398,7 @@ def _k2_launch(cols, data, B: torch.Tensor, out: torch.Tensor, memo, row_keys, *
     """One launch of K2 into ``out`` (validated by the callers); with
     ``out_rows`` each slab row to its row of ``out``, with ``values`` the
     int32 ``data`` slabs index that flat array."""
-    global launches
+    global launches, rest_piece_launches
     dev, k = B.device, B.shape[1]
     vec, tpr_log2 = lane_layout(k, B.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0,
                                 _WIDE[B.dtype])
@@ -393,6 +406,7 @@ def _k2_launch(cols, data, B: torch.Tensor, out: torch.Tensor, memo, row_keys, *
     if out.shape[0] == 0 or k == 0:
         return out
     launches += 1
+    rest_piece_launches += _carries_pieces(memo)
     err = kernels.lib().ell_slabs_spmm_launch(
         table.slabs.data_ptr(), table.items.data_ptr(), table.items.shape[0],
         table.data_code if values is None else _DTYPES[values.dtype], B.data_ptr(),
@@ -442,8 +456,9 @@ def ell_slabs_spmm(cols, data, B: torch.Tensor, out: torch.Tensor | None = None,
         if out is not None:
             raise ValueError("ell_slabs_spmm: a product that is recorded for autograd returns its "
                              "own tensor; leave out= out and place the result")
-        call = types.SimpleNamespace(cols=cols, memo=memo, row_keys=row_keys, acc=acc, out_rows=None)
-        return _EllSlabsSpmm.apply(B, call, None, *(as_tensor(d, dev) for d in data))
+        call = types.SimpleNamespace(cols=cols, memo=memo, row_keys=row_keys, acc=acc, out_rows=None,
+                                     pieces=None)
+        return _EllSlabsSpmm.apply(B, call, *(as_tensor(d, dev) for d in data))
     if out is None:
         out = torch.empty((rows, k), dtype=acc, device=dev)
     elif out.device != dev or out.dtype != acc or not out.is_contiguous():
@@ -463,15 +478,19 @@ def ell_slabs_spmm_into(y: torch.Tensor, row0: int, cols, data, B: torch.Tensor,
 
 
 def ell_slabs_spmm_mapped(cols, data, B: torch.Tensor, out_rows: torch.Tensor, m: int, *,
-                          rest: torch.Tensor | None = None, rest_rows=None, zero_rows=None,
-                          memo: dict | None = None, row_keys=None, accum_dtype=None) -> torch.Tensor:
+                          zero_rows=None, memo: dict | None = None, row_keys=None, accum_dtype=None,
+                          pieces: RestPieces | None = None) -> torch.Tensor:
     """(m, k): the slabs times B with K2's row map, slab row i written at
-    row ``out_rows[i]`` (int32), the rows ``rest_rows`` taken from ``rest``
-    and the rows ``zero_rows`` zero; together they cover every row once.
-    CUDA tensors: ONE launch of K2 writing straight into the result, an
-    ``index_copy_`` and an ``index_fill_`` (recorded for autograd when B, a
-    slab's values or ``rest`` require grad: grad B then reads dY by these
-    rows, with no gather).  CPU tensors take the plain version."""
+    row ``out_rows[i]`` (int32) and the rows ``zero_rows`` zero; together
+    they cover every row once.  ``pieces``: the slabs are ``pieces.cols``,
+    whose last ones are an ELL's leftover rows cut into pieces
+    (:class:`RestPieces`): ``out_rows`` (its ``write_rows``) sends a cut
+    row's pieces to scratch rows past m, which one ordered sum joins into
+    the row, and the backward reads dY through its ``read_rows``.  CUDA
+    tensors: ONE launch of K2 writing straight into the result and an
+    ``index_fill_`` (recorded for autograd when B or a slab's values require
+    grad: grad B then reads dY by these rows, with no gather).  CPU tensors
+    take the plain version."""
     if B.dim() != 2:
         raise ValueError("ell_slabs_spmm_mapped: B must be (n, k)")
     dev, k = B.device, B.shape[1]
@@ -482,42 +501,55 @@ def ell_slabs_spmm_mapped(cols, data, B: torch.Tensor, out_rows: torch.Tensor, m
     rows = sum(int(c.shape[0]) for c in cols)
     if out_rows.shape != (rows,) or out_rows.dtype != torch.int32 or out_rows.device != dev:
         raise ValueError(f"ell_slabs_spmm_mapped: out_rows must be ({rows},) int32 on {dev}")
+    scratch = 0 if pieces is None else pieces.scratch
     if dev.type == "cpu":
         ys = ell_slabs_spmm_reference(cols, data, B, torch.empty((rows, k), dtype=acc), accum_dtype=acc)
-        y = torch.zeros((m, k), dtype=acc).index_copy(0, out_rows.long(), ys)
-        return y if rest is None else y.index_copy(0, rest_rows, rest.to(acc))
+        y = torch.zeros((m + scratch, k), dtype=acc).index_copy(0, out_rows.long(), ys)
+        return y if pieces is None else _join(y, m, pieces.join_rows, pieces.join_plan)
     if data:
         _check_cuda_operands("ell_slabs_spmm_mapped", data[0].dtype, B, acc)
     call = types.SimpleNamespace(cols=cols, memo=memo, row_keys=row_keys, acc=acc, out_rows=out_rows,
-                                 m=m, rest_rows=rest_rows, zero_rows=zero_rows)
-    if grad_needed(B, rest, *data):
-        return _EllSlabsSpmm.apply(B, call, rest, *data)
-    return _mapped_forward(call, B, rest, data)
+                                 m=m, zero_rows=zero_rows, pieces=pieces)
+    if grad_needed(B, *data):
+        return _EllSlabsSpmm.apply(B, call, *data)
+    return _mapped_forward(call, B, data)
 
 
-def _mapped_forward(call, B, rest, data) -> torch.Tensor:
-    y = torch.empty((call.m, B.shape[1]), dtype=call.acc, device=B.device)
+def _join(y: torch.Tensor, m: int, rows: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
+    """y's first m rows, each of ``rows`` the ordered sum of its pieces'
+    scratch rows past m (``plan``: each row's, consecutive, in order);
+    written in place on CUDA, recorded for autograd on the CPU."""
+    if not rows.numel():
+        return y[:m]
+    joined = segment_sum(y[m:], plan=plan)
+    if y.device.type == "cpu":
+        return y[:m].index_copy(0, rows, joined)
+    return y[:m].index_copy_(0, rows, joined)
+
+
+def _mapped_forward(call, B, data) -> torch.Tensor:
+    scratch = 0 if call.pieces is None else call.pieces.scratch
+    y = torch.empty((call.m + scratch, B.shape[1]), dtype=call.acc, device=B.device)
     if call.zero_rows is not None and call.zero_rows.numel():
         y.index_fill_(0, call.zero_rows, 0)
-    if rest is not None:
-        y.index_copy_(0, call.rest_rows, rest.to(call.acc))
     if call.cols:
         _k2_launch(call.cols, data, B, y, call.memo, call.row_keys, out_rows=call.out_rows)
-    return y
+    return y if call.pieces is None else _join(y, call.m, call.pieces.join_rows, call.pieces.join_plan)
 
 
 class _EllSlabsSpmm(torch.autograd.Function):
     """K2 with its backward: grad B through K2 on the transposed slabs, grad
     data through K3; only what ``needs_input_grad`` asks for is computed.
     With a row map (``call.out_rows``) the product is the whole (m, k)
-    result of :func:`ell_slabs_spmm_mapped`, ``rest`` its leftover rows."""
+    result of :func:`ell_slabs_spmm_mapped`, dY read at the rows the slab
+    rows were written to, or with leftover pieces at their ``read_rows``."""
 
     @staticmethod
-    def forward(ctx, B, call, rest, *data):
+    def forward(ctx, B, call, *data):
         ctx.call = call
         ctx.save_for_backward(B, *data)
         if call.out_rows is not None:
-            return _mapped_forward(call, B, rest, data)
+            return _mapped_forward(call, B, data)
         rows = sum(int(c.shape[0]) for c in call.cols)
         out = torch.empty((rows, B.shape[1]), dtype=call.acc, device=B.device)
         return _k2_launch(call.cols, data, B, out, call.memo, call.row_keys)
@@ -526,22 +558,22 @@ class _EllSlabsSpmm(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dY):
         B, *data = ctx.saved_tensors
+        # the transposed pack's flat buffer may keep the values: without their
+        # autograd nodes, whose contexts reach the memo (a cycle gc cannot free)
+        data = [d.detach() for d in data]
         call = ctx.call
         dY = dY.contiguous()  # a slice's or an un-permute's backward hands over strided rows
-        gB = grest = None
+        rows = call.out_rows if call.pieces is None else call.pieces.read_rows
+        gB = None
         if ctx.needs_input_grad[0]:
-            gB = ell_slabs_spmm_transposed(call.cols, data, dY, B.shape[0], memo=call.memo,
-                                           out_rows=call.out_rows)
+            gB = ell_slabs_spmm_transposed(call.cols, data, dY, B.shape[0], memo=call.memo, out_rows=rows)
             gB = gB.to(B.dtype)
-        if ctx.needs_input_grad[2]:
-            grest = dY.index_select(0, call.rest_rows)
         gdata = [None] * len(data)
-        if any(ctx.needs_input_grad[3:]):
-            g = ell_slabs_sddmm(call.cols, dY, B, memo=call.memo, row_keys=call.row_keys,
-                                out_rows=call.out_rows)
+        if any(ctx.needs_input_grad[2:]):
+            g = ell_slabs_sddmm(call.cols, dY, B, memo=call.memo, row_keys=call.row_keys, out_rows=rows)
             gdata = [gi.to(d.dtype) if need else None
-                     for gi, d, need in zip(g, data, ctx.needs_input_grad[3:])]
-        return (gB, None, grest, *gdata)
+                     for gi, d, need in zip(g, data, ctx.needs_input_grad[2:])]
+        return (gB, None, *gdata)
 
 
 # ---- the transposed pack: grad B = Aᵀ · dY as one more K2 launch -------------
@@ -560,9 +592,10 @@ class TransposedSlabs:
     with more than ``T_CUT`` entries is cut into pieces, each a slab row of
     its own.  ``out_rows`` (one per slab row, int32) is where K2 writes
     each: an uncut row of Aᵀ at its own row of the (n, k) result, a piece at
-    a scratch row ``n + j``; ``hub_rows`` (H,) and ``hub_idx`` (H, J, rows
-    of the scratch, padded with the zero row ``n + P``) join the pieces,
-    ``empty_rows`` are the rows of Aᵀ with no entry.  ``row_keys``: the row
+    a scratch row ``n + j``, a cut row's pieces at consecutive ones;
+    ``hub_rows`` (H,) and ``hub_plan`` (each one's scratch rows) join them
+    by the ordered segment sum, ``empty_rows`` are the rows of Aᵀ with no
+    entry.  ``row_keys``: the row
     of Aᵀ of each slab row, the order K2 runs them in; ``memo`` keeps K2's
     work table over these slabs."""
 
@@ -573,7 +606,7 @@ class TransposedSlabs:
     scratch: int
     empty_rows: torch.Tensor
     hub_rows: torch.Tensor
-    hub_idx: torch.Tensor
+    hub_plan: SegmentPlan
     row_keys: np.ndarray
     memo: dict = dataclasses.field(default_factory=dict)
     #: per value dtype, the flat buffer A's values are copied into when they
@@ -588,9 +621,8 @@ class TransposedSlabs:
 
     @property
     def out_size(self) -> int:
-        """Rows K2 writes into: the n rows of Aᵀ, the scratch rows of the
-        pieces and, when there are pieces, a zero row."""
-        return self.n + self.scratch + (1 if self.scratch else 0)
+        """Rows K2 writes into: the n rows of Aᵀ and the pieces' scratch rows."""
+        return self.n + self.scratch
 
 
 def transposed_slabs(cols, n: int, device, cut: int = T_CUT, out_rows=None) -> TransposedSlabs:
@@ -642,15 +674,11 @@ def transposed_slabs(cols, n: int, device, cut: int = T_CUT, out_rows=None) -> T
     dest = v_row.copy()
     P = int(cut_v.sum())
     dest[cut_v] = n + np.arange(P)
-    hub_idx = np.full((len(hub_rows), int(pieces.max()) if n else 0), n + P, np.int64)
-    scr0 = np.cumsum(pieces[hub_rows]) - pieces[hub_rows]
-    for h, (i, s0) in enumerate(zip(hub_rows, scr0)):  # a few rows: the hubs
-        hub_idx[h, : pieces[i]] = n + s0 + np.arange(pieces[i])
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return TransposedSlabs(
         cols=tuple(t_slabs), vidx=tuple(vidx), out_rows=to_dev(dest[perm].astype(np.int32)),
-        n=n, scratch=P, empty_rows=to_dev(np.nonzero(pieces == 0)[0]),
-        hub_rows=to_dev(hub_rows), hub_idx=to_dev(hub_idx), row_keys=v_row[perm],
+        n=n, scratch=P, empty_rows=to_dev(np.nonzero(pieces == 0)[0]), hub_rows=to_dev(hub_rows),
+        hub_plan=offsets_plan(np.concatenate([[0], np.cumsum(pieces[hub_rows])]), device), row_keys=v_row[perm],
     )
 
 
@@ -659,6 +687,8 @@ def _transposed_of(cols, n: int, device, memo, out_rows=None) -> TransposedSlabs
     T = memo.get(key) if memo is not None else None
     if T is None:
         T = transposed_slabs(cols, n, device, out_rows=out_rows)
+        if _carries_pieces(memo):
+            T.memo[_PIECES] = True
         if memo is not None:
             memo[key] = T
     return T
@@ -709,23 +739,18 @@ def _one_run(data) -> torch.Tensor | None:
 def _transposed_product(cols, data, dY: torch.Tensor, n: int, memo, product, out_rows=None) -> torch.Tensor:
     """Aᵀ · dY over the transposed pack: ``product(T, values, y)`` writes
     each slab row of the pack to its row ``T.out_rows`` of ``y``; the rows
-    of Aᵀ with no entry are filled with zeros and a gather + sum joins the
-    pieces of the cut rows, in a fixed order."""
+    of Aᵀ with no entry are filled with zeros and the ordered segment sum
+    joins the pieces of the cut rows."""
     dev = dY.device
     data = [d if isinstance(d, torch.Tensor) and d.device == dev else as_tensor(d, dev) for d in data]
     if not data or n == 0:
         return torch.zeros((n, dY.shape[1]), dtype=dY.dtype, device=dev)
     T = _transposed_of(cols, n, dev, memo, out_rows)
     y = torch.empty((T.out_size, dY.shape[1]), dtype=dY.dtype, device=dev)
-    if T.scratch:
-        y[-1].zero_()
     product(T, flat_values(data, T.bufs), y)
-    g = y[:n]
     if T.empty_rows.numel():
-        g.index_fill_(0, T.empty_rows, 0)
-    if T.hub_rows.numel():
-        g[T.hub_rows] = y[T.hub_idx].sum(1)
-    return g
+        y.index_fill_(0, T.empty_rows, 0)
+    return _join(y, n, T.hub_rows, T.hub_plan)
 
 
 def ell_slabs_spmm_transposed_reference(cols, data, dY: torch.Tensor, n: int, *,
@@ -749,8 +774,8 @@ def ell_slabs_spmm_transposed(cols, data, dY: torch.Tensor, n: int, *,
     launch of K2 over the transposed pack (``memo`` keeps its structure),
     reading A's values through the pack's value index and writing each row
     of Aᵀ at its row of the result, then an index fill of the empty rows and
-    a gather + sum that joins the pieces of the cut rows -- no atomics.  CPU
-    tensors take the plain version."""
+    the ordered segment sum that joins the pieces of the cut rows -- no
+    atomics.  CPU tensors take the plain version."""
     with span("spmm.ell.transposed"):
         if dY.device.type == "cpu":
             return ell_slabs_spmm_transposed_reference(cols, data, dY, n, memo=memo, out_rows=out_rows)
@@ -763,6 +788,180 @@ def ell_slabs_spmm_transposed(cols, data, dY: torch.Tensor, n: int, *,
             transposed_launches += launches - before
 
         return _transposed_product(cols, data, dY, n, memo, launch, out_rows)
+
+
+# ---- an ELL's leftover rows as pieces on K2 and K3 -------------------------
+
+#: the mark of a memo whose work tables carry leftover pieces (counted in
+#: ``rest_piece_launches``)
+_PIECES = "rest_pieces"
+
+
+def _carries_pieces(memo) -> bool:
+    return memo is not None and _PIECES in memo
+
+
+@dataclasses.dataclass
+class RestPieces:
+    """An ELL's slabs followed by its leftover rows (``E.rest``: rows longer
+    than the pack's ``max_len``, a CSR) cut into pieces of at most ``T_CUT``
+    entries, laid out as more slabs by ``_slab_plan``'s classes (a last
+    piece padded by < 32 slots): what K2 and K3 run over, so that those rows
+    take no gathers of dense rows.  A derived device structure, like the
+    transposed pack, built once per pack (:func:`rest_pieces`) and memoized
+    beside its work tables; the ELL itself is unchanged.
+
+    - ``cols``: the pack's slabs, then the last ``piece_slabs`` slabs of
+      pieces ((R, L) int32, padding column 0);
+    - ``read_rows`` (int32, one per slab row): its row of the m rows -- K3
+      reads Q or dY there, and the transposed pack names Aᵀ's columns by it;
+    - ``write_rows`` (int32): where K2 writes it: a pack row and the one
+      piece of an uncut row at its row, the pieces of a cut row at scratch
+      rows m, m + 1, ... in order; ``join_rows`` (int64) and ``join_plan``
+      give each cut row the ordered sum of its scratch rows (written once, no
+      atomics: two runs give the same bits);
+    - ``src`` (int64, one per piece slot): the entry of the leftover CSR the
+      slot carries, ``nnz_pad`` (a zero appended) on padding; ``dst`` (int64,
+      one per CSR entry): its piece slot, past the slots for the CSR's
+      padding.  Values on the leftover entries keep the CSR's order
+      (``ell_with_values``' ``rest_data``); these two maps reorder them, one
+      scalar an entry (:meth:`slabs`, :meth:`to_csr`);
+    - ``piece_row``, ``piece_start``, ``piece_len`` (numpy, the pieces in row
+      order): each piece's leftover row (0 .. n_rest), first CSR entry and
+      length; ``piece_offsets`` (n_rest + 1): each row's pieces;
+    - ``row_keys``: the order K2 and K3 run the slab rows in; ``memo``: their
+      work tables and the transposed pack over these slabs."""
+
+    cols: tuple
+    piece_slabs: int
+    read_rows: torch.Tensor
+    write_rows: torch.Tensor
+    m: int
+    scratch: int
+    join_rows: torch.Tensor
+    join_plan: SegmentPlan
+    src: torch.Tensor
+    dst: torch.Tensor
+    piece_row: np.ndarray
+    piece_start: np.ndarray
+    piece_len: np.ndarray
+    piece_offsets: np.ndarray
+    row_keys: np.ndarray
+    memo: dict = dataclasses.field(default_factory=lambda: {_PIECES: True})
+
+    @property
+    def count(self) -> int:
+        """The pieces: slab rows past the pack's."""
+        return len(self.piece_row)
+
+    @property
+    def nnz_pad(self) -> int:
+        return self.dst.shape[0]
+
+    def slabs(self, values: torch.Tensor) -> tuple:
+        """The leftover CSR's values (``nnz_pad`` of them, in its order) as
+        the pieces' slabs, 0 on padding: views of one array.  One scalar
+        gather; recorded for autograd (its backward the gather back)."""
+        flat = _Reorder.apply(values, self.src, self.dst)
+        return _views(flat, self.cols[len(self.cols) - self.piece_slabs :])
+
+    def to_csr(self, slabs) -> torch.Tensor:
+        """The pieces' slabs back in the CSR's order (0 on its padding)."""
+        flat = _one_run(slabs)
+        if flat is None:
+            flat = torch.cat([d.reshape(-1) for d in slabs])
+        return _Reorder.apply(flat, self.dst, self.src)
+
+
+def _views(flat: torch.Tensor, cols) -> tuple:
+    """``flat`` as slabs shaped as ``cols``, one after another."""
+    sizes = [int(c.shape[0]) * int(c.shape[1]) for c in cols]
+    return tuple(v.view(tuple(c.shape)) for v, c in zip(torch.split(flat, sizes), cols))
+
+
+def read_at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x``'s N values read at ``idx``, where N reads a zero: a reorder of
+    one scalar an entry."""
+    return torch.cat([x.reshape(-1), x.new_zeros(1)]).index_select(0, idx)
+
+
+class _Reorder(torch.autograd.Function):
+    """:func:`read_at` for autograd: each entry of x is read once at most, so
+    the backward is the same read of the gradient at ``back`` (x's position
+    in the result, or past its end): a gather both ways, no scatter."""
+
+    @staticmethod
+    def forward(ctx, x, idx, back):
+        ctx.back = idx, back
+        return read_at(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, back = ctx.back
+        return _Reorder.apply(g, back, idx), None, None
+
+
+def inverse_map(src: torch.Tensor, n: int) -> torch.Tensor:
+    """For ``src`` (slots -> one of n entries, or n for padding, each entry
+    read once at most): each entry's slot, ``len(src)`` for an entry no slot
+    reads."""
+    slots = src.shape[0]
+    dst = torch.full((n,), slots, dtype=torch.int64, device=src.device)
+    live = src < n
+    dst[src[live]] = torch.arange(slots, device=src.device)[live]
+    return dst
+
+
+def rest_pieces(cols, out_rows: torch.Tensor, row_keys, rest, rest_rows, m: int, device,
+                cut: int = T_CUT) -> RestPieces:
+    """The slabs ``cols`` (a pack's, written at the rows ``out_rows`` and run
+    in the order ``row_keys``, or a function that returns it) followed by the
+    leftover rows ``rest`` (a CSR whose row i is row ``rest_rows[i]`` of m,
+    each with an entry) cut into pieces of at most ``cut`` entries, on
+    ``device``.  The n_rest-scale plan is numpy on the host; every nnz-scale
+    pass is a torch op on ``device``."""
+    indptr = as_numpy(rest.indptr).astype(np.int64)
+    lens = np.diff(indptr)
+    pieces = -(-lens // cut)
+    offsets = np.concatenate([[0], np.cumsum(pieces)])
+    p_row = np.repeat(np.arange(len(lens)), pieces)
+    p_j = np.arange(len(p_row)) - offsets[p_row]
+    p_start = indptr[p_row] + p_j * cut
+    p_len = np.minimum(cut, lens[p_row] - p_j * cut)
+    perm, _, slabs, _ = _slab_plan(p_len, 64, 32, cut)
+
+    indices = as_tensor(rest.indices, device)
+    nnz_pad = int(indices.shape[0])
+    start_s = torch.from_numpy(p_start[perm]).to(device)
+    len_s = torch.from_numpy(p_len[perm]).to(device)
+    p_cols, p_src = [], []
+    for L, lo, hi in slabs:
+        pos = torch.arange(L, device=device)
+        live = pos[None, :] < len_s[lo:hi, None]
+        src = torch.where(live, start_s[lo:hi, None] + pos[None, :], nnz_pad)
+        p_cols.append(torch.where(live, indices[src.clamp(max=nnz_pad - 1)], 0).to(torch.int32).contiguous())
+        p_src.append(src.reshape(-1))
+    src = torch.cat(p_src)
+
+    # the row each piece is read at, and the one K2 writes it to: an uncut
+    # row's at its own row, a cut row's at scratch rows m, m + 1, ... in order
+    rows = as_numpy(rest_rows).astype(np.int64)
+    orig = rows[p_row]
+    cut_p = pieces[p_row] > 1
+    dest = orig.copy()
+    dest[cut_p] = m + np.arange(int(cut_p.sum()))
+    out_rows = as_tensor(out_rows, device)
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    if callable(row_keys):
+        row_keys = row_keys()
+    return RestPieces(
+        cols=(*(as_tensor(c, device) for c in cols), *p_cols), piece_slabs=len(p_cols),
+        read_rows=torch.cat([out_rows, to_dev(orig[perm])]), write_rows=torch.cat([out_rows, to_dev(dest[perm])]),
+        m=m, scratch=int(cut_p.sum()), join_rows=torch.from_numpy(rows[pieces > 1]).to(device),
+        join_plan=offsets_plan(np.concatenate([[0], np.cumsum(pieces[pieces > 1])]), device),
+        src=src, dst=inverse_map(src, nnz_pad), piece_row=p_row, piece_start=p_start, piece_len=p_len,
+        piece_offsets=offsets, row_keys=np.concatenate([np.asarray(row_keys, np.int64), orig[perm]]),
+    )
 
 
 # ---- K3: grad data, a sampled dense-dense product over the slabs' slots -------
@@ -793,7 +992,7 @@ def ell_slabs_sddmm(cols, dY: torch.Tensor, B: torch.Tensor, *, memo: dict | Non
     beside K2's; ``row_keys`` orders its items as K2's).  dY is fp32 for an
     fp32 or bf16 B and fp64 for an fp64 B: (ΣR, k), or with K2's row map
     ``out_rows`` the (m, k) gradient read at those rows."""
-    global sddmm_launches
+    global sddmm_launches, rest_piece_launches
     with span("spmm.ell.sddmm"):
         dev, k = B.device, B.shape[1]
         if dev.type == "cpu":
@@ -819,6 +1018,7 @@ def ell_slabs_sddmm(cols, dY: torch.Tensor, B: torch.Tensor, *, memo: dict | Non
         flat = torch.empty(sum(R * L for R, L in shapes), dtype=dY.dtype, device=dev)
         if flat.numel():
             sddmm_launches += 1
+            rest_piece_launches += _carries_pieces(memo)
             err = kernels.lib().ell_slabs_sddmm_launch(
                 table.slabs.data_ptr(), table.items.data_ptr(), table.items.shape[0],
                 table.slot0.data_ptr(), dY.data_ptr(), B.data_ptr(), _DTYPES[B.dtype], flat.data_ptr(),

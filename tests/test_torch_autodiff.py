@@ -331,8 +331,8 @@ def test_transposed_pack_product_matches_dense(cut, k):
 def test_transposed_pack_is_scipys_transpose(cut):
     """The pack's structure and the values its value index reads, piece by
     piece, rebuilt as a matrix, equal scipy's ``.T`` of the slab matrix; the
-    row map sends each uncut row to its own row and each piece to a scratch
-    row that the hub join reads."""
+    row map sends each uncut row to its own row and a cut row's pieces to
+    consecutive scratch rows, which the hub join's plan sums in order."""
     from spmm_tpu_torch.formats import ell_pack
     from spmm_tpu_torch.formats import synthetic as tsyn
 
@@ -361,7 +361,9 @@ def test_transposed_pack_is_scipys_transpose(cut):
     cut_rows = np.isin(keys, T.hub_rows.numpy())
     np.testing.assert_array_equal(dest[~cut_rows], keys[~cut_rows])
     assert sorted(dest[cut_rows]) == list(range(300, 300 + T.scratch))
-    assert set(T.hub_idx.numpy().reshape(-1)) <= set(dest[cut_rows]) | {300 + T.scratch}
+    off = T.hub_plan.offsets.numpy()  # each cut row's pieces: consecutive scratch rows, joined in order
+    for h, i in enumerate(T.hub_rows.numpy()):
+        assert sorted(dest[keys == i]) == list(range(300 + off[h], 300 + off[h + 1]))
 
 
 @pytest.mark.parametrize("block_shape", [(8, 128), (16, 64), (3, 32)])

@@ -184,12 +184,12 @@ def test_cuda_wrappers_raise_on_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("k", [128, 32, 1])
 def test_ell_spmm_on_card_matches_scipy(cuda, k):
     A = tsyn.webgraph_like(20000, 150000, seed=0)
-    E = ell_pack(A, max_len=256).to(cuda)  # leftover rows take the gather path
+    E = ell_pack(A, max_len=256).to(cuda)  # leftover rows ride in the launch as pieces
     assert E.n_rest_rows > 0
     B = rhs(20000, k, k)
-    n0 = ell_kernel.launches
+    n0, p0 = ell_kernel.launches, ell_kernel.rest_piece_launches
     Y = ops.ell_spmm(E, torch.from_numpy(B).to(cuda)).cpu().numpy()
-    assert ell_kernel.launches == n0 + 1  # one launch over every slab
+    assert ell_kernel.launches == n0 + 1 and ell_kernel.rest_piece_launches == p0 + 1  # one launch, every slab
     ref = A.to_scipy() @ B
     assert np.abs(Y - ref).max() <= 1e-5 * np.abs(ref).max()
 
@@ -1942,8 +1942,8 @@ def test_attention_scores_on_k3_and_aggregation_on_k2_match_plain(cuda, k, max_l
     over the softmax's values (K2 re-pointed at them), and the backward of
     all three (K2 with the row map and on the transposed pack, K3), against
     the same ops on the CPU's plain versions at 1e-5 of each tensor's
-    largest element; the launches counted; with no leftover rows, a second
-    step gives the same bits."""
+    largest element; the launches counted, those carrying leftover pieces
+    too; a second step gives the same bits, with leftover rows too."""
     from spmm_tpu_torch.ops import attention
 
     A = _attention_graph(3000, 40 + k)
@@ -1959,18 +1959,122 @@ def test_attention_scores_on_k3_and_aggregation_on_k2_match_plain(cuda, k, max_l
         a = ops.ell_edge_softmax(E, S, scale=k ** -0.5)
         y = ops.ell_spmm(a, v)
         grads = torch.autograd.grad((y * W.to(dev)).sum(), [q, kk, v])
-        return [*S.data, *a.data, y, *grads]
+        return [*S.data, *a.data, *((S.rest.data, a.rest.data) if E.n_rest_rows else ()), y, *grads]
 
     want = step(E, torch.device("cpu"))
-    n0, t0, s0, a0 = ell_kernel.launches, ell_kernel.transposed_launches, ell_kernel.sddmm_launches, \
-        attention.score_launches
+    n0, t0, s0, a0, p0 = ell_kernel.launches, ell_kernel.transposed_launches, ell_kernel.sddmm_launches, \
+        attention.score_launches, ell_kernel.rest_piece_launches
     got = step(Ec, cuda)
     torch.cuda.synchronize()
     assert attention.score_launches - a0 == 1
     assert ell_kernel.sddmm_launches - s0 == 2  # the scores, and dα in the aggregation's backward
     assert ell_kernel.launches - n0 == 4 and ell_kernel.transposed_launches - t0 == 2  # y; dV, dQ, dK
+    assert ell_kernel.rest_piece_launches - p0 == (6 if E.n_rest_rows else 0)
     for a, b in zip(got, want, strict=True):
         assert _rel(a.cpu(), b) <= 1e-5
-    if max_len == 2048:
-        again = step(Ec, cuda)
-        assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+    again = step(Ec, cuda)
+    assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+
+
+def _cut_pieces(E, dev, cut):
+    """E's leftover rows cut at ``cut`` into pieces, memoized where the ops
+    find them (``ops.ell_spmm._pieces``)."""
+    es = importlib.import_module("spmm_tpu_torch.ops.ell_spmm")
+    out_rows, rest_rows, _ = es._row_maps(E, dev)
+    P = ell_kernel.rest_pieces(E.cols, out_rows, lambda: es.slab_row_keys(E), E.rest, rest_rows, E.shape[0],
+                               dev, cut=cut)
+    ell_kernel.table_memo(E)[("pieces", dev)] = P
+    return P
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 64, 128])
+@pytest.mark.parametrize("cut", [2048, 128, 32])
+def test_attention_pieces_on_k2_and_k3_match_plain(cuda, k, cut):
+    """A graph whose leftover rows (300-700 entries past ``max_len`` 128) are
+    cut into one, a few or many pieces: scores, softmax, aggregation and
+    the gradients to Q, K and V on the card against the plain versions over
+    the same pieces at 1e-5; K2 and K3 launched as without leftover rows
+    (one K3 and two K2 a product, each carrying the pieces); three steps
+    give the same bits; a profiled step gathers no dense row per leftover
+    entry (an ``index_select``, ``index`` or ``index_add_`` of a 2-D operand
+    at nnz_rest indices)."""
+    from spmm_tpu_torch.ops import attention
+
+    A = _attention_graph(3000, 60 + k)
+    E = ell_pack(A, max_len=128)
+    Ec = E.to(cuda)
+    P, Pc = _cut_pieces(E, torch.device("cpu"), cut), _cut_pieces(Ec, cuda, cut)
+    assert E.n_rest_rows == 8 and P.count == Pc.count and (P.scratch > 0) == (cut < 700)
+    g = torch.Generator().manual_seed(k)
+    Q, K, V, W = (torch.randn(3000, k, generator=g) for _ in range(4))
+
+    def step(E, dev):
+        q, kk, v = (t.to(dev).requires_grad_() for t in (Q, K, V))
+        S = ops.ell_sddmm(E, q, kk)
+        a = ops.ell_edge_softmax(E, S, scale=k ** -0.5)
+        y = ops.ell_spmm(a, v)
+        grads = torch.autograd.grad((y * W.to(dev)).sum(), [q, kk, v])
+        return [S.rest.data, a.rest.data, *S.data, y, *grads]
+
+    want = step(E, torch.device("cpu"))
+    counts = lambda: (ell_kernel.launches, ell_kernel.transposed_launches, ell_kernel.sddmm_launches,
+                      attention.score_launches, ell_kernel.rest_piece_launches)
+    c0 = counts()
+    got = step(Ec, cuda)
+    torch.cuda.synchronize()
+    assert tuple(b - a for a, b in zip(c0, counts())) == (4, 2, 2, 1, 6)
+    for a, b in zip(got, want, strict=True):
+        assert _rel(a.cpu(), b) <= 1e-5
+    for _ in range(2):
+        assert all(torch.equal(a, b) for a, b in zip(got, step(Ec, cuda), strict=True))
+    entries = {Ec.rest.nnz, int(Ec.rest.data.shape[0])}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU], record_shapes=True) as prof:
+        step(Ec, cuda)
+        torch.cuda.synchronize()
+    gathers = [(e.name, e.input_shapes) for e in prof.events()
+               if e.name in ("aten::index_select", "aten::index", "aten::index_add_", "aten::index_add")
+               and any(len(sh) == 2 for sh in e.input_shapes if isinstance(sh, list))
+               and any(len(sh) == 1 and sh[0] in entries for sh in e.input_shapes if isinstance(sh, list))]
+    assert not gathers, gathers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 128])
+@pytest.mark.parametrize("cut", [2048, 64])
+def test_ell_spmm_pieces_match_plain(cuda, k, cut):
+    """``ops.ell_spmm`` over a web graph's pack with leftover rows (its hubs
+    past ``max_len`` 256) cut into pieces: the product and the gradients to
+    B and to every value (the leftover ones in their CSR's order) on the
+    card against the plain versions over the same pieces at 1e-5 and scipy;
+    one K2 launch forward, K2 on the transposed pack and K3 backward, all
+    carrying the pieces; repeats give the same bits."""
+    A = tsyn.webgraph_like(20000, 150000, seed=38)
+    E = ell_pack(A, max_len=256)
+    assert E.n_rest_rows > 0
+    Ec = E.to(cuda)
+    P, Pc = _cut_pieces(E, torch.device("cpu"), cut), _cut_pieces(Ec, cuda, cut)
+    assert P.count == Pc.count and (cut == 64) == (P.scratch > 0)
+    B0 = torch.from_numpy(rhs(20000, k, 39))
+    W = torch.from_numpy(rhs(20000, k, 40))
+
+    def run(E, dev):
+        data = [torch.as_tensor(d).to(dev).clone().requires_grad_() for d in E.data]
+        rest = torch.as_tensor(E.rest.data).to(dev).clone().requires_grad_()
+        B = B0.to(dev).clone().requires_grad_()
+        y = ops.ell_spmm(ops.ell_with_values(E, data, rest), B)
+        return [y, *torch.autograd.grad((y * W.to(dev)).sum(), [B, rest, *data])]
+
+    want = run(E, torch.device("cpu"))
+    c0 = (ell_kernel.launches, ell_kernel.transposed_launches, ell_kernel.sddmm_launches,
+          ell_kernel.rest_piece_launches)
+    got = run(Ec, cuda)
+    torch.cuda.synchronize()
+    c1 = (ell_kernel.launches, ell_kernel.transposed_launches, ell_kernel.sddmm_launches,
+          ell_kernel.rest_piece_launches)
+    assert tuple(b - a for a, b in zip(c0, c1)) == (2, 1, 1, 3)
+    for a, b in zip(got, want, strict=True):
+        assert _rel(a.cpu(), b) <= 1e-5
+    ref = A.to_scipy() @ B0.double().numpy()
+    assert np.abs(got[0].detach().cpu().double().numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+    assert all(torch.equal(a, b) for a, b in zip(got, run(Ec, cuda), strict=True))

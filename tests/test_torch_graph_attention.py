@@ -13,16 +13,23 @@ element against its own scale, within 1e-5.  The card's kernels are held to
 these plain versions by ``tests/test_torch_cuda.py``.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from portbench.reference import graph_transformer as R
 from spmm_tpu_torch import ops
 from spmm_tpu_torch.formats import CSR, ell_pack
+from spmm_tpu_torch.formats.ell import ELL
 from spmm_tpu_torch.nn import GraphTransformer, TransformerConv
 from spmm_tpu_torch.ops import attention, ell_kernel
 from spmm_tpu_torch.utils.profiling import profile_fn
+
+ell_spmm_module = importlib.import_module("spmm_tpu_torch.ops.ell_spmm")  # the module, not ops.ell_spmm
 
 #: the pack's length classes: the default (exact up to 64, steps of 32 above,
 #: nothing left over on these graphs) and a small one whose rows above 64
@@ -279,25 +286,269 @@ def test_the_layer_looks_up_its_ops_at_call_time_and_records_its_spans(monkeypat
         assert prof.spans.get(name, 0) > 0, name
 
 
+class _Outputs(TorchDispatchMode):
+    """The shape of every tensor each op makes while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.shapes += [tuple(t.shape) for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        return out
+
+
 @pytest.mark.parametrize("op", ["scores", "aggregation"])
 def test_leftover_rows_keep_no_gathered_rows_for_the_backward(op):
     """The leftover rows' scores (``ell_sddmm``) and their aggregation
-    (``ell_spmm``'s ``spmm_xla``) save no gathered rows, one per leftover
-    entry, for the backward: at a graph's size those would be an nnz × d
-    pair a head and layer.  Their gradients are held to the reference by the
-    layer and step tests above."""
+    (``ell_spmm``) ride in K2's and K3's launches as pieces: neither the
+    forward nor the backward makes a tensor of gathered rows, one per
+    leftover entry (at a graph's size an nnz × d tensor a head and layer),
+    and none is saved for the backward.  (The plain versions' per-slab
+    products, (R, L, d) tensors, are what the kernels hold in registers.)
+    Their values are held to the reference by the tests above and below."""
     indptr, indices = _graph(200, 17)
     E = _pack(indptr, indices, "rest")
     entries = {E.rest.nnz, E.rest.data.shape[0]}  # the leftover entries, with and without padding
     assert 200 not in entries
     g = torch.Generator().manual_seed(18)
     Q, K = (torch.randn(200, 8, dtype=torch.float64, generator=g, requires_grad=True) for _ in range(2))
-    shapes = []
-    with torch.autograd.graph.saved_tensors_hooks(lambda t: shapes.append(tuple(t.shape)) or t, lambda t: t):
+    saved, made = [], _Outputs()
+    with made, torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(tuple(t.shape)) or t, lambda t: t):
         S = ops.ell_sddmm(E, Q, K)
         out = S.rest.data if op == "scores" else ops.ell_spmm(S, K, accum_dtype=torch.float64)
-    # on the CPU the plain ordered sum (``torch.segment_reduce``) keeps its
-    # input, one such tensor; the card's kernel keeps none
-    kept = [s for s in shapes if len(s) == 2 and s[0] in entries]
-    assert shapes and len(kept) == (op == "aggregation"), shapes
-    torch.autograd.grad(out.square().sum(), [Q, K])
+        torch.autograd.grad(out.square().sum(), [Q, K])
+    gathered = lambda shapes: [s for s in shapes if len(s) == 2 and s[0] in entries and s[1] == 8]
+    assert saved and made.shapes and not gathered(saved) and not gathered(made.shapes), gathered(made.shapes)
+    assert any(s == (E.rest.data.shape[0],) for s in made.shapes)  # one scalar an entry, as the reorders make
+
+
+# ---- the leftover rows cut into pieces (ell_kernel.RestPieces) -------------
+
+#: cuts of the leftover rows into pieces: the default (each leftover row of
+#: these graphs one piece), the pack's max_len (rows of max_len + 1 and
+#: 2·max_len + 1 entries cut into two and three, the last piece of one entry)
+#: and 8 (many pieces a row)
+CUTS = [ell_kernel.T_CUT, 64, 8]
+#: the long rows of :func:`_long_graph`: exactly max_len (a slab row), then
+#: rows left over
+LONG = {3: 64, 11: 65, 20: 100, 40: 129, 41: 200}
+
+
+def _long_graph(n: int, seed: int):
+    """``(indptr, indices, data)`` of an n × n pattern as :func:`_graph`'s,
+    with the rows of ``LONG``; one entry of the 200-entry row has the value
+    0: padding in E inside a leftover row, no edge."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, 12, n)
+    lens[::17] = 0
+    for row, k in LONG.items():
+        lens[row] = k
+    indptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    indices = np.concatenate([np.sort(rng.choice(n, int(k), replace=False)) for k in lens]).astype(np.int32)
+    data = np.ones(len(indices))
+    data[indptr[41] + 7] = 0
+    return indptr, indices, data
+
+
+def _cut_pack(cut: int, n: int = 300, seed: int = 30):
+    """The :func:`_long_graph` pack with max_len 64 and its leftover rows cut
+    at ``cut`` (memoized where the ops find it), the pieces, and the graph's
+    edges for the reference, without the zero."""
+    indptr, indices, data = _long_graph(n, seed)
+    E = ell_pack(CSR(data=data, indices=indices, indptr=indptr, shape=(n, n), nnz=len(indices)), **PACKS["rest"])
+    dev = torch.device("cpu")
+    out_rows, rest_rows, _ = ell_spmm_module._row_maps(E, dev)
+    P = ell_kernel.rest_pieces(E.cols, out_rows, lambda: ell_spmm_module.slab_row_keys(E), E.rest, rest_rows,
+                               n, dev, cut=cut)
+    ell_kernel.table_memo(E)[("pieces", dev)] = P
+    keep = data != 0
+    ip = np.concatenate([[0], np.cumsum(np.add.reduceat(keep, indptr[:-1]) * (np.diff(indptr) > 0))])
+    return E, P, torch.from_numpy(ip), torch.from_numpy(indices[keep])
+
+
+def _dense(E, values: ELL, n: int):
+    """The n × n matrix of ``values`` on E's slots, read through E's row order."""
+    dense = torch.zeros(n, n, dtype=torch.float64)
+    perm, lo = np.asarray(E.perm).astype(np.int64), E.n_empty
+    for c, v in zip(E.cols, values.data):
+        rows = torch.from_numpy(perm[lo : lo + c.shape[0]])[:, None].expand(c.shape)
+        dense.index_put_((rows.reshape(-1), torch.from_numpy(np.asarray(c)).long().reshape(-1)),
+                         torch.as_tensor(v).detach().double().reshape(-1), accumulate=True)
+        lo += c.shape[0]
+    seg = torch.repeat_interleave(torch.from_numpy(perm[lo:]), torch.from_numpy(np.diff(E.rest.indptr)).long())
+    cols = torch.from_numpy(np.asarray(E.rest.indices[: E.rest.nnz])).long()
+    dense.index_put_((seg, cols), torch.as_tensor(values.rest.data)[: E.rest.nnz].detach().double(), accumulate=True)
+    return dense
+
+
+@pytest.mark.parametrize("cut", CUTS)
+def test_pieces_cut_every_leftover_row_once(cut):
+    """Each leftover row's entries in pieces of at most ``cut``, in order,
+    each entry in one slot (the reorders ``src`` and ``dst`` inverse to each
+    other), a last piece padded by < 32 slots; an uncut row's piece written
+    at its row, a cut row's at scratch rows past m in order, joined into the
+    row; the row of exactly max_len entries in a slab."""
+    E, P, _, _ = _cut_pack(cut)
+    n, m = 300, 300
+    perm = np.asarray(E.perm)
+    rest_rows = perm[m - E.n_rest_rows :]
+    assert sorted(rest_rows) == [11, 20, 40, 41] and 3 in perm[E.n_empty : m - E.n_rest_rows]
+    want = {row: -(-LONG[row] // cut) for row in rest_rows}
+    assert P.count == sum(want.values()) and list(np.diff(P.piece_offsets)) == [want[r] for r in rest_rows]
+    assert int(P.piece_len.max()) <= cut and P.piece_len.sum() == E.rest.nnz
+    pieces = P.cols[len(E.cols) :]
+    assert len(pieces) == P.piece_slabs and sum(int(c.shape[0]) for c in pieces) == P.count
+    src, dst = P.src.numpy(), P.dst.numpy()
+    nnz_pad = E.rest.data.shape[0]
+    live = src < nnz_pad
+    assert sorted(src[live]) == list(range(E.rest.nnz))  # every entry in one slot
+    np.testing.assert_array_equal(dst[src[live]], np.nonzero(live)[0])
+    assert (dst[E.rest.nnz :] == len(src)).all()
+    flat_cols = np.concatenate([c.numpy().reshape(-1) for c in pieces])
+    np.testing.assert_array_equal(flat_cols[live], np.asarray(E.rest.indices)[src[live]])
+    off = 0
+    for c in pieces:  # a piece's padding: < 32 slots, after its entries
+        R, L = c.shape
+        used = live[off : off + R * L].reshape(R, L)
+        assert (L - used.sum(1) < 32).all() and (np.sort(~used, 1) == ~used).all()
+        off += R * L
+    if cut == 64:  # the rows of max_len + 1 and 2·max_len + 1: a last piece of one entry
+        assert any(c.shape[1] == 1 for c in pieces)
+    read, write = P.read_rows.numpy()[-P.count :], P.write_rows.numpy()[-P.count :]
+    cut_rows = [r for r in rest_rows if want[r] > 1]
+    single = np.isin(read, cut_rows, invert=True)
+    np.testing.assert_array_equal(write[single], read[single])
+    assert sorted(write[~single]) == list(range(m, m + P.scratch)) and P.scratch == sum(want[r] for r in cut_rows)
+    assert P.join_rows.tolist() == cut_rows
+    np.testing.assert_array_equal(P.read_rows.numpy()[: -P.count], P.write_rows.numpy()[: -P.count])
+    for r in cut_rows:  # a cut row's scratch rows are consecutive, in its pieces' order
+        j = cut_rows.index(r)
+        lo, hi = int(P.join_plan.offsets[j]), int(P.join_plan.offsets[j + 1])
+        assert sorted(write[read == r]) == list(range(m + lo, m + hi))
+    assert P.row_keys.shape == (sum(int(c.shape[0]) for c in P.cols),) and n == m
+
+
+@pytest.mark.parametrize("cut", CUTS)
+def test_pieces_match_the_reference(cut):
+    """Scores, softmax and aggregation over a pack whose leftover rows take
+    one, two and three, or many pieces, and the gradients to Q, K and V, in
+    float64 against the reference's layer (its Q, K and V the columns of x,
+    no skip), edge by edge; a second run gives the same bits."""
+    E, _, ip, ix = _cut_pack(cut)
+    n, d = 300, 4
+    eye = torch.eye(d, dtype=torch.float64)
+    zero = torch.zeros(d, d, dtype=torch.float64)
+    params = {f"l.{lin}.weight": torch.cat([eye if i == j else zero for j in range(3)], 1)
+              for i, lin in enumerate(R.LINS[:3])}
+    params["l.lin_skip.weight"] = torch.zeros(d, 3 * d, dtype=torch.float64)
+    params.update({f"l.{lin}.bias": torch.zeros(d, dtype=torch.float64) for lin in R.LINS})
+    x = torch.randn(n, 3 * d, dtype=torch.float64, generator=torch.Generator().manual_seed(31))
+    W = torch.randn(n, d, dtype=torch.float64, generator=torch.Generator().manual_seed(32))
+    xr = x.clone().requires_grad_()
+    rows, cols = R._edges(ip, ix)
+    ref, _, _, _, alpha = R.layer(xr, rows, cols, params, "l", 1, d, 7)
+    (want,) = torch.autograd.grad((ref * W).sum(), [xr])
+
+    def run():
+        Q, K, V = (x[:, i * d : (i + 1) * d].clone().requires_grad_() for i in range(3))
+        S = ops.ell_sddmm(E, Q, K)
+        A = ops.ell_edge_softmax(E, S, scale=d ** -0.5)
+        Y = ops.ell_spmm(A, V, accum_dtype=torch.float64)
+        return S, A, Y, torch.autograd.grad((Y * W).sum(), [Q, K, V])
+
+    S, A, Y, grads = run()
+    qk = torch.zeros(n, n, dtype=torch.float64)
+    qk[rows, cols] = (x[rows, :d] * x[cols, d : 2 * d]).sum(1)
+    _close(_dense(E, S, n), qk, 1e-12)  # 0 on padding, the zero entry included
+    dense_alpha = torch.zeros(n, n, dtype=torch.float64)
+    dense_alpha[rows, cols] = alpha[:, 0].detach()
+    _close(_dense(E, A, n), dense_alpha, 1e-12)
+    _close(Y, ref, 1e-10)
+    _close(torch.cat(grads, 1), want, 1e-10)
+    again = run()
+    assert torch.equal(Y, again[2]) and all(torch.equal(a, b) for a, b in zip(grads, again[3], strict=True))
+    assert torch.equal(S.rest.data, again[0].rest.data) and torch.equal(A.rest.data, again[1].rest.data)
+
+
+@pytest.mark.parametrize("cut", CUTS)
+def test_pieces_layer_matches_the_reference(cut):
+    """One 2-head TransformerConv in float64 over the cut pack: its output
+    and the gradients to its weights and to x against the reference's
+    layer under autograd."""
+    E, _, ip, ix = _cut_pack(cut)
+    torch.manual_seed(33)
+    conv = TransformerConv(6, 2, 5, dtype=torch.float64)
+    x = torch.randn(300, 6, dtype=torch.float64, requires_grad=True)
+    w = torch.randn(300, 10, dtype=torch.float64)
+    out = conv(E, x)
+    got = torch.autograd.grad((out * w).sum(), [x, *conv.parameters()])
+    params = {f"layers.0.{name}": p.detach().clone().requires_grad_() for name, p in conv.named_parameters()}
+    xr = x.detach().clone().requires_grad_()
+    rows, cols = R._edges(ip, ix)
+    ref = R.layer(xr, rows, cols, params, "layers.0", 2, 5, 7)[0]
+    want = torch.autograd.grad((ref * w).sum(), [xr, *params.values()])
+    _close(out, ref, 1e-10)
+    for g, r in zip(got, want, strict=True):
+        _close(g, r, 1e-10, _grad_scale(want))
+
+
+@pytest.mark.parametrize("cut", CUTS)
+def test_gradcheck_through_the_joined_softmax(cut):
+    """``torch.autograd.gradcheck`` in float64 of ``ell_edge_softmax`` over a
+    pack whose leftover rows are cut (the pieces' maxima and sums joined per
+    row) to every value, the leftover entries' in the CSR's order, and of
+    ``ell_sddmm`` to Q and K."""
+    E, _, _, _ = _cut_pack(cut, n=210, seed=34)
+    g = torch.Generator().manual_seed(35)
+    Q, K = (torch.randn(210, 3, dtype=torch.float64, generator=g, requires_grad=True) for _ in range(2))
+    flat = lambda V: (*V.data, V.rest.data)
+    assert torch.autograd.gradcheck(lambda q, k: flat(ops.ell_sddmm(E, q, k)), (Q, K), fast_mode=True)
+    S = ops.ell_sddmm(E, Q.detach(), K.detach())
+    vals = [v.detach().clone().requires_grad_() for v in flat(S)]
+    softmax = lambda *v: flat(ops.ell_edge_softmax(E, ops.ell_with_values(E, v[:-1], v[-1]), scale=0.7))
+    assert torch.autograd.gradcheck(softmax, tuple(vals), fast_mode=True)
+
+
+@pytest.mark.parametrize("cut", CUTS)
+def test_ell_spmm_over_pieces_matches_dense(cut):
+    """``ops.ell_spmm`` of an ELL with values over the cut pack: the product
+    and the gradient to B against the dense matrix, the gradient to each
+    value (a slab slot's, or a leftover entry's in the CSR's order, 0 on its
+    padding) against dY's row times B's; a second run gives the same bits;
+    an ELL with no leftover rows builds no pieces."""
+    E, _, _, _ = _cut_pack(cut)
+    g = torch.Generator().manual_seed(36)
+    data = [(torch.randn(d.shape, dtype=torch.float64, generator=g) * torch.from_numpy(np.asarray(d))).requires_grad_()
+            for d in E.data]
+    rest = (torch.randn(E.rest.data.shape, dtype=torch.float64, generator=g)
+            * torch.from_numpy(np.asarray(E.rest.data))).requires_grad_()
+    B = torch.randn(300, 5, dtype=torch.float64, generator=g).requires_grad_()
+    W = torch.randn(300, 5, dtype=torch.float64, generator=g)
+
+    def run():
+        y = ops.ell_spmm(ops.ell_with_values(E, data, rest), B, accum_dtype=torch.float64)
+        return y, torch.autograd.grad((y * W).sum(), [B, *data, rest])
+
+    y, grads = run()
+    dense = _dense(E, ops.ell_with_values(E, data, rest), 300)
+    _close(y, dense @ B.detach(), 1e-12)
+    _close(grads[0], dense.T @ W, 1e-12)
+    perm, lo = np.asarray(E.perm).astype(np.int64), E.n_empty
+    for c, gd in zip(E.cols, grads[1:-1]):
+        c = torch.from_numpy(np.asarray(c)).long()
+        rows = torch.from_numpy(perm[lo : lo + c.shape[0]])
+        _close(gd, (W[rows][:, None, :] * B.detach()[c]).sum(-1), 1e-12)
+        lo += c.shape[0]
+    nnz = E.rest.nnz
+    seg = torch.repeat_interleave(torch.from_numpy(perm[lo:]), torch.from_numpy(np.diff(E.rest.indptr)).long())
+    want = (W[seg] * B.detach()[torch.from_numpy(np.asarray(E.rest.indices[:nnz])).long()]).sum(-1)
+    _close(grads[-1][:nnz], want, 1e-12)
+    assert not grads[-1][nnz:].any()
+    again = run()
+    assert torch.equal(y, again[0]) and all(torch.equal(a, b) for a, b in zip(grads, again[1], strict=True))
+    indptr, indices = _graph(60, 37)
+    plain = _pack(indptr, indices, "slabs")
+    ops.ell_spmm(plain, torch.randn(60, 3))
+    assert not any(k[0] == "pieces" for k in ell_kernel.table_memo(plain) if isinstance(k, tuple))
